@@ -1,0 +1,16 @@
+"""OSMOSIS core, as the serving engine uses it: schedulers, SLO,
+admission, accounting, events and the shared engine layer."""
+from repro_torch.core.accounting import (FCTTracker, TimeAveragedJain,
+                                         jain_fairness, weighted_jain)
+from repro_torch.core.admission import AdmissionError, SegmentAllocator
+from repro_torch.core.engine_base import BudgetLedger, EngineBase, EQHub
+from repro_torch.core.events import Event, EventKind, EventQueue
+from repro_torch.core.slo import ECTX, SLOPolicy
+from repro_torch.core import sched_generic, wlbvt
+
+__all__ = [
+    "FCTTracker", "TimeAveragedJain", "jain_fairness", "weighted_jain",
+    "AdmissionError", "SegmentAllocator", "BudgetLedger", "EngineBase",
+    "EQHub", "Event", "EventKind", "EventQueue",
+    "ECTX", "SLOPolicy", "sched_generic", "wlbvt",
+]

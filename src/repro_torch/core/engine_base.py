@@ -1,0 +1,213 @@
+"""Shared engine-core layer: the tenant/budget/EQ/telemetry plumbing the
+serving engine runs on.
+
+  * ``BudgetLedger``    — per-tenant lifetime spend (tokens on the
+    serving engine) plus the watchdog clamp semantics of §5.2/§5.3: a
+    kernel is truncated at its per-kernel cycle budget, and at the
+    tenant's remaining *total* allowance (the permanent form of the same
+    mechanism).
+  * ``EQHub``           — per-ECTX event-queue delivery: one shared
+    chronological queue, or one ``EventQueue`` per tenant (the serving
+    engine's ``poll_events`` surface, with retire-on-destroy).
+  * ``EngineBase``      — ECTX registry (dense tenant table + installed
+    mask), the telemetry plane (staging wrapper + window commits) and the
+    admission gate.
+
+The QoS controller, the metrics bus, the SLO audit and the trace
+recorder are not part of this package yet: attaching one raises
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from repro_torch.core.events import Event, EventKind, EventQueue
+from repro_torch.core.slo import ECTX
+
+
+class BudgetLedger:
+    """Per-tenant lifetime spend + the paper's watchdog clamp semantics.
+
+    The unit is backend-defined (PU cycles on the simulator, tokens on
+    the serving engine); the logic is shared.
+    """
+
+    def __init__(self, num_tenants: int):
+        self.spent = np.zeros(num_tenants)
+
+    # -- simulator surface: clamp a kernel's cost before execution ---------
+    @staticmethod
+    def clamp_kernel(cost: float, limit: float) -> tuple:
+        """Per-kernel watchdog (§5.3): returns ``(cost, killed)`` with the
+        cost truncated at ``limit`` (0 = unlimited)."""
+        if limit and cost > limit:
+            return float(limit), True
+        return cost, False
+
+    def clamp_total(self, tenant: int, cost: float, limit: float) -> tuple:
+        """Lifetime-budget watchdog (billing, §5.2): truncate ``cost`` at
+        the tenant's remaining total allowance and charge the ledger.
+        Returns ``(cost, budget_killed)`` — exhaustion is permanent."""
+        budget_killed = False
+        if limit:
+            remaining = float(limit) - self.spent[tenant]
+            if cost > remaining:
+                budget_killed = True
+                cost = max(0.0, remaining)
+        self.spent[tenant] += cost
+        return cost, budget_killed
+
+    # -- serving surface: incremental charging --------------------------------
+    def charge(self, tenant: int, amount: float) -> None:
+        self.spent[tenant] += amount
+
+    def over_total(self, tenant: int, limit: float) -> bool:
+        """Post-charge lifetime check (the serving engine charges per
+        generated token, then kills)."""
+        return bool(limit and self.spent[tenant] > limit)
+
+    def exhausted(self, tenant: int, limit: float) -> bool:
+        """Admission-time lifetime check (>=: a tenant that spent exactly
+        its allowance gets no further admission)."""
+        return bool(limit and self.spent[tenant] >= limit)
+
+    def reset(self, tenant: int) -> None:
+        """Budget is per tenant *identity*: a reused id starts fresh."""
+        self.spent[tenant] = 0.0
+
+    @staticmethod
+    def kill_kind(budget_killed: bool) -> EventKind:
+        return (EventKind.TOTAL_BUDGET_EXCEEDED if budget_killed
+                else EventKind.CYCLE_BUDGET_EXCEEDED)
+
+
+class EQHub:
+    """Per-ECTX event-queue delivery (paper §5.2, R5) in both layouts.
+
+    ``shared=True``  — one chronological queue for the whole engine (the
+    simulator: events are produced in virtual-time order and drained
+    into ``SimResult.events``).
+    ``shared=False`` — one ``EventQueue`` per tenant with install/retire
+    lifecycle (the serving engine's ``poll_events`` surface).
+    """
+
+    def __init__(self, *, shared: bool, capacity: int = 4096):
+        self.shared = shared
+        self.capacity = capacity
+        self._q: Optional[EventQueue] = (EventQueue(capacity) if shared
+                                         else None)
+        self.queues: Dict[int, EventQueue] = {}
+
+    def install(self, tenant: int) -> None:
+        if not self.shared:
+            self.queues[tenant] = EventQueue(self.capacity)
+
+    def retire(self, tenant: int) -> Optional[EventQueue]:
+        """Remove a tenant's queue (last chance to observe its events)."""
+        return self.queues.pop(tenant, None)
+
+    def __contains__(self, tenant: int) -> bool:
+        return self.shared or tenant in self.queues
+
+    def push(self, ev: Event) -> None:
+        q = self._q if self.shared else self.queues.get(ev.tenant)
+        if q is not None:
+            q.push(ev)
+
+    def poll(self, tenant: int) -> List[Event]:
+        if self.shared:
+            raise RuntimeError("shared EQHub drains globally, not per "
+                               "tenant")
+        return self.queues[tenant].drain()
+
+    def drain_all(self) -> List[Event]:
+        if not self.shared:
+            raise RuntimeError("per-tenant EQHub is polled per tenant")
+        return self._q.drain()
+
+    def snapshot(self, tenant: int) -> List[Event]:
+        q = self._q if self.shared else self.queues.get(tenant)
+        return q.snapshot() if q is not None else []
+
+
+class EngineBase:
+    """Backend-agnostic tenant machinery shared by every engine.
+
+    Owns the ECTX registry (dense table + installed mask), the budget
+    ledger, the EQ hub, the telemetry plane and the admission gate.
+    Subclasses (``serving.engine.Engine``) keep only their execution
+    semantics: *when* these mechanisms fire and what the data plane in
+    between looks like.
+    """
+
+    def __init__(self, max_tenants: int, *, shared_eq: bool,
+                 eq_capacity: int = 4096, telemetry: bool = True,
+                 telemetry_backend: str = "numpy", trace: bool = False):
+        from repro_torch.telemetry import Telemetry
+        if trace:
+            raise NotImplementedError(
+                "the trace plane (flight recorder) is not ported yet")
+        T = max_tenants
+        self.max_tenants = T
+        self.ectxs: Dict[int, ECTX] = {}
+        self._installed = np.zeros(T, bool)
+        self.budget = BudgetLedger(T)
+        self.eqhub = EQHub(shared=shared_eq, capacity=eq_capacity)
+        self.tel = (Telemetry(T, backend=telemetry_backend)
+                    if telemetry else None)
+        self.trace = None
+        self.controller = None
+        self.bus = None
+        self.slo_audit = None
+        self._admit = np.ones(T, bool)       # controller backpressure gate
+
+    # -- ECTX registry -------------------------------------------------------
+    def register_tenant(self, e: ECTX, *, fmq_index: Optional[int] = None,
+                        announce: bool = False, now: float = 0.0) -> ECTX:
+        """Install one ECTX: dense-table row, EQ install, optional
+        ``ADMITTED`` event.  The caller seeds its scheduler arrays."""
+        tid = e.tenant_id
+        if fmq_index is not None:
+            e.fmq_index = fmq_index
+        self.ectxs[tid] = e
+        self._installed[tid] = True
+        self.eqhub.install(tid)
+        if announce:
+            self.eqhub.push(Event(tid, EventKind.ADMITTED, now))
+        return e
+
+    def deregister_tenant(self, tenant: int) -> Optional[EventQueue]:
+        """Uninstall one ECTX: registry row, installed bit, admission
+        gate, budget and telemetry (a reused tenant id must not inherit
+        any of them).  Returns the retired EventQueue (per-tenant layout)
+        so the caller can flush final events."""
+        self.ectxs.pop(tenant, None)
+        self._installed[tenant] = False
+        self._admit[tenant] = True
+        self.budget.reset(tenant)
+        if self.tel is not None:
+            self.tel.reset_tenant(tenant)
+        return self.eqhub.retire(tenant)
+
+    @property
+    def installed(self) -> np.ndarray:
+        return self._installed
+
+    def admitted(self, tenant: int) -> bool:
+        """Controller backpressure gate (False = source-throttled)."""
+        return bool(self._admit[tenant])
+
+    # -- observability hooks (not ported yet) --------------------------------
+    def attach_bus(self, bus) -> None:
+        raise NotImplementedError("the metrics bus is not ported yet")
+
+    def attach_slo_audit(self, audit) -> None:
+        raise NotImplementedError("the SLO burn-rate audit is not ported yet")
+
+    def observe_tick(self, *, t: float, prio, total_occup, bvt,
+                     kv_pressure) -> None:
+        """One observation interval.  With no metrics bus and no SLO audit
+        attached (the only state this package has) it does nothing."""
+        return None

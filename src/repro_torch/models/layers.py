@@ -1,0 +1,115 @@
+"""Shared model building blocks on torch tensors.
+
+Parameters live in ``nn.Module``s (see ``models/transformer.py``); the
+functions here are plain tensor code.  Norms, RoPE and softmax run in
+fp32; matmuls run in ``cfg.dtype`` with the weights (held in
+``cfg.param_dtype``) cast at the point of use, as in the JAX package.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def pdtype_of(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+# ---------------------------------------------------------------------------
+# init helpers (random weights drawn from an explicit generator, on the
+# generator's device)
+# ---------------------------------------------------------------------------
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype: torch.dtype) -> torch.Tensor:
+    w = torch.randn((d_in, d_out), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return w.mul_(1.0 / math.sqrt(d_in)).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int,
+               dtype: torch.dtype) -> torch.Tensor:
+    w = torch.randn((vocab, d), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return w.mul_(0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms / activations
+# ---------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    # gemma-style (1 + scale) parameterization: init at zeros == identity
+    return (normed * (1.0 + scale.float())).to(x.dtype)
+
+
+def act_fn(name: str):
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {name}")
+
+
+def apply_mlp(w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+              x: torch.Tensor, act: str) -> torch.Tensor:
+    """Gated MLP (SwiGLU / GeGLU)."""
+    dt = x.dtype
+    gate = act_fn(act)(x @ w_gate.to(dt))
+    up = x @ w_up.to(dt)
+    return (gate * up) @ w_down.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32, device=device) / half
+    return 1.0 / (theta ** exps)
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int,
+                theta: float) -> torch.Tensor:
+    """positions: (B, S) -> angles (B, S, half)."""
+    inv = rope_freqs(head_dim, theta, positions.device)
+    return positions.float()[..., None] * inv
+
+
+def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, D); angles: (B, S, D/2) — NeoX rotate-half convention."""
+    half = x.shape[-1] // 2
+    xf = x.float()
+    x1, x2 = xf[..., :half], xf[..., half:]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# embedding / logits (tied)
+# ---------------------------------------------------------------------------
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    x = table[tokens.long()].to(dtype_of(cfg))
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
+
+
+def lm_logits(x: torch.Tensor, embed_table: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    logits = (x @ embed_table.T.to(x.dtype)).float()
+    if cfg.final_softcap:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits

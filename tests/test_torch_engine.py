@@ -1,0 +1,87 @@
+"""The port's serving engine against the JAX package's.
+
+With the model executor: ``serve_mixed_slo`` (3 tenants, 6 requests,
+max_len 64, prefill chunk 16) on the float32 Qwen3 smoke model, the port
+loading the reference's weights; per-tenant results, EQ events and every
+request's generated tokens must be equal.  With the scheduling-only
+``NullExecutor``: every serving scenario's ``RunReport.to_json()`` must
+be identical.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+# the card's machine has no JAX: there these modules, which hold no
+# ``gpu`` test, skip as a whole
+jax = pytest.importorskip("jax")
+
+from repro.api import ServeRuntime as JaxServeRuntime
+from repro.api import get_scenario as jax_get_scenario
+from repro.configs import smoke_config as jax_smoke_config
+from repro.models.registry import build_model as jax_build_model
+from repro.serving.engine import ModelExecutor as JaxModelExecutor
+from repro_torch.api import ServeRuntime, get_scenario
+from repro_torch.configs import smoke_config
+from repro_torch.serving.engine import ModelExecutor
+from repro_torch.weights import params_from_jax
+
+SCENARIO_KW = dict(tenants=3, requests=6, max_len=64, prefill_chunk=16)
+
+
+def _run_model_engines():
+    jcfg = dataclasses.replace(jax_smoke_config("qwen3-8b"), dtype="float32")
+    tcfg = dataclasses.replace(smoke_config("qwen3-8b"), dtype="float32",
+                               attn_impl="pallas")
+    params = jax_build_model(jcfg).init(jax.random.PRNGKey(0))
+    module = params_from_jax(jax.tree.map(np.asarray, params), tcfg)
+    kw = dict(SCENARIO_KW, vocab=jcfg.vocab_size)
+    jspec = jax_get_scenario("serve_mixed_slo", **kw)
+    tspec = get_scenario("serve_mixed_slo", **kw)
+    jrt = JaxServeRuntime.from_spec(
+        jspec, executor=lambda e: JaxModelExecutor(jcfg, e, params=params))
+    trt = ServeRuntime.from_spec(
+        tspec, executor=lambda e: ModelExecutor(tcfg, e, params=module,
+                                                device="cpu"))
+    return jrt, jrt.run(jspec), trt, trt.run(tspec)
+
+
+@pytest.fixture(scope="module")
+def model_runs():
+    return _run_model_engines()
+
+
+def test_model_engine_tenant_results_match(model_runs):
+    _, jrep, _, trep = model_runs
+    assert sorted(trep.tenants) == sorted(jrep.tenants)
+    for t, want in jrep.tenants.items():
+        got = trep.tenants[t]
+        assert (got.completed, got.killed) == (want.completed, want.killed)
+        assert got.extra["mean_fct"] == want.extra["mean_fct"]
+    assert sum(r.completed for r in trep.tenants.values()) == 6
+    assert trep.extras == jrep.extras
+
+
+def test_model_engine_events_match(model_runs):
+    _, jrep, _, trep = model_runs
+    assert trep.events == jrep.events
+
+
+def test_model_engine_generated_tokens_match(model_runs):
+    jrt, _, trt, _ = model_runs
+    jdone = sorted(jrt.engine.done, key=lambda r: r.rid)
+    tdone = sorted(trt.engine.done, key=lambda r: r.rid)
+    assert [r.rid for r in tdone] == [r.rid for r in jdone]
+    for j, t in zip(jdone, tdone):
+        assert t.status.value == j.status.value
+        assert t.generated == j.generated, f"rid {j.rid}"
+
+
+@pytest.mark.parametrize("name", ["serve_mixed_slo", "serve_congestor_victim",
+                                  "serve_three_class"])
+def test_null_executor_reports_identical(name):
+    jspec, tspec = jax_get_scenario(name), get_scenario(name)
+    assert tspec.to_dict() == jspec.to_dict()
+    jrep = JaxServeRuntime.from_spec(jspec).run(jspec).validate()
+    trep = ServeRuntime.from_spec(tspec).run(tspec).validate()
+    assert trep.to_json() == jrep.to_json()
