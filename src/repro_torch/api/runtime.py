@@ -1,5 +1,6 @@
-"""The serving runtime adapter (``ServeRuntime``) and the request
-synthesis (``build_requests``) of the OSMOSIS runtime API.
+"""The serving runtime adapter (``ServeRuntime``), the request
+synthesis (``build_requests``) and the packet-trace synthesis
+(``build_traces``) of the OSMOSIS runtime API.
 
 ``ServeRuntime`` drives the multi-tenant serving ``Engine`` through the
 tenant-facing lifecycle: ``create_tenant``/``destroy_tenant`` (ECTX +
@@ -33,6 +34,23 @@ def _events_block(events: List[Event], extras: dict) -> List[dict]:
     return _jsonify([
         {"tenant": e.tenant, "kind": e.kind.value, "time": float(e.time),
          "detail": e.detail} for e in events[:MAX_REPORT_EVENTS]])
+
+
+def build_traces(spec: ScenarioSpec, *, arrays: bool = False):
+    """Materialize the per-tenant packet traces a spec describes.
+
+    ``arrays=True`` returns the ``TraceArrays`` column bundle instead of
+    ``TracePacket`` objects — identical packet sequence, no per-packet
+    Python objects (the sweep datapath consumes it directly)."""
+    from repro_torch.sim.traffic import make_trace_arrays, merge_trace_arrays
+    traces = []
+    for i, t in enumerate(spec.tenants):
+        a = t.arrival
+        traces.append(make_trace_arrays(
+            i, size=a.size, share=a.share, seed=spec.seed + a.seed_offset,
+            duration_ns=a.duration_frac * spec.duration_us * 1e3))
+    merged = merge_trace_arrays(*traces)
+    return merged if arrays else merged.to_packets()
 
 
 class ServeRuntime:

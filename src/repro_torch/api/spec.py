@@ -5,9 +5,10 @@ A ``ScenarioSpec`` is pure data: who the tenants are (SLO knobs, cost
 model, arrival process), which mechanisms are enabled (scheduler,
 arbiter, fragmentation, QoS controller), and how long to run.  The
 serving engine materializes a request stream from each tenant's serving
-projection fields (``api/runtime.py``).  The simulator fields are kept,
-so a spec serializes exactly as the JAX package's does; the simulator
-that reads them is not part of this package yet.
+projection fields (``ServeRuntime`` in ``api/runtime.py``); the sweep
+datapath (``sim/devicepath.py``) materializes a packet trace from each
+tenant's ``ArrivalSpec`` (``build_traces``) and a cost model from its
+``WorkloadSpec``.  A spec serializes exactly as the JAX package's does.
 
 Specs are frozen dataclasses of plain scalars/tuples, so they are
 hashable, JSON round-trippable (``to_dict``/``from_dict``) and cheap to
@@ -23,10 +24,9 @@ from repro_torch.core.slo import SLOPolicy
 
 @dataclasses.dataclass(frozen=True)
 class WorkloadSpec:
-    """A kernel cost model: a named entry in the simulator's workload
-    table (``ref``) or inline parameters.  Serving runs ignore the cost
-    model (the model *is* the cost); the simulator that reads it is not
-    part of this package yet."""
+    """A kernel cost model: a named entry in ``sim.workloads.WORKLOADS``
+    (``ref``) or inline ``WorkloadModel`` parameters.  Serving runs
+    ignore the cost model (the model *is* the cost)."""
     ref: str = ""                    # WORKLOADS name; overrides the rest
     name: str = ""                   # label for an inline model
     compute_base: float = 50.0       # handler entry/exit cycles
@@ -35,6 +35,17 @@ class WorkloadSpec:
     io_bytes_factor: float = 1.0
     io_fixed_bytes: int = 0
     spin_factor: float = 1.0         # synthetic congestor multiplier
+
+    def build(self):
+        """Materialize the simulator's ``WorkloadModel``."""
+        from repro_torch.sim.workloads import WORKLOADS, WorkloadModel
+        if self.ref:
+            return WORKLOADS[self.ref]
+        return WorkloadModel(self.name or "custom", self.compute_base,
+                             self.compute_per_byte, io_kind=self.io_kind,
+                             io_bytes_factor=self.io_bytes_factor,
+                             io_fixed_bytes=self.io_fixed_bytes,
+                             spin_factor=self.spin_factor)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,13 +5,19 @@ function here is written once against an array namespace ``xp``, is
 purely functional (returns new arrays, never mutates), and is
 branch-free in array values.  The serving engine calls it on fp64 numpy
 arrays through the stateful wrappers in ``core/wlbvt.py``
-(``WLBVTState``/``DWRRState``); the namespace argument leaves room for a
-device namespace without a second implementation.
+(``WLBVTState``/``DWRRState``); the sweep datapath calls the lane
+functions (``tput``, ``pu_limit_lanes``, ``select_lanes``,
+``select_rr``) on ``[R, T]`` torch tensors through ``torch_namespace``,
+so each formula exists once.
 
 The only Python-level branches are on *static* configuration (``cap is
 None``/``mask is None``).
 """
 from __future__ import annotations
+
+import functools
+
+import torch
 
 BIG = 1e30        # ineligible-metric sentinel (select)
 CEIL_EPS = 1e-6   # pre-ceil epsilon: fp32 (hw-width) and fp64 (reference)
@@ -91,14 +97,16 @@ def select_round(prio, queue_len, cur_occup, total_occup, bvt, num_pus, xp,
 def select_rr(ptr, queue_len, xp, mask=None):
     """Vectorized round-robin baseline (paper Fig. 4/9): first non-empty
     queue at or after ``ptr``.  Returns ``(idx, new_ptr)``; the pointer
-    is unchanged when nothing is pending."""
-    T = queue_len.shape[0]
+    is unchanged when nothing is pending.  Lanes are the trailing axis:
+    ``queue_len [..., T]`` with ``ptr [...]`` is one pick per leading
+    index (a scalar ``ptr`` and a ``[T]`` queue is the single pick)."""
+    T = queue_len.shape[-1]
     ok = queue_len > 0
     if mask is not None:
         ok = ok & mask
-    order = (xp.arange(T) - ptr) % T
-    i = xp.argmin(xp.where(ok, order, T))
-    found = xp.any(ok)
+    order = (xp.arange(T) - xp.asarray(ptr)[..., None]) % T
+    i = xp.argmin(xp.where(ok, order, T), axis=-1)
+    found = xp.any(ok, axis=-1)
     idx = xp.where(found, i, -1)
     new_ptr = xp.where(found, (i + 1) % T, ptr)
     return idx, new_ptr
@@ -178,3 +186,100 @@ def select_lanes(prio, queue_len, cur_occup, total_occup, bvt, num_pus, xp,
     idx = xp.argmin(masked, axis=-1)
     any_e = xp.any(eligible, axis=-1)
     return xp.where(any_e, idx, -1)
+
+
+# ---------------------------------------------------------------------------
+# torch namespace (sweep datapath)
+# ---------------------------------------------------------------------------
+def lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the trailing (tenant) axis in one fixed order, the order
+    of the CUDA ``wlbvt_select`` kernel: lanes in warps of 32, zero
+    padded; each warp summed by a halving tree (lane i + lane i+16, then
+    +8, +4, +2, +1); the warps' sums added left to right.  Zero lanes
+    add exactly, so the tree over the next power of two >= T gives the
+    same bits as over 32.  The same order on every device makes the
+    kernel, its plain version and a CPU run agree bit for bit."""
+    T = x.shape[-1]
+    width = 32 if T > 32 else 1 << max(T - 1, 0).bit_length()
+    nw = -(-T // width)
+    if nw * width != T:
+        x = torch.nn.functional.pad(x, (0, nw * width - T))
+    x = x.reshape(*x.shape[:-1], nw, width)
+    off = width // 2
+    while off:
+        x = x[..., :off] + x[..., off:2 * off]
+        off //= 2
+    s = x[..., 0, 0]
+    for w in range(1, nw):
+        s = s + x[..., w, 0]
+    return s
+
+
+class _TorchNamespace:
+    """The numpy calls of the formulas above, on torch tensors of one
+    device.  Python scalars stay weakly typed (``maximum(t, 1.0)`` keeps
+    ``t``'s dtype; ``where`` takes a scalar as a cached 0-dim tensor of
+    the other operand's dtype, the same rounding); sums over the lane
+    axis take ``lane_sum``'s order."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._consts = {}
+
+    def _cached(self, key, make):
+        c = self._consts.get(key)
+        if c is None:
+            c = self._consts[key] = make()
+        return c
+
+    def _const(self, v, dtype):
+        return self._cached((v, dtype), lambda: torch.tensor(
+            v, dtype=dtype, device=self.device))
+
+    def asarray(self, x):
+        return torch.as_tensor(x, device=self.device)
+
+    def arange(self, n: int):
+        """``arange(n)``, cached: the formulas only read it."""
+        return self._cached(("arange", n), lambda: torch.arange(
+            n, device=self.device))
+
+    @staticmethod
+    def maximum(a, b):
+        if isinstance(b, torch.Tensor):
+            return torch.maximum(a, b)
+        return torch.clamp(a, min=b)
+
+    def where(self, cond, a, b):
+        if not isinstance(a, torch.Tensor):
+            a = self._const(a, b.dtype)
+        elif not isinstance(b, torch.Tensor):
+            b = self._const(b, a.dtype)
+        return torch.where(cond, a, b)
+
+    @staticmethod
+    def ceil(x):
+        return torch.ceil(x)
+
+    @staticmethod
+    def sum(x, axis=None, keepdims=False):
+        if axis is None:
+            return x.sum()
+        if axis not in (-1, x.dim() - 1):
+            raise ValueError("the torch namespace sums over the lane axis")
+        s = lane_sum(x)
+        return s[..., None] if keepdims else s
+
+    @staticmethod
+    def argmin(x, axis=None):
+        return torch.argmin(x, dim=axis)
+
+    @staticmethod
+    def any(x, axis=None):
+        return x.any() if axis is None else x.any(dim=axis)
+
+
+@functools.lru_cache(maxsize=None)
+def torch_namespace(device) -> _TorchNamespace:
+    """The ``xp`` that runs this module's lane functions on ``device``."""
+    return _TorchNamespace(torch.device(device))
