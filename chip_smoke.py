@@ -51,6 +51,26 @@ prints no result.  Phases, each of which raises on failure:
      a profile of scan steps of the mix, launched eagerly and as the
      CUDA-graph replays the sweep runs by default.
 
+ 11. the flash-attention kernels against their plain versions on the card:
+     the forward (output and log-sum-exp) and the backward (dq, dk, dv,
+     against the plain backward and against autograd of the plain
+     forward) on the cases of tests/test_kernels.py, causal off, and
+     Qwen3-8B's heads (32 on 8 KV heads of dim 128) at S 1024, in bf16
+     and fp32 (forward 2e-5 fp32 / 2e-2 bf16 absolute; gradients
+     max |diff| <= 1e-4 fp32 / 2e-2 bf16 times max |reference|);
+ 12. their times at the training shape (B 4, S = T 1024, 32 / 8 heads of
+     dim 128, causal, bf16): forward, backward and forward + backward of
+     the kernels, the plain versions and ``scaled_dot_product_attention``
+     (timed here only), each beside its least time;
+ 13. the training path: Qwen3-8B's published widths with the depth cut
+     to 8 of 36 layers, random weights from seed 0, f32 parameters and
+     bf16 compute, AdamW, full remat, ``SyntheticLM`` batches of 4 x 1024,
+     5 steps through ``launch.train.run_training``; every attention call
+     goes through the two kernels (2 x 8 forward and 8 backward launches
+     a step under full remat); the first loss is finite and near
+     ln(151936); then the same first 2 steps on the plain ``chunked``
+     attention give the same losses (1e-2 relative).
+
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -78,11 +98,16 @@ from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_bwd_cuda, flash_attention_cuda)
 from repro_torch.kernels.ref import (decode_attention_ref,  # noqa: E402
+                                    flash_attention_bwd_ref,
+                                    flash_attention_ref,
                                     wlbvt_select_rounds_ref)
 from repro_torch.kernels.wlbvt_select import wlbvt_select_cuda  # noqa: E402
 from repro_torch.launch import sweep as sweep_cli  # noqa: E402
 from repro_torch.launch.sweep import build_sweep, run_sweep  # noqa: E402
+from repro_torch.launch.train import run_training  # noqa: E402
 from repro_torch.serving.engine import ModelExecutor  # noqa: E402
 from repro_torch.serving.request import RequestStatus  # noqa: E402
 
@@ -339,6 +364,273 @@ def profile_decode(ex) -> None:
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"profile:   {e.self_device_time_total / 2 / 1e3:9.3f} ms  "
             f"{e.count // 2:5d}x  {e.key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# phases 11-13: flash attention and the training path
+# ---------------------------------------------------------------------------
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# B, S, T, Hq, Hkv, D, window, cap, causal: tests/test_kernels.py's cases,
+# causal off, and the training path's shape (TRAIN: Qwen3-8B's heads)
+FLASH_CASES = [
+    ("mha", (2, 128, 128, 4, 4, 64, 0, 0.0, True)),
+    ("gqa4", (2, 256, 256, 8, 2, 64, 0, 0.0, True)),
+    ("mqa_unaligned", (2, 192, 192, 4, 1, 128, 0, 0.0, True)),
+    ("window96", (2, 256, 256, 8, 4, 64, 96, 0.0, True)),
+    ("cap50", (2, 128, 128, 4, 4, 64, 0, 50.0, True)),
+    ("win_cap_odd", (2, 320, 320, 2, 2, 32, 64, 30.0, True)),
+    ("noncausal", (1, 64, 96, 2, 2, 32, 0, 0.0, False)),
+    ("qwen3", (4, 1024, 1024, 32, 8, 128, 0, 0.0, True)),
+]
+TRAIN = dict(B=4, S=1024, Hq=32, Hkv=8, D=128)
+assert FLASH_CASES[-1][1] == (TRAIN["B"], TRAIN["S"], TRAIN["S"], TRAIN["Hq"],
+                              TRAIN["Hkv"], TRAIN["D"], 0, 0.0, True)
+
+
+def flash_inputs(case, dtype, seed):
+    B, S, T, Hq, Hkv, D, win, cap, causal = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+    q, k, v, do = rnd(B, S, Hq, D), rnd(B, T, Hkv, D), rnd(B, T, Hkv, D), \
+        rnd(B, S, Hq, D)
+    kw = dict(scale=1.0 / math.sqrt(D), causal=causal, window=win, cap=cap)
+    return q, k, v, do, kw
+
+
+def rel_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp(min=1e-30)).item()
+
+
+def check_flash_attention():
+    """Both kernels against their plain versions on every case.  Returns
+    the qwen3 case's errors in bf16: max |o - plain|, max |grad - plain|
+    over dq, dk, dv, and the worst relative gradient error."""
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (name, case) in enumerate(FLASH_CASES):
+            q, k, v, do, kw = flash_inputs(case, dtype, SEED + i)
+            o, lse = flash_attention_cuda(q, k, v, **kw)
+            torch.cuda.synchronize()
+            want_o, want_lse = flash_attention_ref(q, k, v, **kw)
+            err = (o.float() - want_o.float()).abs().max().item()
+            lse_err = (lse - want_lse).abs().max().item()
+            grads = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            want = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+            gerr = [rel_err(a, b) for a, b in zip(grads, want)]
+            gabs = max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip(grads, want))
+            # autograd of the plain forward: the gradient's second oracle
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            ref_o, _ = flash_attention_ref(*leaves, **kw)
+            auto = torch.autograd.grad(ref_o, leaves, do)
+            aerr = [rel_err(a, b) for a, b in zip(grads, auto)]
+            del ref_o, auto, leaves
+            ok = (err <= TOL[dtype] and lse_err <= 1e-4
+                  and max(gerr + aerr) <= GRAD_TOL[dtype]
+                  and all(torch.isfinite(x).all() for x in (o, *grads)))
+            log(f"check flash_attention {name:<13} {str(dtype):<15} "
+                f"fwd max_abs_err={err:.3e} (tol {TOL[dtype]:g}) "
+                f"lse_err={lse_err:.3e} bwd rel_err dq/dk/dv="
+                f"{'/'.join(f'{e:.2e}' for e in gerr)} vs autograd of "
+                f"plain {'/'.join(f'{e:.2e}' for e in aerr)} "
+                f"(tol {GRAD_TOL[dtype]:g})")
+            if not ok:
+                raise AssertionError(f"flash_attention {name} {dtype}: "
+                                     "kernel disagrees with plain version")
+            if name == "qwen3" and dtype == torch.bfloat16:
+                out = dict(fwd_err=err, bwd_err=gabs, bwd_rel_err=max(gerr))
+    try:
+        x = torch.zeros((1, 8, 2, 48), device="cuda")
+        flash_attention_cuda(x, x, x, scale=1.0)
+    except ValueError as e:
+        log(f"check flash_attention head dim 48 raises: {e}")
+    else:
+        raise AssertionError("flash_attention: head dim 48 did not raise")
+    return out
+
+
+def time_flash_attention(iters: int) -> dict:
+    """CUDA-event times at the training shape.  q, k, v and o together
+    (84 MB) exceed the 50 MB L2, so no buffers are rotated."""
+    T = TRAIN
+    B, S, Hq, Hkv, D = T["B"], T["S"], T["Hq"], T["Hkv"], T["D"]
+    dtype = torch.bfloat16
+    case = (B, S, S, Hq, Hkv, D, 0, 0.0, True)
+    q, k, v, do, kw = flash_inputs(case, dtype, 200)
+    o, lse = flash_attention_cuda(q, k, v, **kw)
+    lq, lk, lv = (x.detach().transpose(1, 2).clone().requires_grad_(True)
+                  for x in (q, k, v))
+    ldo = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                              scale=kw["scale"],
+                                              enable_gqa=True)
+    # the yardstick computes the same function: check it once
+    lib_err = (sdpa().transpose(1, 2).float() - o.float()).abs().max().item()
+    if lib_err > TOL[dtype]:
+        raise AssertionError(f"library yardstick disagrees: {lib_err}")
+    lib_out = sdpa()
+
+    def lib_fwd_bwd():
+        torch.autograd.grad(sdpa(), (lq, lk, lv), ldo)
+
+    def lib_bwd():
+        torch.autograd.grad(lib_out, (lq, lk, lv), ldo, retain_graph=True)
+
+    gq, gk, gv = (x.detach().requires_grad_(True) for x in (q, k, v))
+
+    def ker_fwd_bwd():
+        torch.autograd.grad(ops.flash_attention(gq, gk, gv, **kw),
+                            (gq, gk, gv), do)
+
+    def plain_fwd_bwd():
+        po, plse = flash_attention_ref(q, k, v, **kw)
+        flash_attention_bwd_ref(q, k, v, po, plse, do, **kw)
+
+    few = max(iters // 10, 3)
+    r = dict(
+        fwd_ms=event_ms(lambda: flash_attention_cuda(q, k, v, **kw), [()],
+                        iters),
+        bwd_ms=event_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                         **kw), [()], iters),
+        fwd_bwd_ms=event_ms(ker_fwd_bwd, [()], iters),
+        plain_fwd_ms=event_ms(lambda: flash_attention_ref(q, k, v, **kw),
+                              [()], few),
+        plain_bwd_ms=event_ms(lambda: flash_attention_bwd_ref(
+            q, k, v, o, lse, do, **kw), [()], few),
+        plain_fwd_bwd_ms=event_ms(plain_fwd_bwd, [()], few),
+        library_fwd_ms=event_ms(sdpa, [()], iters),
+        library_bwd_ms=event_ms(lib_bwd, [()], iters),
+        library_fwd_bwd_ms=event_ms(lib_fwd_bwd, [()], iters))
+    # causal: every (query, key) pair with key <= query, counted exactly
+    pairs = B * Hq * S * (S + 1) // 2
+    elt = 2
+    fwd_bytes = (2 * B * S * Hq * D + 2 * B * S * Hkv * D) * elt \
+        + B * Hq * S * 4                                # q, o, k, v, lse
+    bwd_bytes = (3 * B * S * Hq * D + 2 * B * S * Hkv * D) * elt \
+        + B * Hq * S * 4 + (B * S * Hq * D + 2 * B * S * Hkv * D) * elt
+    for name, flops, nbytes in (("fwd", 4 * D * pairs, fwd_bytes),
+                                ("bwd", 10 * D * pairs, bwd_bytes)):
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        t_o = flops / PEAK_FLOPS[dtype] * 1e3
+        r[f"{name}_bound_ms"] = max(t_b, t_o)
+        r[f"{name}_bound_by"] = "bytes" if t_b >= t_o else "operations"
+        r[f"{name}_flops"] = flops
+        r[f"{name}_bytes"] = nbytes
+    r["library_max_abs_diff"] = lib_err
+    return r
+
+
+def profile_train_step(cfg, state) -> None:
+    """Device time by kernel over one more training step of ``state``
+    (after the measured run), against the step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.trainer import build_trainer
+    trainer = build_trainer(cfg, total_steps=5, device="cuda")
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+             next(SyntheticLM(cfg, 1024, 4, seed=SEED + 1)).items()}
+    state, _ = trainer.train_step(state, batch)        # warm
+    (state, _), wall = sync_time(lambda: trainer.train_step(state, batch))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in rows) / 1e3
+    attn = sum(e.self_device_time_total for e in rows
+               if "flash_" in e.key) / 1e3
+    log(f"profile: train step wall {wall * 1e3:.3f} ms (host clock, "
+        f"unprofiled), device time {total:.3f} ms over "
+        f"{sum(e.count for e in rows)} kernels, idle share "
+        f"{1 - total / (wall * 1e3):.3f}, flash kernels {attn:.3f} ms "
+        f"({attn / total:.3f} of device time)")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms  "
+            f"{e.count:5d}x  {e.key[:90]}")
+
+
+def train_phase() -> dict:
+    """Phase 13: Qwen3-8B's widths at 8 layers, 5 steps on the kernels,
+    then 2 steps on the plain chunked attention from the same seed."""
+    base = dataclasses.replace(get_config("qwen3-8b"), num_layers=8,
+                               remat="full")
+    run = dict(seq_len=1024, global_batch=4, seed=SEED, log_every=1,
+               device="cuda", log=log)
+    cfg = dataclasses.replace(base, attn_impl="pallas")
+    log(f"train qwen3-8b widths: layers={cfg.num_layers} (of 36) "
+        f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads}x"
+        f"{cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+        f"param_dtype={cfg.param_dtype} dtype={cfg.dtype} "
+        f"optimizer={cfg.optimizer} remat={cfg.remat} batch 4x1024")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    (state, hist), wall = sync_time(lambda: run_training(cfg, steps=5, **run))
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in state.params.parameters())
+    profile_train_step(cfg, state)
+    log(f"train: params={n_params} wall_s={wall:.3f} "
+        f"max_memory_allocated={peak} launches flash_attention="
+        f"{launches['flash_attention']} flash_attention_bwd="
+        f"{launches['flash_attention_bwd']} (per step "
+        f"{launches['flash_attention'] / 5:g} / "
+        f"{launches['flash_attention_bwd'] / 5:g}; layers "
+        f"{cfg.num_layers})")
+    del state
+    torch.cuda.empty_cache()
+    # random init: the final hidden has unit RMS and the tied embedding
+    # std 0.02, so the logits have variance d_model * 0.02^2 and the
+    # expected loss is ln V + var / 2 (+ the z-loss, ~0.016)
+    first = hist[0]["loss"]
+    ln_v = math.log(cfg.vocab_size)
+    want_first = ln_v + cfg.d_model * 0.02 ** 2 / 2
+    log(f"check train first loss {first:.4f}: ln V = {ln_v:.4f}, ln V + "
+        f"d_model * 0.02^2 / 2 = {want_first:.4f} (tol 0.25)")
+    if not (all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                for h in hist) and abs(first - want_first) < 0.25):
+        raise AssertionError(f"train: losses {[h['loss'] for h in hist]}, "
+                             f"first should be near {want_first:.3f}")
+    if (launches["flash_attention"] != 2 * cfg.num_layers * 5
+            or launches["flash_attention_bwd"] != cfg.num_layers * 5):
+        raise AssertionError(f"train: launches {launches}, want 2 x "
+                             f"{cfg.num_layers} forward and "
+                             f"{cfg.num_layers} backward per step")
+    plain_cfg = dataclasses.replace(base, attn_impl="chunked")
+    ops.reset_launches()
+    (pstate, phist), pwall = sync_time(
+        lambda: run_training(plain_cfg, steps=2, **run))
+    del pstate
+    torch.cuda.empty_cache()
+    if ops.LAUNCHES["flash_attention"] or ops.LAUNCHES["flash_attention_bwd"]:
+        raise AssertionError("chunked training launched a flash kernel")
+    diffs = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+             for a, b in zip(hist[:2], phist)]
+    # under the warmup the first steps barely move the weights, so the
+    # losses hold the forward; the grad norms hold the backward kernel
+    gdiffs = [abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+              for a, b in zip(hist[:2], phist)]
+    log(f"check train kernels vs chunked: losses "
+        f"{[h['loss'] for h in hist[:2]]} vs {[h['loss'] for h in phist]} "
+        f"rel diff {[f'{d:.2e}' for d in diffs]} (tol 1e-2); grad norms "
+        f"{[h['grad_norm'] for h in hist[:2]]} vs "
+        f"{[h['grad_norm'] for h in phist]} rel diff "
+        f"{[f'{d:.2e}' for d in gdiffs]} (tol 1e-2); chunked "
+        f"wall_s={pwall:.3f} step_s {[round(h['step_s'], 4) for h in phist]}")
+    if max(diffs) > 1e-2:
+        raise AssertionError("train: the kernel path's losses disagree with "
+                             "the chunked path's")
+    if max(gdiffs) > 1e-2:
+        raise AssertionError("train: the kernel path's grad norms disagree "
+                             "with the chunked path's")
+    return dict(hist=hist, launches=launches, peak=peak, wall=wall)
 
 
 # ---------------------------------------------------------------------------
@@ -731,6 +1023,17 @@ def main() -> int:
             for k, v in st.items()))
     sel_launches = sweep_phase()
 
+    flash_err = check_flash_attention()
+    ft = time_flash_attention(20)
+    log("time flash_attention bf16 B=4 S=T=1024 Hq=32 Hkv=8 D=128 causal "
+        + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                   for k, v in ft.items()))
+    tr = train_phase()
+    for h in tr["hist"]:
+        log(f"train step {h['step']}: loss={h['loss']:.6f} "
+            f"grad_norm={h['grad_norm']:.6f} step_s={h['step_s']:.4f} "
+            f"tokens_per_s={h['tokens_per_s']:.1f}")
+
     t = timings[0]
     st = sel_times[0]
     log(json.dumps({"kernels": [{
@@ -746,7 +1049,23 @@ def main() -> int:
         "launches": sel_launches, "max_abs_err": sel_err,
         "ms": st["ms"], "plain_ms": st["plain_ms"],
         "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:28",
+        "launches": tr["launches"]["flash_attention"],
+        "max_abs_err": flash_err["fwd_err"], "ms": ft["fwd_ms"],
+        "plain_ms": ft["plain_fwd_ms"], "bound_ms": ft["fwd_bound_ms"],
+        "bound_by": ft["fwd_bound_by"], "library_ms": ft["library_fwd_ms"]}, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:28 (its "
+                    "gradient; no Pallas backward)",
+        "launches": tr["launches"]["flash_attention_bwd"],
+        "max_abs_err": flash_err["bwd_err"], "ms": ft["bwd_ms"],
+        "plain_ms": ft["plain_bwd_ms"], "bound_ms": ft["bwd_bound_ms"],
+        "bound_by": ft["bwd_bound_by"],
+        "library_ms": ft["library_bwd_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

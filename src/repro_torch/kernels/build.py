@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` exports a plain C interface.  It is compiled by
+Each ``csrc/<name>.cu`` exports a plain C interface (``csrc/*.cuh`` are
+headers they share).  It is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``<repo>/build/kernels/`` at first
 use and loaded with ``ctypes``; nothing links against PyTorch, so a
 build takes seconds.  The library's file name carries a hash of its
@@ -40,7 +41,9 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the hash covers the shared headers too: a source includes them
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 

@@ -16,9 +16,12 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.wlbvt_select import check_limits, wlbvt_select_cuda
 
-LAUNCHES: Dict[str, int] = {"decode_attention": 0, "wlbvt_select": 0}
+LAUNCHES: Dict[str, int] = {"decode_attention": 0, "flash_attention": 0,
+                            "flash_attention_bwd": 0, "wlbvt_select": 0}
 WLBVT_IMPLS = ("", "jnp", "jnp_ref", "pallas")
 
 
@@ -42,6 +45,53 @@ def decode_attention(q, k, v, lengths, *, scale: float, window: int = 0,
                                 window=window, cap=cap)
     LAUNCHES["decode_attention"] += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel and, for the gradient, the backward kernel (the
+    two plain versions on CPU tensors).  Saves q, k, v, o and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, cap):
+        kw = dict(scale=scale, causal=causal, window=window, cap=cap)
+        dev = q.device.type
+        if dev == "cpu":
+            o, lse = ref.flash_attention_ref(q, k, v, **kw)
+        elif dev == "cuda":
+            o, lse = flash_attention_cuda(q, k, v, **kw)
+            LAUNCHES["flash_attention"] += 1
+        else:
+            raise ValueError(f"flash_attention: no kernel for device "
+                             f"{q.device}")
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = kw
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                     **ctx.kw)
+        else:
+            dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                  **ctx.kw)
+            LAUNCHES["flash_attention_bwd"] += 1
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, *, scale: float, causal: bool = True,
+                    window: int = 0, cap: float = 0.0) -> torch.Tensor:
+    """Cache-free attention, differentiable.  q: (B,S,Hq,D); k/v:
+    (B,T,Hkv,D) -> (B,S,Hq,D).  Query position s sees key t when
+    ``t <= s`` (causal) and ``s - t < window`` (window > 0); scores are
+    soft-capped to ``cap * tanh(s / cap)`` when cap > 0.
+
+    On a CUDA tensor the forward kernel runs, and the backward kernel
+    computes the gradient; a shape they do not take raises."""
+    return _FlashAttention.apply(q, k, v, float(scale), bool(causal),
+                                 int(window), float(cap))[0]
 
 
 def wlbvt_select_rounds(prio, queue_len, cur_occup, total_occup, bvt,

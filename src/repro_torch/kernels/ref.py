@@ -41,6 +41,93 @@ def decode_attention_ref(q, k, v, lengths, *, scale: float, window: int = 0,
 
 
 # ---------------------------------------------------------------------------
+# flash attention, forward and backward (csrc/flash_attention{,_bwd}.cu)
+# ---------------------------------------------------------------------------
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """fp32 arithmetic, or fp64 for fp64 inputs (``gradcheck``)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _flash_scores(q, k, *, scale: float, causal: bool, window: int,
+                  cap: float):
+    """Folded scores ``(B, Hkv, S, G, T)`` of ``(q*scale) . k`` after the
+    soft-cap, ``tanh(s/cap)`` (None without a cap) and the (S, T) mask."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    acc = _acc_dtype(q)
+    qf = (q.to(acc) * scale).reshape(B, S, Hkv, G, D)
+    s = torch.einsum("bshgd,bthd->bhsgt", qf, k.to(acc))
+    t = None
+    if cap:
+        t = torch.tanh(s / cap)
+        s = cap * t
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= qpos - kpos < window
+    return s, t, mask[None, None, :, None, :], qf
+
+
+def flash_attention_ref(q, k, v, *, scale: float, causal: bool = True,
+                        window: int = 0, cap: float = 0.0):
+    """q: (B,S,Hq,D), k/v: (B,T,Hkv,D) -> ``(o (B,S,Hq,D) in q's dtype,
+    lse (B, Hkv, S*G) fp32)``.  Full-matrix softmax in fp32.
+
+    The query heads of one KV head are folded position-major, row
+    ``s*G + g``, as the kernel reads them; ``lse = m + log l`` per folded
+    row.  Masked probabilities are exactly 0 and the output is
+    ``acc / max(l, 1e-30)``, as in the Pallas kernel.  Differentiable:
+    autograd of this function is the backward's second oracle."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    s, _, mask, _ = _flash_scores(q, k, scale=scale, causal=causal,
+                                  window=window, cap=cap)
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None]) * mask
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhsgt,bthd->bshgd", p, v.to(p.dtype))
+    o = o / torch.clamp(l, min=1e-30).permute(0, 2, 1, 3)[..., None]
+    lse = (m + torch.log(torch.clamp(l, min=1e-30))).reshape(B, Hkv, -1)
+    return o.reshape(B, S, Hq, D).to(q.dtype), lse.float()
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, scale: float,
+                            causal: bool = True, window: int = 0,
+                            cap: float = 0.0):
+    """Gradients ``(dq, dk, dv)`` of ``flash_attention_ref``'s output
+    from the saved ``o`` and ``lse``, the way the backward kernel forms
+    them: ``P = exp(s - lse)`` (0 where masked), ``dV = P^T dO``,
+    ``dP = dO V^T``, ``Delta = rowsum(dO * O)``, ``dS = P * (dP - Delta)``
+    times ``1 - tanh^2(s/cap)`` under a soft-cap, ``dQ = scale dS K``,
+    ``dK = dS^T (q*scale)``.  Each in its input's dtype."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    s, t, mask, qf = _flash_scores(q, k, scale=scale, causal=causal,
+                                   window=window, cap=cap)
+    acc = s.dtype
+    lse = lse.to(acc).reshape(B, Hkv, S, G)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dof = do.to(acc).reshape(B, S, Hkv, G, D)
+    of = o.to(acc).reshape(B, S, Hkv, G, D)
+    dv = torch.einsum("bhsgt,bshgd->bthd", p, dof)
+    dp = torch.einsum("bshgd,bthd->bhsgt", dof, v.to(acc))
+    delta = (dof * of).sum(dim=-1).permute(0, 2, 1, 3)        # (B,Hkv,S,G)
+    ds = p * (dp - delta[..., None])
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    dq = torch.einsum("bhsgt,bthd->bshgd", ds, k.to(acc)) * scale
+    dk = torch.einsum("bhsgt,bshgd->bthd", ds, qf)
+    return (dq.reshape(B, S, Hq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+# ---------------------------------------------------------------------------
 # WLBVT dispatch round (csrc/wlbvt_select.cu)
 # ---------------------------------------------------------------------------
 def _one_pick(k: int, prio, queue_len, cur_occup, total_occup, bvt, metric,

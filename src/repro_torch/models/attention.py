@@ -3,9 +3,11 @@
 Three implementations selected by ``cfg.attn_impl``:
   * ``chunked`` — flash-style loop over KV blocks in plain torch, online
     softmax in fp32, O(S·D) memory.
-  * ``pallas``  — the hand-written CUDA kernels (``kernels/ops.py``) for
-    the one-token decode; on a CPU tensor ``ops`` runs their plain
-    version.  Prefill against a cache takes ``chunked``.
+  * ``pallas``  — the hand-written CUDA kernels (``kernels/ops.py``):
+    decode attention for the one-token decode, flash attention (forward
+    and backward) for the cache-free forward; on a CPU tensor ``ops`` runs
+    their plain versions.  Prefill against a cache and segment ids take
+    ``chunked``, as in the JAX package.
   * ``naive``   — full S×T score matrix; the reference's decode path.
 
 MLA and cross-attention are not ported yet.
@@ -155,8 +157,8 @@ def _run_attention(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, scale, causal,
                    window, cap, k_valid=None, seg_q=None, seg_k=None):
     if cfg.attn_impl == "pallas" and seg_q is None \
             and k.shape[-1] == v.shape[-1]:
+        from repro_torch.kernels import ops as kops
         if q.shape[1] == 1:   # decode
-            from repro_torch.kernels import ops as kops
             # The cache already holds this token's key at index q_pos, so
             # the fill that counts is q_pos + 1.  (The JAX package passes
             # q_pos here and so drops the token's own key.)  Inactive
@@ -165,10 +167,11 @@ def _run_attention(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, scale, causal,
                 q, k, v, (q_pos[:, 0] + 1).to(torch.int32), scale=scale,
                 window=window, cap=cap)
         if k_valid is None and q.shape[1] == k.shape[1]:
-            raise NotImplementedError(
-                "attn_impl='pallas' on the cache-free forward needs the "
-                "flash-attention kernel, which is not ported yet; use "
-                "attn_impl='chunked'")
+            # the cache-free forward (training, prefill from zero)
+            return kops.flash_attention(q, k, v, scale=scale, causal=causal,
+                                        window=window, cap=cap)
+        # other combinations take the plain paths below, as in the JAX
+        # package's dispatch
     if cfg.attn_impl == "naive" or q.shape[1] == 1:
         return naive_attention(q, k, v, q_pos, k_pos, scale=scale,
                                causal=causal, window=window, cap=cap,

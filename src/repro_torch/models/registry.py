@@ -2,12 +2,13 @@
 
 ``build_model(cfg)`` returns a ``Model`` with:
   init(gen)                                      -> module (on gen.device)
-  forward(module, batch)                         -> logits          # train
+  forward(module, batch)                         -> (logits, aux)   # train
   init_cache(batch, max_len, device)             -> cache
   prefill(module, tokens, cache, lengths, valid) -> (logits, cache)
   decode_step(module, tokens, cache, lengths, valid) -> (logits, cache)
 
 ``batch`` is a dict holding ``tokens`` and optionally ``positions``.
+``aux`` is the MoE auxiliary loss, 0 for the dense decoder.
 Encoder-decoder models are not ported yet.
 """
 from __future__ import annotations
@@ -25,7 +26,7 @@ from repro_torch.models import transformer
 class Model:
     cfg: ModelConfig
     init: Callable[[torch.Generator], transformer.Transformer]
-    forward: Callable[..., torch.Tensor]
+    forward: Callable[..., Tuple[torch.Tensor, torch.Tensor]]
     init_cache: Callable[..., list]
     prefill: Callable[..., Tuple[torch.Tensor, list]]
     decode_step: Callable[..., Tuple[torch.Tensor, list]]
@@ -48,7 +49,8 @@ def _build_decoder_only(cfg: ModelConfig) -> Model:
         if positions is None:
             positions = transformer.make_positions(B, S, tokens.device)
         logits, _ = module(tokens, positions)
-        return logits
+        return logits, torch.zeros((), dtype=torch.float32,
+                                   device=logits.device)
 
     def init_cache(batch, max_len, device):
         return transformer.init_cache(cfg, batch, max_len, device)

@@ -9,11 +9,13 @@ blocks are not ported yet.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import (GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD,
                                       ModelConfig)
@@ -147,11 +149,50 @@ class Transformer(nn.Module):
         = current fill; positions must be absolute.  The cache's tensors
         are updated in place."""
         x = L.embed_lookup(self.embed, tokens, self.cfg)
+        remat = _remat(self.cfg) if cache is None \
+            and torch.is_grad_enabled() else None
         for i, layer in enumerate(self.layers):
+            if remat is not None:
+                x, _ = remat(layer, x, positions, self.cfg)
+                continue
             c = cache[i] if cache is not None else None
             x, _ = layer(x, positions, self.cfg, c, lengths)
         x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return L.lm_logits(x, self.embed, self.cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# rematerialisation (the JAX package's ``_remat``, per layer)
+# ---------------------------------------------------------------------------
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    # jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims keeps the
+    # dot products with no batch dims: the weight matmuls, which torch runs
+    # as mm/addmm on the flattened (B*S, d) activations; the attention
+    # products (bmm, batched) are recomputed, as there
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig):
+    """``cfg.remat`` as a per-layer ``checkpoint`` call, or None.
+
+    ``full`` keeps only each layer's input and recomputes the layer in
+    the backward (so its attention forward runs twice per step); ``dots``
+    also keeps the outputs of the matmuls (selective checkpointing);
+    ``none`` keeps everything."""
+    if cfg.remat == "none":
+        return None
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_matmuls)
+    elif cfg.remat != "full":
+        raise ValueError(f"unknown remat {cfg.remat!r} "
+                         "(expected full | dots | none)")
+    return functools.partial(ckpt.checkpoint, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -52,6 +52,23 @@ def test_importing_the_port_loads_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_importing_the_training_path_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import repro_torch.launch.train, repro_torch.training.trainer\n"
+        "import repro_torch.training.checkpoint, repro_torch.training.data\n"
+        "import repro_torch.kernels.flash_attention\n"
+        "from repro_torch.launch.train import run_training\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_default_device_entry_points_raise_without_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")

@@ -68,19 +68,39 @@ def test_forward_logits_match(ref_params, dtype):
     want = jax_build_model(jcfg).forward(jparams, {"tokens": jnp.asarray(
         tokens)})[0]
     module = params_from_jax(np_tree, tcfg)
-    got = build_model(tcfg).forward(module, {"tokens": torch.from_numpy(
+    got, aux = build_model(tcfg).forward(module, {"tokens": torch.from_numpy(
         tokens)})
     tol = TOL[dtype]
     np.testing.assert_allclose(got.numpy(), _np(want), atol=tol, rtol=tol)
+    assert aux.item() == 0.0          # dense decoder: no MoE aux loss
 
 
 def test_pallas_forward_without_cache_needs_flash_kernel(ref_params):
-    _, np_tree = ref_params
-    _, tcfg = _cfgs("float32", port_impl="pallas")
+    """The cache-free forward under ``pallas`` goes through the flash
+    attention entry point (its plain version on CPU tensors) and gives
+    the reference's logits."""
+    from repro_torch.kernels import ops as tops
+    jparams, np_tree = ref_params
+    jcfg, tcfg = _cfgs("float32", port_impl="pallas")
+    tokens = _tokens((2, 24), jcfg.vocab_size, seed=5)
+    want = jax_build_model(jcfg).forward(jparams, {"tokens": jnp.asarray(
+        tokens)})[0]
     module = params_from_jax(np_tree, tcfg)
-    with pytest.raises(NotImplementedError, match="flash"):
-        build_model(tcfg).forward(module, {"tokens": torch.ones(
-            (1, 4), dtype=torch.int32)})
+    calls = []
+    real = tops.flash_attention
+
+    def spy(*a, **kw):
+        calls.append(a[0].shape)
+        return real(*a, **kw)
+    tops.flash_attention = spy
+    try:
+        got, _ = build_model(tcfg).forward(module, {"tokens": torch.from_numpy(
+            tokens)})
+    finally:
+        tops.flash_attention = real
+    assert len(calls) == tcfg.num_layers
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=TOL["float32"],
+                               rtol=TOL["float32"])
 
 
 def _prefill_then_decode(jcfg, tcfg, jparams, np_tree, steps=3):
