@@ -12,14 +12,17 @@ prints no result.  Phases, each of which raises on failure:
   3. hold each kernel against its plain PyTorch version on the card:
      decode attention at the serving shapes (B 8, T 256, 32 query heads
      on 8 KV heads of dim 128) in bf16 and fp32, lengths 0, 1, T and
-     ragged, plus windowed, soft-capped and T % 32 != 0 cases
-     (tolerances 2e-5 fp32, 2e-2 bf16);
+     ragged, plus windowed, soft-capped and T % 32 != 0 cases, and
+     RecurrentGemma-2B's heads (10 on 1 KV head of 256, window 2048) by
+     index and by stored positions, and wrapped rings of 64 entries with
+     stored positions (tolerances 2e-5 fp32, 2e-2 bf16);
   4. time each kernel (CUDA events over many launches after warm-up, K/V
      rotated through more buffers than the 50 MB L2 holds, as the 36
      layers' caches are on the main path) beside its least time from
      bytes, its plain version, and one PyTorch call that computes the same
      function (``scaled_dot_product_attention`` with an explicit mask,
-     timed here only), at T 256 and T 4096;
+     timed here only), at T 256 and T 4096, and at RecurrentGemma's
+     heads (T 256, stored positions);
   5. the main path: full-width, full-depth Qwen3-8B with random weights
      from a seed serves ``serve_mixed_slo`` (3 tenants, 12 requests,
      8 slots, max_len 256, prefill chunk 32) through ``ServeRuntime`` +
@@ -69,7 +72,30 @@ prints no result.  Phases, each of which raises on failure:
      goes through the two kernels (2 x 8 forward and 8 backward launches
      a step under full remat); the first loss is finite and near
      ln(151936); then the same first 2 steps on the plain ``chunked``
-     attention give the same losses (1e-2 relative).
+     attention give the same losses (1e-2 relative);
+ 14. (run after phase 7) the SSD scan kernel against its plain version:
+     tests/test_kernels.py's three shapes (groups, ragged chunks; B/C in
+     fp32) with and without an initial state, Mamba2-370M's serve shape
+     (B 8, S 32, 32 heads of 64, state 128, chunk 256: Q 32) with a
+     state, and a cache-free run at its widths (B 4, S 1024: four chunks
+     of 256 rows, sub-tiled), in bf16 and fp32 (5e-2 / 1e-3); the RG-LRU
+     scan kernel on tests/test_kernels.py's three shapes with and
+     without h0 and the serve shape (B 8, S 32, W 2560) with h0 (1e-5);
+ 15. their device times (CUDA-graph replays, inputs rotated past the
+     L2) and eager times, beside their plain versions and their least
+     time from bytes or operations; no single PyTorch call computes
+     either, so neither has a library time;
+ 16. small fp32 Mamba2 and RecurrentGemma models on the card: the kernel
+     path gives the ``chunked`` path's logits (1e-4) over a ragged
+     two-chunk prefill and 16 decode steps that wrap the local ring;
+ 17. the recurrent families' main path: Mamba2-370M and RecurrentGemma-2B
+     at full width and depth, random weights from a seed, serve
+     ``serve_mixed_slo`` as in phase 5; every request must end done and
+     the launches must be exactly ssd_scan = 48 x prefill chunks,
+     rglru_scan = 18 x prefill chunks and decode_attention = 8 x decode
+     steps (RecurrentGemma's local layers); the kernel path's prefill and
+     decode logits against the ``chunked`` path's at full width; a
+     profile of a prefill and of a decode step; peak memory.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -94,7 +120,8 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.api import (ArrivalSpec, ScenarioSpec, ServeRuntime,  # noqa: E402
                              SweepAxis, SweepSpec, TenantSpec, WorkloadSpec,
                              build_traces, get_scenario)
-from repro_torch.configs import get_config, smoke_config  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD, get_config, smoke_config)
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
@@ -102,12 +129,15 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd_cuda, flash_attention_cuda)
 from repro_torch.kernels.ref import (decode_attention_ref,  # noqa: E402
                                     flash_attention_bwd_ref,
-                                    flash_attention_ref,
-                                    wlbvt_select_rounds_ref)
+                                    flash_attention_ref, rglru_scan_ref,
+                                    ssd_scan_ref, wlbvt_select_rounds_ref)
+from repro_torch.kernels.rglru_scan import rglru_scan_cuda  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda  # noqa: E402
 from repro_torch.kernels.wlbvt_select import wlbvt_select_cuda  # noqa: E402
 from repro_torch.launch import sweep as sweep_cli  # noqa: E402
 from repro_torch.launch.sweep import build_sweep, run_sweep  # noqa: E402
 from repro_torch.launch.train import run_training  # noqa: E402
+from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serving.engine import ModelExecutor  # noqa: E402
 from repro_torch.serving.request import RequestStatus  # noqa: E402
 
@@ -116,11 +146,17 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 L2_BYTES = 50 * 2**20
 SERVE = dict(B=8, T=256, Hq=32, Hkv=8, D=128)
+RG_DECODE = dict(B=8, T=256, Hq=10, Hkv=1, D=256)   # RecurrentGemma-2B
 SEED = 0
 
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+def fields(d: dict) -> str:
+    return " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                    for k, v in d.items())
 
 
 def sync_time(fn):
@@ -143,31 +179,57 @@ def attn_inputs(B, T, Hq, Hkv, D, lengths, dtype, seed):
     return q, k, v, lens
 
 
+def ring_positions(lengths, T: int, seed: int) -> torch.Tensor:
+    """(B, T) int32 stored positions of a ring cache of T entries that
+    has seen ``lengths[b]`` tokens: index t holds the latest position
+    p < length with p = t mod T, or -1; two random entries of each row
+    filled past 2 are -1, as a ragged prefill's pad rows leave them."""
+    rng = np.random.default_rng(seed)
+    pos = np.full((len(lengths), T), -1, np.int32)
+    for b, n in enumerate(lengths):
+        t = np.arange(T)
+        last = t + ((n - 1 - t) // T) * T
+        pos[b] = np.where(t <= n - 1, last, -1)
+        if n > 2:
+            pos[b, rng.choice(T, 2, replace=False)] = -1
+    return torch.tensor(pos, device="cuda")
+
+
 def check_decode_attention() -> float:
     """Returns the max |kernel - plain| of the serving case in bf16."""
     S = SERVE
     T = S["T"]
     ragged = [0, 1, T, 7, 100, 129, 64, T - 1]
+    ring = [0, 1, 64, 65, 100, 200, 37, 130]
     cases = [
-        ("serve", dict(S), ragged, 0, 0.0),
-        ("window", dict(S), ragged, 64, 0.0),
-        ("softcap", dict(S), ragged, 0, 30.0),
+        ("serve", dict(S), ragged, 0, 0.0, False),
+        ("window", dict(S), ragged, 64, 0.0, False),
+        ("softcap", dict(S), ragged, 0, 30.0, False),
         ("T%32!=0", dict(S, T=250), [0, 1, 250, 7, 100, 129, 64, 249], 0,
-         0.0),
+         0.0, False),
         ("window+cap", dict(S, T=250), [250, 3, 31, 33, 0, 200, 64, 1], 40,
-         20.0),
+         20.0, False),
+        # RecurrentGemma-2B's local layers: MQA, 10 heads of 256, window
+        # 2048 over a 256-entry cache, masked by the stored positions
+        ("rg_d256", dict(RG_DECODE), ragged, 2048, 0.0, False),
+        ("rg_d256_pos", dict(RG_DECODE), ragged, 2048, 0.0, True),
+        # rings of 64 entries that wrapped, window the ring or less
+        ("ring", dict(S, T=64), ring, 64, 0.0, True),
+        ("ring_w48", dict(RG_DECODE, T=64), ring, 48, 0.0, True),
     ]
     serve_err = None
     for dtype in (torch.bfloat16, torch.float32):
-        for i, (name, shp, lengths, win, cap) in enumerate(cases):
+        for i, (name, shp, lengths, win, cap, ring_pos) in enumerate(cases):
             q, k, v, lens = attn_inputs(**shp, lengths=lengths, dtype=dtype,
                                         seed=SEED + i)
+            pos = (ring_positions(lengths, shp["T"], SEED + i) if ring_pos
+                   else None)
             scale = 1.0 / math.sqrt(shp["D"])
             got = decode_attention_cuda(q, k, v, lens, scale=scale,
-                                        window=win, cap=cap)
+                                        window=win, cap=cap, positions=pos)
             torch.cuda.synchronize()
             want = decode_attention_ref(q, k, v, lens, scale=scale,
-                                        window=win, cap=cap)
+                                        window=win, cap=cap, positions=pos)
             err = (got.float() - want.float()).abs().max().item()
             ok = torch.allclose(got.float(), want.float(), atol=TOL[dtype],
                                 rtol=TOL[dtype])
@@ -200,8 +262,11 @@ def event_ms(fn, argsets, iters) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_decode_attention(T: int, iters: int) -> dict:
-    S = dict(SERVE, T=T)
+def time_decode_attention(T: int, iters: int, shape=None, window: int = 0,
+                          ring: bool = False) -> dict:
+    """Full caches (length T in every row); ``ring``: the kernel masks by
+    stored positions, as RecurrentGemma's local layers call it."""
+    S = dict(shape or SERVE, T=T)
     B, Hq, Hkv, D = S["B"], S["Hq"], S["Hkv"], S["D"]
     dtype, G = torch.bfloat16, S["Hq"] // S["Hkv"]
     lengths = [T] * B
@@ -210,14 +275,19 @@ def time_decode_attention(T: int, iters: int) -> dict:
     sets = [attn_inputs(**S, lengths=lengths, dtype=dtype, seed=100 + i)
             for i in range(nbuf)]
     scale = 1.0 / math.sqrt(D)
+    pos = (torch.arange(T, dtype=torch.int32, device="cuda")[None, :]
+           .expand(B, T).contiguous() if ring else None)
+    kw = dict(scale=scale, window=window, positions=pos)
 
     def kernel(q, k, v, lens):
-        return decode_attention_cuda(q, k, v, lens, scale=scale)
+        return decode_attention_cuda(q, k, v, lens, **kw)
 
     def plain(q, k, v, lens):
-        return decode_attention_ref(q, k, v, lens, scale=scale)
+        return decode_attention_ref(q, k, v, lens, **kw)
 
-    masks = [(torch.arange(T, device="cuda")[None, :] < lens[:, None])
+    kpos = torch.arange(T, device="cuda")[None, :]
+    masks = [((kpos < lens[:, None]) & ((lens[:, None] - kpos <= window)
+                                        if window else True))
              [:, None, None, :] for (_, _, _, lens) in sets]
     lib_sets = [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), m)
                 for (q, k, v, _), m in zip(sets, masks)]
@@ -237,11 +307,13 @@ def time_decode_attention(T: int, iters: int) -> dict:
     plain_ms = event_ms(plain, sets, max(iters // 10, 5))
     library_ms = event_ms(library, lib_sets, iters)
     kv_elems = sum(min(n, T) for n in lengths) * Hkv * D   # K (and V) read
-    nbytes = 2 * kv_elems * 2 + 2 * (B * Hq * D * 2) + B * 4   # + q, out, lens
+    nbytes = 2 * kv_elems * 2 + 2 * (B * Hq * D * 2) + B * 4 \
+        + (B * T * 4 if ring else 0)          # + q, out, lens, positions
     flops = 2 * 2 * G * kv_elems          # one MAC per query row, QK and PV
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return dict(T=T, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    return dict(B=B, T=T, Hq=Hq, Hkv=Hkv, D=D, window=window, ring=ring,
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, flops=flops, buffers=nbuf)
@@ -264,65 +336,76 @@ def serve(cfg, seed: int):
     return rt, rep, wall, init_s, launches
 
 
-def with_impl(module, impl: str):
-    module.cfg = dataclasses.replace(module.cfg, attn_impl=impl)
-    return module
-
-
-def prefill_and_decode(ex, prompts, impl: str, steps: int):
-    """Fresh cache; one prefill chunk of ``prompts`` (B, C); ``steps``
-    greedy decode steps with ``impl``.  Returns the per-step logits."""
-    module, model = ex.params, ex.fns.model
+def prefill_decode_logits(cfg, module, max_len: int, prompts,
+                          decode_tokens):
+    """``module`` run as ``cfg`` (its dtype and attention implementation)
+    on a fresh cache: one prefill of ``prompts`` (B, C), then one decode
+    step per column of ``decode_tokens`` (B, n).  Returns [prefill last
+    logits, decode logits...]."""
+    model = build_model(cfg)
     B, C = prompts.shape
-    cache = ex.fns.init_cache()
+    cache = model.init_cache(B, max_len, "cuda")
     lengths = torch.zeros(B, dtype=torch.int32, device="cuda")
-    valid_n = torch.full((B,), C, dtype=torch.int32, device="cuda")
-    with torch.no_grad():
-        with_impl(module, "chunked")
-        nxt, _, cache = ex.fns.prefill_chunk(module, cache, prompts, lengths,
-                                             valid_n)
-        with_impl(module, impl)
-        lengths = valid_n.clone()
-        active = torch.ones(B, dtype=torch.bool, device="cuda")
-        out = []
-        for _ in range(steps):
-            logits, cache = model.decode_step(module, nxt[:, None], cache,
-                                              lengths, valid=active[:, None])
-            out.append(logits[:, -1])
-            nxt = logits[:, -1].argmax(-1).to(torch.int32)
-            lengths = lengths + 1
-    with_impl(module, "pallas")
+    active = torch.ones((B, 1), dtype=torch.bool, device="cuda")
+    served = module.cfg
+    module.cfg = cfg
+    try:
+        with torch.no_grad():
+            logits, cache = model.prefill(module, prompts, cache, lengths)
+            out = [logits[:, -1]]
+            lengths = lengths + C
+            for i in range(decode_tokens.shape[1]):
+                logits, cache = model.decode_step(
+                    module, decode_tokens[:, i:i + 1], cache, lengths,
+                    valid=active)
+                out.append(logits[:, -1])
+                lengths = lengths + 1
+    finally:
+        module.cfg = served
     return out
 
 
-def check_small_model() -> None:
-    """fp32 smoke model on the card: kernel path == plain path."""
-    from repro_torch.serving.engine import EngineConfig
-    cfg = dataclasses.replace(smoke_config("qwen3-8b"), dtype="float32",
-                              num_heads=8, attn_impl="pallas")
-    ex = ModelExecutor(cfg, EngineConfig(max_slots=4, max_len=64),
-                       rng_seed=SEED, device="cuda")
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    prompts = torch.randint(1, cfg.vocab_size, (4, 16), generator=g,
+def check_small(arch: str, prompt_len: int, steps: int, **changes) -> None:
+    """fp32 smoke model on the card: the kernel path gives the plain
+    (``chunked``) path's logits (1e-4) and greedy tokens over a prefill
+    of ``prompt_len`` tokens and ``steps`` decode steps."""
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32",
+                              attn_impl="pallas", **changes)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    module = build_model(cfg).init(gen)
+    prompts = torch.randint(1, cfg.vocab_size, (4, prompt_len), generator=gen,
                             device="cuda", dtype=torch.int32)
-    ker = prefill_and_decode(ex, prompts, "pallas", steps=4)
-    plain = prefill_and_decode(ex, prompts, "naive", steps=4)
-    for i, (a, b) in enumerate(zip(ker, plain)):
-        err = (a - b).abs().max().item()
-        same = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
-        log(f"check small fp32 model decode {i}: max_abs_err={err:.3e} "
-            f"tol=1e-4 greedy_tokens_equal={same}")
-        if err > 1e-4 or not same:
-            raise AssertionError("small model: kernel path disagrees")
+    toks = torch.randint(1, cfg.vocab_size, (4, steps), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    ops.reset_launches()
+    ker = prefill_decode_logits(cfg, module, 64, prompts, toks)
+    launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+    plain = prefill_decode_logits(
+        dataclasses.replace(cfg, attn_impl="chunked"), module, 64, prompts,
+        toks)
+    err = max((a - b).abs().max().item() for a, b in zip(ker, plain))
+    same = all(torch.equal(a.argmax(-1), b.argmax(-1))
+               for a, b in zip(ker, plain))
+    log(f"check small fp32 {arch}: prefill of {prompt_len} + {steps} decode "
+        f"steps, kernels {launched}, max_abs_err={err:.3e} tol=1e-4 "
+        f"greedy_tokens_equal={same}")
+    if err > 1e-4 or not same or not launched:
+        raise AssertionError(f"small {arch}: kernel path disagrees")
 
 
-def check_full_width(ex, vocab: int) -> None:
+def check_full_width(module, cfg) -> None:
+    """Full-width Qwen3-8B: one decode step's logits through the kernel
+    against the plain path's (``chunked``: its decode is
+    ``naive_attention``), after the same prefill."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    prompts = torch.randint(1, vocab, (8, 32), generator=g, device="cuda",
-                            dtype=torch.int32)
-    ker = prefill_and_decode(ex, prompts, "pallas", steps=1)[0]
-    plain = prefill_and_decode(ex, prompts, "naive", steps=1)[0]
-    if ker.shape != (8, vocab) or not torch.isfinite(ker).all():
+    prompts = torch.randint(1, cfg.vocab_size, (8, 32), generator=g,
+                            device="cuda", dtype=torch.int32)
+    toks = torch.randint(1, cfg.vocab_size, (8, 1), generator=g,
+                         device="cuda", dtype=torch.int32)
+    ker = prefill_decode_logits(cfg, module, 256, prompts, toks)[1]
+    plain = prefill_decode_logits(dataclasses.replace(
+        cfg, attn_impl="chunked"), module, 256, prompts, toks)[1]
+    if ker.shape != (8, cfg.vocab_size) or not torch.isfinite(ker).all():
         raise AssertionError(f"full-width logits: shape {tuple(ker.shape)}, "
                              f"finite={bool(torch.isfinite(ker).all())}")
     err = (ker - plain).abs().max().item()
@@ -338,32 +421,12 @@ def check_full_width(ex, vocab: int) -> None:
 
 
 def profile_decode(ex) -> None:
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     B = 8
     tokens = np.ones(B, np.int32)
     lengths = np.full(B, 128, np.int32)
     active = np.ones(B, bool)
-    ex.decode(tokens, lengths, active)              # warm
-    _, wall = sync_time(lambda: [ex.decode(tokens, lengths, active)
-                                 for _ in range(5)])
-    step_ms = wall / 5 * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            ex.decode(tokens, lengths, active)
-        torch.cuda.synchronize()
-    # kernel rows only: an operator's row repeats its kernels' time
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in rows) / 2 / 1e3
-    log(f"profile: full-width decode step wall {step_ms:.3f} ms (host "
-        f"clock, mean of 5), device time {total:.3f} ms (sum of kernel "
-        f"self time, mean of 2 profiled steps), idle share "
-        f"{1 - total / step_ms:.3f}")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
-        log(f"profile:   {e.self_device_time_total / 2 / 1e3:9.3f} ms  "
-            f"{e.count // 2:5d}x  {e.key[:90]}")
+    profile_step("qwen3-8b full-width decode step",
+                 lambda: ex.decode(tokens, lengths, active))
 
 
 # ---------------------------------------------------------------------------
@@ -714,16 +777,17 @@ def check_wlbvt_select() -> float:
     return worst
 
 
-def graph_ms(fn, per_graph: int, replays: int) -> float:
-    """Device time per call: ``per_graph`` calls captured in one CUDA
-    graph, replayed ``replays`` times between CUDA events, so the host's
-    launch cost is out of the measurement."""
-    fn()
+def graph_ms(fn, per_graph: int, replays: int, argsets=((),)) -> float:
+    """Device time per call: ``per_graph`` calls (cycling through
+    ``argsets``) captured in one CUDA graph, replayed ``replays`` times
+    between CUDA events, so the host's launch cost is out of the
+    measurement."""
+    fn(*argsets[0])
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(per_graph):
-            fn()
+        for i in range(per_graph):
+            fn(*argsets[i % len(argsets)])
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -955,6 +1019,294 @@ def sweep_phase():
     profile_sweep_step()
     return mix_launches + fig9_launches
 
+# ---------------------------------------------------------------------------
+# phases 14-17: the SSD and RG-LRU scan kernels and the recurrent families
+# ---------------------------------------------------------------------------
+SCAN_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
+RGLRU_TOL = 1e-5
+# B, S, H, P, G, N, chunk: tests/test_kernels.py's three (groups, ragged
+# chunks), the serve shape (one prefill chunk of Mamba2-370M: Q = 32) and
+# a cache-free run at its widths (4 chunks of 256 rows: the sub-tiling)
+SSD_CASES = [
+    ("k128", (2, 128, 4, 32, 1, 16, 64)),
+    ("k200_groups", (2, 200, 4, 32, 2, 16, 64)),
+    ("k96", (2, 96, 2, 64, 1, 32, 32)),
+    ("serve", (8, 32, 32, 64, 1, 128, 256)),
+    ("cache_free", (4, 1024, 32, 64, 1, 128, 256)),
+]
+SSD_SERVE = dict(SSD_CASES)["serve"]
+# B, S, W: tests/test_kernels.py's three and the serve shape (one prefill
+# chunk of RecurrentGemma-2B)
+RGLRU_CASES = [("k128", (2, 128, 128)), ("k100x96", (2, 100, 96)),
+               ("k64x256", (2, 64, 256)), ("serve", (8, 32, 2560))]
+RGLRU_SERVE = dict(RGLRU_CASES)["serve"]
+
+
+def ssd_inputs(case, xdtype, bcdtype, state: bool, seed: int):
+    B, S, H, P, G, N, _ = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    args = ((rnd(B, S, H, P) * 0.5).to(xdtype), F.softplus(rnd(B, S, H)),
+            torch.log(torch.linspace(1.0, 16.0, H, device="cuda")),
+            (rnd(B, S, G, N) * 0.3).to(bcdtype),
+            (rnd(B, S, G, N) * 0.3).to(bcdtype))
+    return args, (rnd(B, H, P, N) * 0.5 if state else None)
+
+
+def check_ssd_scan() -> float:
+    """The SSD kernel against its plain version; returns the serve case's
+    max |kernel - plain| (y and state) in bf16.  The test shapes read B/C
+    in fp32 (as tests/test_kernels.py), the serve and cache-free shapes
+    in x's dtype (as the model path)."""
+    serve_err = None
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (name, case) in enumerate(SSD_CASES):
+            model_path = name in ("serve", "cache_free")
+            states = {"serve": (True,), "cache_free": (False,)}.get(
+                name, (False, True))
+            for state in states:
+                args, st = ssd_inputs(case, dtype,
+                                      dtype if model_path else torch.float32,
+                                      state, SEED + i)
+                y, last = ssd_scan_cuda(*args, chunk=case[-1],
+                                        init_state=st)
+                torch.cuda.synchronize()
+                wy, wlast = ssd_scan_ref(*args, init_state=st)
+                tol = SCAN_TOL[dtype]
+                ey = (y.float() - wy.float()).abs().max().item()
+                es = (last - wlast).abs().max().item()
+                ok = (torch.allclose(y.float(), wy.float(), atol=tol,
+                                     rtol=tol)
+                      and torch.allclose(last, wlast, atol=tol, rtol=tol)
+                      and bool(torch.isfinite(y).all())
+                      and bool(torch.isfinite(last).all()))
+                log(f"check ssd_scan {name:<11} {str(dtype):<15} "
+                    f"B/C {str(args[3].dtype):<15} init_state={state!s:<5} "
+                    f"y max_abs_err={ey:.3e} state max_abs_err={es:.3e} "
+                    f"(max |y| {wy.float().abs().max().item():.3g}) "
+                    f"tol={tol:g}")
+                if not ok:
+                    raise AssertionError(f"ssd_scan {name} {dtype}: kernel "
+                                         "disagrees with plain version")
+                if name == "serve" and dtype == torch.bfloat16:
+                    serve_err = max(ey, es)
+    return serve_err
+
+
+def ssd_cost(case, xbytes: int, state: bool):
+    """(bytes, flops) the chunked SSD scan needs: each input read once
+    and each output written once; per chunk of q rows the q(q+1)/2
+    scores over N and products over P, the state update, and the
+    inter-chunk term where a state comes in."""
+    B, S, H, P, G, N, chunk = case
+    Q = min(chunk, S)
+    nbytes = (2 * B * S * H * P * xbytes + B * S * H * 4 + H * 4
+              + 2 * B * S * G * N * xbytes + B * H * P * N * 4 * (1 + state))
+    flops = 0
+    for c0 in range(0, S, Q):
+        q = min(Q, S - c0)
+        tri = q * (q + 1) // 2
+        flops += 2 * tri * (N + P) + 2 * q * P * N
+        if state or c0 > 0:
+            flops += 2 * q * P * N
+    return nbytes, flops * B * H
+
+
+def time_ssd_scan(case, state: bool, calls: int, plain_calls: int) -> dict:
+    """Device times in bf16 (x and B/C, as the model path) from CUDA-graph
+    replays (``ms``, ``plain_ms``) and the time launched eagerly from
+    Python (``eager_ms``), inputs rotated through more sets than the 50
+    MB L2 holds (the 48 layers' states are on the main path)."""
+    dtype = torch.bfloat16
+    nbytes, flops = ssd_cost(case, 2, state)
+    nbuf = max(2, math.ceil(4 * L2_BYTES / nbytes))
+    sets = [ssd_inputs(case, dtype, dtype, state, 300 + i)
+            for i in range(nbuf)]
+    chunk = case[-1]
+
+    def kernel(args, st):
+        return ssd_scan_cuda(*args, chunk=chunk, init_state=st)
+
+    def plain(args, st):
+        return ssd_scan_ref(*args, init_state=st)
+
+    ms = graph_ms(kernel, calls, 5, sets)
+    eager_ms = event_ms(kernel, sets, 10 * calls)
+    plain_ms = graph_ms(plain, plain_calls, 2, sets)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    B, S, H, P, G, N, _ = case
+    return dict(B=B, S=S, H=H, P=P, G=G, N=N, chunk=chunk,
+                init_state=state, ms=ms, eager_ms=eager_ms,
+                plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, flops=flops, buffers=nbuf, library_ms=None)
+
+
+def rglru_inputs(case, h0: bool, seed: int):
+    B, S, W = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.sigmoid(torch.randn((B, S, W), generator=g, device="cuda"))
+    b = torch.randn((B, S, W), generator=g, device="cuda") * 0.1
+    h = torch.randn((B, W), generator=g, device="cuda") if h0 else None
+    return a, b, h
+
+
+def check_rglru_scan() -> float:
+    """The RG-LRU kernel against its plain version (tol 1e-5); returns
+    the serve case's max |kernel - plain|."""
+    serve_err = None
+    for i, (name, case) in enumerate(RGLRU_CASES):
+        for h0 in ((True,) if name == "serve" else (False, True)):
+            a, b, h = rglru_inputs(case, h0, SEED + i)
+            got, got_last = rglru_scan_cuda(a, b, h)
+            torch.cuda.synchronize()
+            want, want_last = rglru_scan_ref(a, b, h)
+            err = max((got - want).abs().max().item(),
+                      (got_last - want_last).abs().max().item())
+            ok = (torch.allclose(got, want, atol=RGLRU_TOL, rtol=RGLRU_TOL)
+                  and torch.allclose(got_last, want_last, atol=RGLRU_TOL,
+                                     rtol=RGLRU_TOL))
+            log(f"check rglru_scan {name:<8} h0={h0!s:<5} "
+                f"max_abs_err={err:.3e} tol={RGLRU_TOL:g}")
+            if not ok:
+                raise AssertionError(f"rglru_scan {name}: kernel disagrees "
+                                     "with plain version")
+            if name == "serve":
+                serve_err = err
+    return serve_err
+
+
+def time_rglru_scan(case, calls: int) -> dict:
+    """As ``time_ssd_scan``, in fp32, with h0."""
+    B, S, W = case
+    nbytes = 3 * B * S * W * 4 + 2 * B * W * 4     # a, b, h; h0, h_last
+    flops = 2 * B * S * W
+    nbuf = max(2, math.ceil(4 * L2_BYTES / nbytes))
+    sets = [rglru_inputs(case, True, 400 + i) for i in range(nbuf)]
+    ms = graph_ms(rglru_scan_cuda, calls, 5, sets)
+    eager_ms = event_ms(rglru_scan_cuda, sets, 10 * calls)
+    plain_ms = graph_ms(rglru_scan_ref, max(calls // 10, 2), 2, sets)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    return dict(B=B, S=S, W=W, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, flops=flops, buffers=nbuf, library_ms=None)
+
+
+def check_full_width_recurrent(module, cfg) -> None:
+    """At full width and depth, a prefill of 8 x 32 tokens and 2
+    teacher-forced decode steps: through the kernels in bf16 (as served)
+    the logits are finite and of shape (8, vocab); in fp32 the kernel
+    path's logits agree with the ``chunked`` path's to 2e-3 of their
+    range.  bf16 is not held across paths: they sum in other orders, and
+    48 layers of random weights grow a bf16 rounding difference to ~20 %
+    of the logit range even between the two plain versions (PERF.md)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    prompts = torch.randint(1, cfg.vocab_size, (8, 32), generator=g,
+                            device="cuda", dtype=torch.int32)
+    toks = torch.randint(1, cfg.vocab_size, (8, 2), generator=g,
+                         device="cuda", dtype=torch.int32)
+    served = prefill_decode_logits(cfg, module, 256, prompts, toks)
+    for what, a in zip(("prefill", "decode 0", "decode 1"), served):
+        if a.shape != (8, cfg.vocab_size) or not torch.isfinite(a).all():
+            raise AssertionError(f"{cfg.name} full-width bf16 {what} "
+                                 f"logits: shape {tuple(a.shape)}, finite="
+                                 f"{bool(torch.isfinite(a).all())}")
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    ker = prefill_decode_logits(f32, module, 256, prompts, toks)
+    plain = prefill_decode_logits(
+        dataclasses.replace(f32, attn_impl="chunked"), module, 256, prompts,
+        toks)
+    for what, a, b, c in zip(("prefill", "decode 0", "decode 1"), ker,
+                             plain, served):
+        err = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+        log(f"check {cfg.name} full-width {what}: bf16 kernel path shape="
+            f"{tuple(c.shape)} finite; fp32 kernel vs chunked max_abs_err="
+            f"{err:.4g} max_abs_logit={scale:.4g} (tol 2e-3 of it) "
+            f"greedy_agreement={agree:.3f}")
+        if err > 2e-3 * scale:
+            raise AssertionError(f"{cfg.name} full-width {what}: kernel "
+                                 "path disagrees with chunked")
+
+
+def profile_step(label: str, step) -> None:
+    """Wall time of ``step`` (host clock, mean of 5) against its device
+    time by kernel (profiler, mean of 2 steps): the idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step()                                      # warm
+    _, wall = sync_time(lambda: [step() for _ in range(5)])
+    step_ms = wall / 5 * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+    # kernel rows only: an operator's row repeats its kernels' time
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in rows) / 2 / 1e3
+    log(f"profile: {label} wall {step_ms:.3f} ms (host clock, mean of 5), "
+        f"device time {total:.3f} ms (sum of kernel self time, mean of 2 "
+        f"profiled steps) over {sum(e.count for e in rows) // 2} kernels, "
+        f"idle share {1 - total / step_ms:.3f}")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"profile:   {e.self_device_time_total / 2 / 1e3:9.3f} ms  "
+            f"{e.count // 2:5d}x  {e.key[:90]}")
+
+
+def serve_recurrent(arch: str) -> dict:
+    """Phase 16/17: serve ``arch`` at full width and depth through the
+    kernels; exact launch counts; full-width check; profile of a prefill
+    step."""
+    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
+    rt, rep, wall, init_s, launches = serve(cfg, SEED)
+    done = rt.engine.done
+    pc, ds = rep.extras["prefill_chunks"], rep.extras["decode_steps"]
+    generated = sum(len(r.generated) for r in done)
+    peak = torch.cuda.max_memory_allocated()
+    ex = rt.engine.exe
+    n_params = sum(p.numel() for p in ex.params.parameters())
+    kinds = cfg.pattern_for_layers()
+    want = {"decode_attention": (kinds.count(LOCAL_ATTN)
+                                 + kinds.count(GLOBAL_ATTN)) * ds,
+            "flash_attention": 0, "flash_attention_bwd": 0,
+            "wlbvt_select": 0, "ssd_scan": kinds.count(SSD) * pc,
+            "rglru_scan": kinds.count(RGLRU) * pc}
+    log(f"serve {arch}: layers={cfg.num_layers} ({kinds.count(SSD)} ssd, "
+        f"{kinds.count(RGLRU)} rglru, {kinds.count(LOCAL_ATTN)} local) "
+        f"d_model={cfg.d_model} params={n_params} init_s={init_s:.2f} "
+        f"steps={int(rep.duration)} prefill_chunks={pc} decode_steps={ds} "
+        f"wall_s={wall:.3f} generated_tokens={generated} "
+        f"tokens_per_s={generated / wall:.2f} max_memory_allocated={peak} "
+        f"launches={launches}")
+    log(rep.summary())
+    if len(done) != 12 or any(r.status != RequestStatus.DONE for r in done):
+        raise AssertionError(f"{arch}: not every request ended done: " + str(
+            [(r.rid, r.status.value) for r in done]))
+    if launches != want:
+        raise AssertionError(f"{arch}: launches {launches}, want {want}")
+    check_full_width_recurrent(ex.params, cfg)
+    B, C = 8, 32
+    tokens = np.ones((B, C), np.int32)
+    zeros, full = np.zeros(B, np.int32), np.full(B, C, np.int32)
+    profile_step(f"{arch} full-width prefill step (8 x 32 tokens)",
+                 lambda: ex.prefill(tokens, zeros, full))
+    active = np.ones(B, bool)
+    profile_step(f"{arch} full-width decode step",
+                 lambda: ex.decode(tokens[:, 0], full, active))
+    del rt, ex
+    torch.cuda.empty_cache()
+    return dict(launches=launches, peak=peak, wall=wall)
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -980,11 +1332,12 @@ def main() -> int:
     err = check_decode_attention()
     timings = [time_decode_attention(T, iters)
                for T, iters in ((256, 2000), (4096, 200))]
+    timings.append(time_decode_attention(256, 2000, shape=RG_DECODE,
+                                         window=2048, ring=True))
     for t in timings:
-        log("time decode_attention bf16 B=8 Hq=32 Hkv=8 D=128 " + " ".join(
-            f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
-            for k, v in t.items()))
-    check_small_model()
+        log("time decode_attention bf16 " + fields(t))
+    # Qwen3: GQA with G = 2 on the smoke config's 4 KV heads
+    check_small("qwen3-8b", 16, 4, num_heads=8)
 
     cfg = dataclasses.replace(get_config("qwen3-8b"), attn_impl="pallas")
     rt, rep, wall, init_s, launches = serve(cfg, SEED)
@@ -1007,10 +1360,26 @@ def main() -> int:
                              f"{launches['decode_attention']} != "
                              f"{cfg.num_layers} x {decode_steps}")
     ex = rt.engine.exe
-    check_full_width(ex, cfg.vocab_size)
+    check_full_width(ex.params, cfg)
     profile_decode(ex)
     del rt, ex
     torch.cuda.empty_cache()
+
+    ssd_err = check_ssd_scan()
+    ssd_t = time_ssd_scan(SSD_SERVE, True, 200, 10)
+    ssd_cf = time_ssd_scan(dict(SSD_CASES)["cache_free"], False, 10, 2)
+    for t in (ssd_t, ssd_cf):
+        log("time ssd_scan bf16 (ms, plain_ms: CUDA-graph replays; "
+            "eager_ms: launched from Python) " + fields(t))
+    rg_err = check_rglru_scan()
+    rg_t = time_rglru_scan(RGLRU_SERVE, 200)
+    log("time rglru_scan fp32 (ms, plain_ms: CUDA-graph replays; eager_ms: "
+        "launched from Python) " + fields(rg_t))
+    # a ragged second SSD chunk (16 + 8), decode past the 32-entry ring
+    for arch in ("mamba2-370m", "recurrentgemma-2b"):
+        check_small(arch, 24, 16)
+    mamba = serve_recurrent("mamba2-370m")
+    rgemma = serve_recurrent("recurrentgemma-2b")
 
     sel_err = check_wlbvt_select()
     sel_times = [time_wlbvt_select(256, 8, 1, torch.float64, 5000),
@@ -1018,16 +1387,13 @@ def main() -> int:
                  time_wlbvt_select(4096, 128, 32, torch.float32, 500)]
     for st in sel_times:
         log("time wlbvt_select (ms: CUDA-graph replays; eager_ms: launched "
-            "from Python) " + " ".join(
-            f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
-            for k, v in st.items()))
+            "from Python) " + fields(st))
     sel_launches = sweep_phase()
 
     flash_err = check_flash_attention()
     ft = time_flash_attention(20)
     log("time flash_attention bf16 B=4 S=T=1024 Hq=32 Hkv=8 D=128 causal "
-        + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
-                   for k, v in ft.items()))
+        + fields(ft))
     tr = train_phase()
     for h in tr["hist"]:
         log(f"train step {h['step']}: loss={h['loss']:.6f} "
@@ -1040,7 +1406,8 @@ def main() -> int:
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:23",
-        "launches": launches["decode_attention"], "max_abs_err": err,
+        "launches": launches["decode_attention"]
+        + rgemma["launches"]["decode_attention"], "max_abs_err": err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]}, {
         "name": "wlbvt_select", "route": "cuda",
@@ -1065,7 +1432,21 @@ def main() -> int:
         "max_abs_err": flash_err["bwd_err"], "ms": ft["bwd_ms"],
         "plain_ms": ft["plain_bwd_ms"], "bound_ms": ft["bwd_bound_ms"],
         "bound_by": ft["bwd_bound_by"],
-        "library_ms": ft["library_bwd_ms"]}]}))
+        "library_ms": ft["library_bwd_ms"]}, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:22",
+        "launches": mamba["launches"]["ssd_scan"], "max_abs_err": ssd_err,
+        "ms": ssd_t["ms"], "plain_ms": ssd_t["plain_ms"],
+        "bound_ms": ssd_t["bound_ms"], "bound_by": ssd_t["bound_by"],
+        "library_ms": None}, {
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:20",
+        "launches": rgemma["launches"]["rglru_scan"], "max_abs_err": rg_err,
+        "ms": rg_t["ms"], "plain_ms": rg_t["plain_ms"],
+        "bound_ms": rg_t["bound_ms"], "bound_by": rg_t["bound_by"],
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

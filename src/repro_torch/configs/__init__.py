@@ -17,15 +17,17 @@ from repro_torch.configs.base import (  # noqa: F401 re-export
 
 _ARCH_MODULES: Dict[str, str] = {
     "qwen3-8b": "qwen3_8b",
+    "mamba2-370m": "mamba2_370m",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 # in the JAX package's catalog, waiting for blocks the port lacks (MoE,
-# MLA, SSD, RG-LRU, untied heads, encoder-decoder, M-RoPE) or for a
-# parity test of the blocks it has (gemma-7b, gemma2-27b)
+# MLA, untied heads, encoder-decoder, M-RoPE) or for a parity test of
+# the blocks it has (gemma-7b, gemma2-27b)
 _NOT_PORTED = (
-    "codeqwen1.5-7b", "gemma2-27b", "gemma-7b", "mamba2-370m",
+    "codeqwen1.5-7b", "gemma2-27b", "gemma-7b",
     "llama4-maverick-400b-a17b", "deepseek-v2-lite-16b",
-    "recurrentgemma-2b", "qwen2-vl-72b", "whisper-large-v3",
+    "qwen2-vl-72b", "whisper-large-v3",
 )
 
 
@@ -63,4 +65,9 @@ def smoke_config(name: str) -> ModelConfig:
         scan_layers=True,
         remat="none",
     )
+    if cfg.ssm is not None:
+        repl["ssm"] = SSMConfig(state_dim=16, conv_dim=4, expand=2,
+                                head_dim=16, n_groups=1, chunk_size=16)
+    if cfg.lru_width:
+        repl["lru_width"] = 64
     return dataclasses.replace(cfg, **repl)

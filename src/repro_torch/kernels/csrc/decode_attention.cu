@@ -12,6 +12,16 @@
 // output acc / max(l, 1e-30) in q's dtype.  A row with length <= 0 reads
 // no key and writes exactly 0.
 //
+// Beyond the TPU kernel: an optional per-key position array (B, T).  A
+// local-attention layer's cache is a ring indexed by position mod T,
+// so once it wraps a key's index is not its position, and a ragged
+// prefill leaves position -1 on entries it wrote past its real tokens.
+// With positions, the key at index t counts when its stored position
+// pos satisfies 0 <= pos < length (the query sits at length - 1) and,
+// with a window, length - pos <= window: the mask of the model's plain
+// attention paths, exact on a wrapped ring.  All T entries are then
+// visited, and only the keys that count are read.
+//
 // What bounds it: the bytes of K and V.  Each cached key and value is
 // read once and used for G (4 on Qwen3-8B) dot products, so a call does
 // about 2 flops per byte read — far under the card's ~295 flops/byte
@@ -58,6 +68,8 @@ struct Params {
   float scale;
   int window;
   float cap;
+  const int* kpos;   // (B, T) stored key positions, or null: index
+  long long kpos_sb;
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -82,17 +94,14 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-__device__ __forceinline__ bool key_valid(int kpos, int kend, int length,
-                                          int window) {
-  return kpos < kend && (window <= 0 || length - kpos <= window);
-}
-
 size_t smem_bytes(int G, int D) {
   // q [G][D], K tile [kTile][D+1] (padded: conflict-free column reads),
-  // V tile [kTile][D], p [G][kTile], rescale [G], row sums [G]
+  // V tile [kTile][D], p [G][kTile], rescale [G], row sums [G], and
+  // the tile's key mask [kTile]
   return sizeof(float) *
-         (size_t(G) * D + size_t(kTile) * (D + 1) + size_t(kTile) * D +
-          size_t(G) * kTile + 2 * size_t(G));
+             (size_t(G) * D + size_t(kTile) * (D + 1) + size_t(kTile) * D +
+              size_t(G) * kTile + 2 * size_t(G)) +
+         sizeof(int) * kTile;
 }
 
 template <typename T>
@@ -106,6 +115,7 @@ decode_attention_kernel(Params p) {
   float* p_s = v_s + kTile * D;
   float* c_s = p_s + G * kTile;
   float* l_s = c_s + G;
+  int* ok_s = reinterpret_cast<int*>(l_s + G);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int h = blockIdx.x, b = blockIdx.y;
@@ -115,8 +125,11 @@ decode_attention_kernel(Params p) {
   T* o = static_cast<T*>(p.out) + b * p.o_sb + (long long)h * G * p.o_sh;
 
   const int length = p.lengths[b];
-  const int kend = min(length, p.T);
-  int kbeg = p.window > 0 ? max(0, length - p.window) : 0;
+  const int* kpos = p.kpos ? p.kpos + b * p.kpos_sb : nullptr;
+  // by index, only [length - window, length) can count; with positions
+  // (a ring) any index can
+  const int kend = kpos ? p.T : min(length, p.T);
+  int kbeg = (!kpos && p.window > 0) ? max(0, length - p.window) : 0;
   kbeg = (kbeg / kTile) * kTile;
 
   for (int i = tid; i < G * D; i += kThreads) {
@@ -139,14 +152,24 @@ decode_attention_kernel(Params p) {
   constexpr int kVec = 16 / sizeof(T);   // elements per 16-byte load
   const int nvec = kTile * D / kVec;
   for (int t0 = kbeg; t0 < kend; t0 += kTile) {
-    // ---- K/V tile -> fp32 shared memory (rows past kend are zero) ------
+    // ---- which keys of the tile count ----------------------------------
+    if (tid < kTile) {
+      const int t = t0 + tid;
+      bool ok = t < kend;
+      const int pos = (ok && kpos) ? kpos[t] : t;
+      ok = ok && pos >= 0 && pos < length &&
+           (p.window <= 0 || length - pos <= p.window);
+      ok_s[tid] = ok;
+    }
+    __syncthreads();
+    // ---- K/V tile -> fp32 shared memory (keys that do not count: 0) ----
     for (int i = tid; i < nvec; i += kThreads) {
       const int e0 = i * kVec, j = e0 / D, d = e0 - j * D;
-      const int kpos = t0 + j;
+      const int t = t0 + j;
       uint4 kr = make_uint4(0, 0, 0, 0), vr = make_uint4(0, 0, 0, 0);
-      if (kpos < kend) {
-        kr = *reinterpret_cast<const uint4*>(k + kpos * p.k_st + d);
-        vr = *reinterpret_cast<const uint4*>(v + kpos * p.v_st + d);
+      if (ok_s[j]) {
+        kr = *reinterpret_cast<const uint4*>(k + t * p.k_st + d);
+        vr = *reinterpret_cast<const uint4*>(v + t * p.v_st + d);
       }
       const T* ke = reinterpret_cast<const T*>(&kr);
       const T* ve = reinterpret_cast<const T*>(&vr);
@@ -166,12 +189,12 @@ decode_attention_kernel(Params p) {
       float s = 0.f;
       for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
       if (p.cap > 0.f) s = p.cap * tanhf(s / p.cap);
-      p_s[i] = key_valid(t0 + j, kend, length, p.window) ? s : kNegInf;
+      p_s[i] = ok_s[j] ? s : kNegInf;
     }
     __syncthreads();
 
     // ---- online softmax: one warp per query row, one lane per key ------
-    const bool valid = key_valid(t0 + lane, kend, length, p.window);
+    const bool valid = ok_s[lane];
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const int g = warp + r * kWarps;
@@ -243,18 +266,22 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  q/out: (B, 1, Hq, D), k/v: (B, T,
 // Hkv, D), last dim contiguous, other strides in elements.  lengths:
-// int32 (B,).  Returns the cudaError_t of the launch (0 = success).
+// int32 (B,).  kpos: int32 (B, T) with row stride kpos_sb and a
+// contiguous last dim, or null (a key's position is its index).  Returns
+// the cudaError_t of the launch (0 = success).
 int decode_attention(int dtype, const void* q, const void* k, const void* v,
                      const int* lengths, void* out, int B, int T, int Hkv,
                      int G, int D, long long q_sb, long long q_sh,
                      long long k_sb, long long k_st, long long k_sh,
                      long long v_sb, long long v_st, long long v_sh,
                      long long o_sb, long long o_sh, float scale, int window,
-                     float cap, void* stream) {
+                     float cap, const int* kpos, long long kpos_sb,
+                     void* stream) {
   if (G < 1 || G > kMaxG || D < 1 || D > kThreads * kMaxDC)
     return int(cudaErrorInvalidValue);
   Params p{q, k, v, lengths, out, T, G, D, q_sb, q_sh, k_sb, k_st, k_sh,
-           v_sb, v_st, v_sh, o_sb, o_sh, scale, window, cap};
+           v_sb, v_st, v_sh, o_sb, o_sh, scale, window, cap, kpos,
+           kpos_sb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(p, B, Hkv, s);
   if (dtype == 1) return launch<__nv_bfloat16>(p, B, Hkv, s);

@@ -2,7 +2,8 @@
 
 One query token per batch row against that row's KV cache, in the
 model's layout: q (B, 1, Hq, D), k/v (B, T, Hkv, D) read through their
-strides, lengths (B,) int32.  The kernel replaces the Pallas TPU kernel
+strides, lengths (B,) int32, and optionally each key's stored position
+(B, T) int32 for a ring cache.  The kernel replaces the Pallas TPU kernel
 ``repro/kernels/decode_attention.py::_decode_kernel``; its plain version
 is ``kernels/ref.py::decode_attention_ref``.
 """
@@ -20,7 +21,7 @@ MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-             _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _F, _P]
+             _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _F, _P, _L, _P]
 
 
 def _lib() -> ctypes.CDLL:
@@ -31,7 +32,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(q, k, v, lengths) -> None:
+def _check(q, k, v, lengths, positions) -> None:
     """Raise on any input the kernel does not take."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device
             and lengths.device == q.device):
@@ -66,14 +67,22 @@ def _check(q, k, v, lengths) -> None:
     if q.stride(-1) != 1:
         raise ValueError("decode_attention_cuda: q needs a contiguous "
                          "last dim")
+    if positions is not None and (
+            positions.device != q.device or positions.dtype != torch.int32
+            or positions.shape != (B, k.shape[1])
+            or positions.stride(-1) != 1):
+        raise ValueError("decode_attention_cuda: positions must be an int32 "
+                         "(B,T) tensor on q's device with a contiguous last "
+                         "dim")
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           lengths: torch.Tensor, *, scale: float,
-                          window: int = 0, cap: float = 0.0) -> torch.Tensor:
+                          window: int = 0, cap: float = 0.0,
+                          positions=None) -> torch.Tensor:
     """Launch the kernel on the current stream -> (B, 1, Hq, D) in q's
     dtype.  Raises on inputs it does not take and on a failed launch."""
-    _check(q, k, v, lengths)
+    _check(q, k, v, lengths, positions)
     B, _, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=q.device)
@@ -84,6 +93,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lengths.data_ptr(), out.data_ptr(), B, T, Hkv, Hq // Hkv, D,
         q.stride(0), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(2),
-        float(scale), int(window), float(cap), stream)
+        float(scale), int(window), float(cap),
+        positions.data_ptr() if positions is not None else None,
+        positions.stride(0) if positions is not None else 0, stream)
     build.check(lib, NAME, code)
     return out

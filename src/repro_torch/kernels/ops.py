@@ -18,10 +18,13 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                  flash_attention_cuda)
+from repro_torch.kernels.rglru_scan import rglru_scan_cuda
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 from repro_torch.kernels.wlbvt_select import check_limits, wlbvt_select_cuda
 
 LAUNCHES: Dict[str, int] = {"decode_attention": 0, "flash_attention": 0,
-                            "flash_attention_bwd": 0, "wlbvt_select": 0}
+                            "flash_attention_bwd": 0, "wlbvt_select": 0,
+                            "ssd_scan": 0, "rglru_scan": 0}
 WLBVT_IMPLS = ("", "jnp", "jnp_ref", "pallas")
 
 
@@ -31,19 +34,67 @@ def reset_launches() -> None:
 
 
 def decode_attention(q, k, v, lengths, *, scale: float, window: int = 0,
-                     cap: float = 0.0) -> torch.Tensor:
+                     cap: float = 0.0, positions=None) -> torch.Tensor:
     """q: (B,1,Hq,D); k/v: (B,T,Hkv,D); lengths: (B,) -> (B,1,Hq,D).
 
-    Keys ``kpos < lengths[b]`` (and within ``window`` of the length)
-    count; rows with a length <= 0 return 0."""
+    Keys at positions ``0 <= kpos < lengths[b]`` (and within ``window`` of
+    the length) count; a key's position is its index, or
+    ``positions[b, t]`` (B,T) when given (a ring cache).  Rows with a
+    length <= 0 return 0."""
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, lengths, scale=scale,
-                                    window=window, cap=cap)
+                                        window=window, cap=cap,
+                                        positions=positions)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
     out = decode_attention_cuda(q, k, v, lengths.to(torch.int32), scale=scale,
-                                window=window, cap=cap)
+                                window=window, cap=cap, positions=positions)
     LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def _no_grad(name: str, *ts) -> None:
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in ts):
+        raise NotImplementedError(
+            f"{name}: the kernel has no backward kernel yet, so it takes no "
+            "input that requires grad; train this block under "
+            "attn_impl='chunked'")
+
+
+def ssd_scan(x, dt, A_log, B_mat, C_mat, *, chunk: int = 128,
+             init_state=None):
+    """Mamba-2 SSD scan in model layout: x (B,S,H,P); dt (B,S,H); A_log
+    (H,); B/C (B,S,G,N); init_state (B,H,P,N) or None (zero) -> (y
+    (B,S,H,P) in x's dtype, final_state (B,H,P,N) fp32).  Contract:
+    ``kernels/ref.py::ssd_scan_ref``; the kernel works in chunks of
+    ``min(chunk, S)`` rows.  Forward only: raises if an input requires
+    grad."""
+    _no_grad("ssd_scan", x, dt, A_log, B_mat, C_mat, init_state)
+    if x.device.type == "cpu":
+        return ref.ssd_scan_ref(x, dt, A_log, B_mat, C_mat,
+                                init_state=init_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+    out = ssd_scan_cuda(x, dt.float(), A_log.float(), B_mat, C_mat,
+                        chunk=chunk, init_state=init_state)
+    LAUNCHES["ssd_scan"] += 1
+    return out
+
+
+def rglru_scan(a, b, h0=None):
+    """``h_t = a_t h_{t-1} + b_t`` per channel from h0 (zero when None):
+    a, b (B,S,W) -> (h (B,S,W), h_last (B,W)), fp32.  Contract:
+    ``kernels/ref.py::rglru_scan_ref``.  Forward only: raises if an input
+    requires grad."""
+    _no_grad("rglru_scan", a, b, h0)
+    a, b = a.float(), b.float()
+    if a.device.type == "cpu":
+        return ref.rglru_scan_ref(a, b, h0)
+    if a.device.type != "cuda":
+        raise ValueError(f"rglru_scan: no kernel for device {a.device}")
+    out = rglru_scan_cuda(a, b, h0)
+    LAUNCHES["rglru_scan"] += 1
     return out
 
 

@@ -14,13 +14,17 @@ NEG_INF = -1.0e30
 
 
 def decode_attention_ref(q, k, v, lengths, *, scale: float, window: int = 0,
-                         cap: float = 0.0) -> torch.Tensor:
+                         cap: float = 0.0, positions=None) -> torch.Tensor:
     """q: (B,1,Hq,D); k/v: (B,T,Hkv,D); lengths: (B,) valid cache entries.
 
-    A key at index ``kpos`` counts when ``kpos < length`` (and, with a
-    window, ``length - kpos <= window``).  Rows with ``length <= 0``
-    attend to nothing and return exactly 0.  fp32 arithmetic; the output
-    has q's dtype.
+    A key counts when its position ``kpos`` satisfies ``0 <= kpos <
+    length`` (and, with a window, ``length - kpos <= window``).  Without
+    ``positions`` a key's position is its index; ``positions`` (B,T)
+    int32 gives each key's stored position instead (a ring cache indexed
+    by position mod T, -1 where nothing was written), so the query at
+    position ``length - 1`` sees exactly the keys that ``naive_attention``
+    lets it see.  Rows with ``length <= 0`` attend to nothing and return
+    exactly 0.  fp32 arithmetic; the output has q's dtype.
     """
     B, _, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
@@ -29,15 +33,58 @@ def decode_attention_ref(q, k, v, lengths, *, scale: float, window: int = 0,
     s = torch.einsum("bhgd,bthd->bhgt", qf, k.float())
     if cap:
         s = cap * torch.tanh(s / cap)
-    kpos = torch.arange(T, device=q.device)[None, :]
+    kpos = (torch.arange(T, device=q.device)[None, :] if positions is None
+            else positions.to(q.device).long())
     lens = lengths.to(q.device).long()[:, None]
-    mask = kpos < lens
+    mask = (kpos >= 0) & (kpos < lens)
     if window:
         mask &= lens - kpos <= window
     s = torch.where(mask[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1) * mask[:, None, None, :]
     o = torch.einsum("bhgt,bthd->bhgd", p, v.float())
     return o.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# SSD and RG-LRU scans (csrc/ssd_scan.cu, csrc/rglru_scan.cu)
+# ---------------------------------------------------------------------------
+def ssd_scan_ref(x, dt, A_log, B_mat, C_mat, init_state=None):
+    """Sequential SSD recurrence (Mamba-2): the scan kernel's oracle.
+
+    x: (B,S,H,P); dt: (B,S,H); A_log: (H,); B_mat/C_mat: (B,S,G,N), head
+    h reading group ``h // (H/G)``; init_state: (B,H,P,N) or None (zero).
+    ``h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t^T``, ``y_t = h_t C_t`` with
+    ``A = -exp(A_log)``, all in fp32.  Returns (y (B,S,H,P) in x's dtype,
+    final_state (B,H,P,N) fp32).
+    """
+    Bb, S, H, P = x.shape
+    G, N = B_mat.shape[2], B_mat.shape[3]
+    rep = H // G
+    A = -torch.exp(A_log.float())
+    Bf = B_mat.float().repeat_interleave(rep, dim=2)            # (B,S,H,N)
+    Cf = C_mat.float().repeat_interleave(rep, dim=2)
+    xf, dtf = x.float(), dt.float()
+    h = (torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+         if init_state is None else init_state.float().clone())
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * A[None, :])[..., None, None]
+        h = h * decay + torch.einsum("bhn,bh,bhp->bhpn", Bf[:, t], dtf[:, t],
+                                     xf[:, t])
+        ys.append(torch.einsum("bhn,bhpn->bhp", Cf[:, t], h))
+    return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def rglru_scan_ref(a, b, h0=None):
+    """Sequential linear recurrence ``h_t = a_t h_{t-1} + b_t`` from
+    ``h0`` (B,W) (zero when None).  a, b: (B,S,W) fp32.  Returns
+    (h (B,S,W), h_last (B,W))."""
+    h = (torch.zeros_like(a[:, 0]) if h0 is None else h0.float())
+    hs = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h
 
 
 # ---------------------------------------------------------------------------

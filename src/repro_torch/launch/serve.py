@@ -6,9 +6,11 @@
 Runs a registered serving ScenarioSpec (default ``serve_mixed_slo``: a
 2x-priority tenant, a long-prompt congestor, interactive victims)
 through the runtime API over a real model executor, with random weights
-drawn from ``--seed``, and prints the portable RunReport.  Decode
-attention goes through the hand-written CUDA kernel
-(``attn_impl="pallas"``).
+drawn from ``--seed``, and prints the portable RunReport.  ``--arch`` is
+one of ``qwen3-8b``, ``mamba2-370m`` and ``recurrentgemma-2b``.  Under
+``attn_impl="pallas"`` the hand-written CUDA kernels run: decode
+attention (Qwen3's layers, RecurrentGemma's local layers), the SSD scan
+of Mamba2's prefill and the RG-LRU scan of RecurrentGemma's prefill.
 
     --smoke                         # the reduced model
     --device cpu                    # plain versions on the CPU

@@ -162,10 +162,14 @@ def _run_attention(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, scale, causal,
             # The cache already holds this token's key at index q_pos, so
             # the fill that counts is q_pos + 1.  (The JAX package passes
             # q_pos here and so drops the token's own key.)  Inactive
-            # slots carry q_pos == -1: fill 0, output 0.
+            # slots carry q_pos == -1: fill 0, output 0.  A windowed
+            # layer's cache is a ring (index = position mod T), so the
+            # kernel masks by the stored positions, as ``naive_attention``
+            # does, instead of by index.
             return kops.decode_attention(
                 q, k, v, (q_pos[:, 0] + 1).to(torch.int32), scale=scale,
-                window=window, cap=cap)
+                window=window, cap=cap,
+                positions=k_pos if window else None)
         if k_valid is None and q.shape[1] == k.shape[1]:
             # the cache-free forward (training, prefill from zero)
             return kops.flash_attention(q, k, v, scale=scale, causal=causal,

@@ -34,6 +34,19 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
     return w.mul_(1.0 / math.sqrt(d_in)).to(dtype)
 
 
+def conv_init(gen: torch.Generator, width: int, ch: int,
+              dtype: torch.dtype) -> torch.Tensor:
+    """Depthwise temporal-conv weight (width, ch), N(0, 1/width)."""
+    w = torch.randn((width, ch), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return w.mul_(1.0 / math.sqrt(width)).to(dtype)
+
+
+def param(t: torch.Tensor) -> torch.nn.Parameter:
+    """A module weight; serving needs no gradient (training turns it on)."""
+    return torch.nn.Parameter(t, requires_grad=False)
+
+
 def embed_init(gen: torch.Generator, vocab: int, d: int,
                dtype: torch.dtype) -> torch.Tensor:
     w = torch.randn((vocab, d), generator=gen, device=gen.device,

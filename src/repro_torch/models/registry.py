@@ -64,7 +64,8 @@ def _build_decoder_only(cfg: ModelConfig) -> Model:
                                                start=lengths)
         if valid is not None:
             positions = torch.where(valid, positions, -1)
-        return module(tokens, positions, cache=cache, lengths=lengths)
+        return module(tokens, positions, cache=cache, lengths=lengths,
+                      valid=valid)
 
     def decode_step(module, tokens, cache, lengths, valid=None):
         return prefill(module, tokens, cache, lengths, valid=valid)

@@ -1,11 +1,11 @@
-"""Decoder-only LM assembly: dense global/local-attention blocks, caches.
+"""Decoder-only LM assembly: attention, SSD and RG-LRU blocks, caches.
 
 The model is an ``nn.Module`` whose layers sit in a flat ``ModuleList``
 and run in a plain loop (the JAX package scans stacked layer groups;
 ``layer_layout`` keeps its partition so ``weights.params_from_jax`` can
 unstack them).  Weights are random, drawn from an explicit
-``torch.Generator`` on the generator's device.  MoE, SSD and RG-LRU
-blocks are not ported yet.
+``torch.Generator`` on the generator's device.  Each layer kind carries
+its own cache dict.  MoE blocks are not ported yet.
 """
 from __future__ import annotations
 
@@ -21,6 +21,8 @@ from repro_torch.configs.base import (GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD,
                                       ModelConfig)
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as R
+from repro_torch.models import ssm as SM
 
 
 # ---------------------------------------------------------------------------
@@ -44,11 +46,8 @@ def layer_layout(cfg: ModelConfig) -> Tuple[int, int, int, int]:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    kinds = set(cfg.pattern_for_layers())
     if cfg.moe is not None or any(cfg.moe_layer_mask()):
         raise NotImplementedError("MoE blocks are not ported yet")
-    if kinds & {SSD, RGLRU}:
-        raise NotImplementedError("SSD / RG-LRU blocks are not ported yet")
     if cfg.mla is not None or cfg.is_encoder_decoder or cfg.mrope_sections:
         raise NotImplementedError(
             "MLA, encoder-decoder and M-RoPE models are not ported yet")
@@ -56,12 +55,8 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError("untied LM heads are not ported yet")
 
 
-def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
 def _zeros(n: int, cfg: ModelConfig, device) -> nn.Parameter:
-    return _param(torch.zeros(n, dtype=L.pdtype_of(cfg), device=device))
+    return L.param(torch.zeros(n, dtype=L.pdtype_of(cfg), device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -73,10 +68,10 @@ class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
         super().__init__()
         pd, d, dev = L.pdtype_of(cfg), cfg.d_model, gen.device
-        self.wq = _param(L.dense_init(gen, d, cfg.q_dim, pd))
-        self.wk = _param(L.dense_init(gen, d, cfg.kv_dim, pd))
-        self.wv = _param(L.dense_init(gen, d, cfg.kv_dim, pd))
-        self.wo = _param(L.dense_init(gen, cfg.q_dim, d, pd))
+        self.wq = L.param(L.dense_init(gen, d, cfg.q_dim, pd))
+        self.wk = L.param(L.dense_init(gen, d, cfg.kv_dim, pd))
+        self.wv = L.param(L.dense_init(gen, d, cfg.kv_dim, pd))
+        self.wo = L.param(L.dense_init(gen, cfg.q_dim, d, pd))
         if cfg.qkv_bias:
             self.bq = _zeros(cfg.q_dim, cfg, dev)
             self.bk = _zeros(cfg.kv_dim, cfg, dev)
@@ -90,35 +85,55 @@ class MLP(nn.Module):
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
         super().__init__()
         pd, d = L.pdtype_of(cfg), cfg.d_model
-        self.w_gate = _param(L.dense_init(gen, d, cfg.d_ff, pd))
-        self.w_up = _param(L.dense_init(gen, d, cfg.d_ff, pd))
-        self.w_down = _param(L.dense_init(gen, cfg.d_ff, d, pd))
+        self.w_gate = L.param(L.dense_init(gen, d, cfg.d_ff, pd))
+        self.w_up = L.param(L.dense_init(gen, d, cfg.d_ff, pd))
+        self.w_down = L.param(L.dense_init(gen, cfg.d_ff, d, pd))
 
     def forward(self, x: torch.Tensor, act: str) -> torch.Tensor:
         return L.apply_mlp(self.w_gate, self.w_up, self.w_down, x, act)
 
 
 class DecoderLayer(nn.Module):
+    """Pre-norm residual layer: an attention, SSD or RG-LRU mixer, then
+    (except SSD, which has none) the gated MLP."""
+
     def __init__(self, cfg: ModelConfig, kind: str, gen: torch.Generator):
         super().__init__()
         dev = gen.device
         self.kind = kind
         self.norm1 = _zeros(cfg.d_model, cfg, dev)
-        self.mixer = Attention(cfg, gen)
+        if kind in (GLOBAL_ATTN, LOCAL_ATTN):
+            self.mixer = Attention(cfg, gen)
+        elif kind == SSD:
+            self.mixer = SM.SSD(cfg, gen)
+        elif kind == RGLRU:
+            self.mixer = R.RGLRU(cfg, gen)
+        else:
+            raise ValueError(kind)
+        if cfg.use_post_norms:
+            self.post_norm1 = _zeros(cfg.d_model, cfg, dev)
+        if kind == SSD:
+            return          # the SSD block has no separate MLP
         self.norm2 = _zeros(cfg.d_model, cfg, dev)
         self.mlp = MLP(cfg, gen)
         if cfg.use_post_norms:
-            self.post_norm1 = _zeros(cfg.d_model, cfg, dev)
             self.post_norm2 = _zeros(cfg.d_model, cfg, dev)
 
     def forward(self, x, positions, cfg: ModelConfig, cache=None,
-                offsets=None):
+                offsets=None, valid=None):
         h = L.rms_norm(x, self.norm1, cfg.norm_eps)
-        mix, cache = A.attention_layer(self.mixer, h, positions, cfg,
-                                       self.kind, cache, offsets)
+        if self.kind == SSD:
+            mix, cache = SM.ssd_block(self.mixer, h, cfg, cache, valid)
+        elif self.kind == RGLRU:
+            mix, cache = R.rglru_block(self.mixer, h, cfg, cache, valid)
+        else:
+            mix, cache = A.attention_layer(self.mixer, h, positions, cfg,
+                                           self.kind, cache, offsets)
         if cfg.use_post_norms:
             mix = L.rms_norm(mix, self.post_norm1, cfg.norm_eps)
         x = x + mix
+        if self.kind == SSD:
+            return x, cache
         y = self.mlp(L.rms_norm(x, self.norm2, cfg.norm_eps), cfg.mlp_act)
         if cfg.use_post_norms:
             y = L.rms_norm(y, self.post_norm2, cfg.norm_eps)
@@ -133,8 +148,8 @@ class Transformer(nn.Module):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
-        self.embed = _param(L.embed_init(gen, cfg.vocab_size, cfg.d_model,
-                                         L.pdtype_of(cfg)))
+        self.embed = L.param(L.embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                          L.pdtype_of(cfg)))
         self.final_norm = _zeros(cfg.d_model, cfg, gen.device)
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, kind, gen) for kind in cfg.pattern_for_layers())
@@ -142,12 +157,16 @@ class Transformer(nn.Module):
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor, *,
                 cache: Optional[List[dict]] = None,
                 lengths: Optional[torch.Tensor] = None,
+                valid: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, Optional[List[dict]]]:
         """Returns (logits fp32, cache).
 
         Train/prefill-from-zero: cache=None.  Serving: cache + lengths (B,)
-        = current fill; positions must be absolute.  The cache's tensors
-        are updated in place."""
+        = current fill; positions must be absolute; ``valid`` (B,S) marks
+        the real tokens of a ragged chunk (the recurrent blocks keep their
+        state unchanged across the rest).  Attention caches are written
+        in place; a recurrent layer replaces the entries of its cache
+        dict."""
         x = L.embed_lookup(self.embed, tokens, self.cfg)
         remat = _remat(self.cfg) if cache is None \
             and torch.is_grad_enabled() else None
@@ -156,7 +175,7 @@ class Transformer(nn.Module):
                 x, _ = remat(layer, x, positions, self.cfg)
                 continue
             c = cache[i] if cache is not None else None
-            x, _ = layer(x, positions, self.cfg, c, lengths)
+            x, _ = layer(x, positions, self.cfg, c, lengths, valid)
         x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return L.lm_logits(x, self.embed, self.cfg), cache
 
@@ -203,15 +222,23 @@ def init_model(cfg: ModelConfig, gen: torch.Generator) -> Transformer:
     return Transformer(cfg, gen)
 
 
+def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                 device) -> dict:
+    if kind in (GLOBAL_ATTN, LOCAL_ATTN):
+        return A.init_kv_cache(cfg, kind, batch, max_len, device)
+    if kind == SSD:
+        return SM.init_ssd_cache(cfg, batch, device)
+    if kind == RGLRU:
+        return R.init_rglru_cache(cfg, batch, device)
+    raise ValueError(kind)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device) -> List[dict]:
-    """One KV cache dict per layer."""
-    out = []
-    for kind in cfg.pattern_for_layers():
-        if kind not in (GLOBAL_ATTN, LOCAL_ATTN):
-            raise NotImplementedError(f"{kind} caches are not ported yet")
-        out.append(A.init_kv_cache(cfg, kind, batch, max_len, device))
-    return out
+    """One cache dict per layer: k/v/pos for attention, conv windows and
+    state for SSD, conv window and h for RG-LRU."""
+    return [_layer_cache(cfg, kind, batch, max_len, device)
+            for kind in cfg.pattern_for_layers()]
 
 
 def make_positions(batch: int, seq: int, device,

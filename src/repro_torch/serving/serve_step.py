@@ -9,8 +9,9 @@ data-plane functions the engine calls:
   * ``decode(module, cache, tokens(B,), lengths(B,), active(B,))``
       -> (next_token (B,), cache)
   * ``reset_slots(cache, keep_mask(B,))`` — invalidate freed slots' cache
-    rows so re-assigned slots never attend to a previous tenant's KV
-    (the paper's memory-isolation requirement R3 at the cache level).
+    rows so re-assigned slots never attend to a previous tenant's KV or
+    continue its recurrent state (the paper's memory-isolation
+    requirement R3 at the cache level).
 
 The functions run eagerly and update the cache's tensors in place (the
 JAX package jits them and donates the cache).  ``device`` is the card
@@ -52,13 +53,20 @@ def require_device(device) -> torch.device:
 
 
 def make_reset_slots(cfg: ModelConfig):
-    """reset(cache, keep (B,) bool) -> cache with dropped slots invalidated
-    (in place: ``pos`` rows set to -1; k/v payloads are masked by pos)."""
+    """reset(cache, keep (B,) bool) -> cache with dropped slots invalidated,
+    in place: ``pos`` rows set to -1 (k/v payloads are masked by pos) and
+    the recurrent rows (``state``, ``h``, ``conv*``) zeroed, so a
+    reassigned slot starts from a fresh state, not its last tenant's."""
 
     def reset(cache, keep):
         drop = ~keep.to(torch.bool)
         for layer in cache:
-            layer["pos"].masked_fill_(drop[:, None], -1)
+            for name, t in layer.items():
+                rows = drop.reshape((-1,) + (1,) * (t.dim() - 1))
+                if name == "pos":
+                    t.masked_fill_(rows, -1)
+                elif name in ("state", "h") or name.startswith("conv"):
+                    t.masked_fill_(rows, 0)
         return cache
 
     return reset

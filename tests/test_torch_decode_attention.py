@@ -92,6 +92,53 @@ def test_plain_reads_strided_cache_views():
     assert torch.equal(a, b)
 
 
+# B, T, Hq, Hkv, D, window, lengths: rings of T entries that have seen
+# ``lengths`` tokens (wrapped past T), window the ring or less
+RING_CASES = [
+    (4, 32, 8, 2, 16, 32, [0, 20, 45, 70]),
+    (4, 32, 10, 1, 32, 24, [1, 32, 33, 90]),
+]
+
+
+def _ring_positions(lengths, T, seed=0):
+    """Stored positions of a ring: index t holds the latest position
+    p < length with p = t mod T (-1 if none); two entries of each row
+    past 2 tokens are -1, as a ragged prefill's pad rows leave them."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(T)
+    pos = np.stack([np.where(t <= n - 1, t + ((n - 1 - t) // T) * T, -1)
+                    for n in lengths]).astype(np.int32)
+    for b, n in enumerate(lengths):
+        if n > 2:
+            pos[b, rng.choice(T, 2, replace=False)] = -1
+    return pos
+
+
+@pytest.mark.parametrize("case", RING_CASES)
+def test_plain_with_positions_matches_jax_naive_attention(case):
+    """With ring positions the plain version masks as the JAX package's
+    ``naive_attention`` does for the query at position length - 1
+    (keys with pos >= 0, pos <= q_pos, q_pos - pos < window)."""
+    import jax.numpy as jnp
+    from repro.models.attention import naive_attention as jax_naive
+    B, T, Hq, Hkv, D, win, lens = case
+    q, k, v, _, scale, _, _ = _inputs((B, T, Hq, Hkv, D, win, 0.0, lens),
+                                      "float32")
+    lengths = np.asarray(lens, np.int32)
+    pos = _ring_positions(lens, T)
+    got = tref.decode_attention_ref(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(lengths), scale=scale, window=win,
+        positions=torch.from_numpy(pos))
+    qpos = jnp.asarray(lengths - 1)[:, None]
+    want = jax_naive(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), qpos,
+                     jnp.asarray(pos), scale=scale, window=win,
+                     k_valid=jnp.asarray(pos >= 0))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+    assert np.all(got.numpy()[lengths <= 0] == 0.0)
+
+
 def test_cuda_wrapper_refuses_cpu_tensors():
     q, k, v, lengths, scale, _, _ = _inputs(CASES[0], "float32")
     with pytest.raises(ValueError, match="CUDA"):
@@ -117,6 +164,31 @@ def test_kernel_matches_plain_on_card(case, dtype):
     torch.cuda.synchronize()
     want = tref.decode_attention_ref(tq, tk, tv, tl, scale=scale,
                                      window=win, cap=cap)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.all(got[tl <= 0] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", RING_CASES + [
+    (8, 256, 10, 1, 256, 2048, [0, 1, 256, 7, 100, 129, 64, 255]),
+])
+def test_kernel_with_positions_matches_plain_on_card(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    B, T, Hq, Hkv, D, win, lens = case
+    q, k, v, lengths, scale, _, _ = _inputs((B, T, Hq, Hkv, D, win, 0.0,
+                                             lens), dtype)
+    dev = torch.device("cuda")
+    tq, tk, tv = (_torch(x, dtype).to(dev) for x in (q, k, v))
+    tl = torch.from_numpy(lengths).to(dev)
+    pos = torch.from_numpy(_ring_positions(lens, T)).to(dev)
+    got = decode_attention_cuda(tq, tk, tv, tl, scale=scale, window=win,
+                                positions=pos)
+    torch.cuda.synchronize()
+    want = tref.decode_attention_ref(tq, tk, tv, tl, scale=scale,
+                                     window=win, positions=pos)
     tol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     assert torch.all(got[tl <= 0] == 0)

@@ -1,11 +1,14 @@
 """The port's serving engine against the JAX package's.
 
 With the model executor: ``serve_mixed_slo`` (3 tenants, 6 requests,
-max_len 64, prefill chunk 16) on the float32 Qwen3 smoke model, the port
-loading the reference's weights; per-tenant results, EQ events and every
-request's generated tokens must be equal.  With the scheduling-only
-``NullExecutor``: every serving scenario's ``RunReport.to_json()`` must
-be identical.
+max_len 64, prefill chunk 16) on the float32 smoke models of Qwen3,
+Mamba2 and RecurrentGemma, the port loading the reference's weights and
+running ``pallas`` (the kernels' plain versions on the CPU), the
+reference ``chunked``; per-tenant results, EQ events, every request's
+generated tokens and, for the recurrent models (9 requests on 6 slots,
+so slots are reassigned), the whole RunReport must be equal.  With the
+scheduling-only ``NullExecutor``: every serving scenario's
+``RunReport.to_json()`` must be identical.
 """
 import dataclasses
 
@@ -29,13 +32,14 @@ from repro_torch.weights import params_from_jax
 SCENARIO_KW = dict(tenants=3, requests=6, max_len=64, prefill_chunk=16)
 
 
-def _run_model_engines():
-    jcfg = dataclasses.replace(jax_smoke_config("qwen3-8b"), dtype="float32")
-    tcfg = dataclasses.replace(smoke_config("qwen3-8b"), dtype="float32",
+def _run_model_engines(arch="qwen3-8b", **scenario_kw):
+    jcfg = dataclasses.replace(jax_smoke_config(arch), dtype="float32")
+    tcfg = dataclasses.replace(smoke_config(arch), dtype="float32",
                                attn_impl="pallas")
     params = jax_build_model(jcfg).init(jax.random.PRNGKey(0))
     module = params_from_jax(jax.tree.map(np.asarray, params), tcfg)
     kw = dict(SCENARIO_KW, vocab=jcfg.vocab_size)
+    kw.update(scenario_kw)
     jspec = jax_get_scenario("serve_mixed_slo", **kw)
     tspec = get_scenario("serve_mixed_slo", **kw)
     jrt = JaxServeRuntime.from_spec(
@@ -75,6 +79,32 @@ def test_model_engine_generated_tokens_match(model_runs):
     for j, t in zip(jdone, tdone):
         assert t.status.value == j.status.value
         assert t.generated == j.generated, f"rid {j.rid}"
+
+
+@pytest.fixture(scope="module", params=["mamba2-370m", "recurrentgemma-2b"])
+def recurrent_runs(request):
+    # 6 slots for 9 requests: slots are reassigned, so a slot's recurrent
+    # state must be reset between requests for the tokens to agree
+    return _run_model_engines(request.param, max_slots=6, requests=9)
+
+
+def test_recurrent_model_engine_reports_match(recurrent_runs):
+    _, jrep, _, trep = recurrent_runs
+    assert sum(r.completed for r in trep.tenants.values()) == 9
+    assert trep.to_json() == jrep.to_json()
+
+
+def test_recurrent_model_engine_events_match(recurrent_runs):
+    _, jrep, _, trep = recurrent_runs
+    assert trep.events == jrep.events
+
+
+def test_recurrent_model_engine_generated_tokens_match(recurrent_runs):
+    jrt, _, trt, _ = recurrent_runs
+    jdone = sorted(jrt.engine.done, key=lambda r: r.rid)
+    tdone = sorted(trt.engine.done, key=lambda r: r.rid)
+    assert [(r.rid, r.status.value, r.generated) for r in tdone] == \
+        [(r.rid, r.status.value, r.generated) for r in jdone]
 
 
 @pytest.mark.parametrize("name", ["serve_mixed_slo", "serve_congestor_victim",
