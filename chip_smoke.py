@@ -8,7 +8,9 @@ prints no result.  Phases, each of which raises on failure:
 
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
-     nvcc per source, all at once), printing ``-Xptxas -v``;
+     nvcc per source, all at once), printing ``-Xptxas -v``; count the
+     HGMMA (``wgmma``) instructions of the flash libraries with
+     ``cuobjdump --dump-sass`` and fail if a bf16 flash kernel has none;
   3. hold each kernel against its plain PyTorch version on the card:
      decode attention at the serving shapes (B 8, T 256, 32 query heads
      on 8 KV heads of dim 128) in bf16 and fp32, lengths 0, 1, T and
@@ -57,14 +59,20 @@ prints no result.  Phases, each of which raises on failure:
  11. the flash-attention kernels against their plain versions on the card:
      the forward (output and log-sum-exp) and the backward (dq, dk, dv,
      against the plain backward and against autograd of the plain
-     forward) on the cases of tests/test_kernels.py, causal off, and
+     forward) on the cases of tests/test_kernels.py, causal off, the bf16
+     kernels' edges (S * G and T off their 128-row tiles, G = 3 and 8,
+     head dims 16 to 128, a window shorter than a tile, a cap with a
+     window, non-causal T != S), q/k/v as slices of one fused buffer, and
      Qwen3-8B's heads (32 on 8 KV heads of dim 128) at S 1024, in bf16
-     and fp32 (forward 2e-5 fp32 / 2e-2 bf16 absolute; gradients
-     max |diff| <= 1e-4 fp32 / 2e-2 bf16 times max |reference|);
+     (the wgmma kernels) and fp32 (the scalar kernels) (forward 2e-5
+     fp32 / 2e-2 bf16 absolute, lse 1e-4; gradients max |diff| <= 1e-4
+     fp32 / 2e-2 bf16 times max |reference|); a head dim of 48 and a
+     misaligned address raise;
  12. their times at the training shape (B 4, S = T 1024, 32 / 8 heads of
      dim 128, causal, bf16): forward, backward and forward + backward of
      the kernels, the plain versions and ``scaled_dot_product_attention``
-     (timed here only), each beside its least time;
+     (timed here only), each beside its least time, with the achieved
+     TFLOP/s and the share of the bound;
  13. the training path: Qwen3-8B's published widths with the depth cut
      to 8 of 36 layers, random weights from seed 0, f32 parameters and
      bf16 compute, AdamW, full remat, ``SyntheticLM`` batches of 4 x 1024,
@@ -105,6 +113,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -435,6 +445,9 @@ def profile_decode(ex) -> None:
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # B, S, T, Hq, Hkv, D, window, cap, causal: tests/test_kernels.py's cases,
 # causal off, and the training path's shape (TRAIN: Qwen3-8B's heads)
+# the bf16 kernels' edges: S * G and T not multiples of their 128-row and
+# 128-key tiles, G = 3 and 8, every head dim, a window shorter than a tile,
+# a cap with a window, non-causal with T != S
 FLASH_CASES = [
     ("mha", (2, 128, 128, 4, 4, 64, 0, 0.0, True)),
     ("gqa4", (2, 256, 256, 8, 2, 64, 0, 0.0, True)),
@@ -443,6 +456,11 @@ FLASH_CASES = [
     ("cap50", (2, 128, 128, 4, 4, 64, 0, 50.0, True)),
     ("win_cap_odd", (2, 320, 320, 2, 2, 32, 64, 30.0, True)),
     ("noncausal", (1, 64, 96, 2, 2, 32, 0, 0.0, False)),
+    ("g3_ragged", (2, 200, 200, 6, 2, 64, 0, 0.0, True)),
+    ("d16", (2, 130, 130, 4, 2, 16, 0, 0.0, True)),
+    ("win20_d128", (1, 300, 300, 8, 2, 128, 20, 0.0, True)),
+    ("noncausal_ragged", (1, 300, 200, 4, 2, 64, 0, 0.0, False)),
+    ("g8_cap_win", (1, 260, 260, 8, 1, 32, 50, 20.0, True)),
     ("qwen3", (4, 1024, 1024, 32, 8, 128, 0, 0.0, True)),
 ]
 TRAIN = dict(B=4, S=1024, Hq=32, Hkv=8, D=128)
@@ -450,14 +468,21 @@ assert FLASH_CASES[-1][1] == (TRAIN["B"], TRAIN["S"], TRAIN["S"], TRAIN["Hq"],
                               TRAIN["Hkv"], TRAIN["D"], 0, 0.0, True)
 
 
-def flash_inputs(case, dtype, seed):
+def flash_inputs(case, dtype, seed, fused=False):
+    """q, k, v, dO of a case; ``fused``: q, k, v are strided slices of one
+    (B, S, Hq + 2 Hkv, D) buffer, as a fused projection gives them."""
     B, S, T, Hq, Hkv, D, win, cap, causal = case
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rnd(*shape):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
-    q, k, v, do = rnd(B, S, Hq, D), rnd(B, T, Hkv, D), rnd(B, T, Hkv, D), \
-        rnd(B, S, Hq, D)
+    if fused:
+        assert S == T
+        x = rnd(B, S, Hq + 2 * Hkv, D)
+        q, k, v = x[:, :, :Hq], x[:, :, Hq:Hq + Hkv], x[:, :, Hq + Hkv:]
+    else:
+        q, k, v = rnd(B, S, Hq, D), rnd(B, T, Hkv, D), rnd(B, T, Hkv, D)
+    do = rnd(B, S, Hq, D)
     kw = dict(scale=1.0 / math.sqrt(D), causal=causal, window=win, cap=cap)
     return q, k, v, do, kw
 
@@ -467,52 +492,66 @@ def rel_err(got, want) -> float:
             / want.float().abs().max().clamp(min=1e-30)).item()
 
 
+# q, k, v as slices of one fused buffer (bf16 only)
+FLASH_FUSED = [("fused_qwen3", (2, 256, 256, 32, 8, 128, 0, 0.0, True)),
+               ("fused_g3", (1, 200, 200, 6, 2, 64, 0, 0.0, True))]
+
+
 def check_flash_attention():
     """Both kernels against their plain versions on every case.  Returns
     the qwen3 case's errors in bf16: max |o - plain|, max |grad - plain|
     over dq, dk, dv, and the worst relative gradient error."""
     out = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        for i, (name, case) in enumerate(FLASH_CASES):
-            q, k, v, do, kw = flash_inputs(case, dtype, SEED + i)
-            o, lse = flash_attention_cuda(q, k, v, **kw)
-            torch.cuda.synchronize()
-            want_o, want_lse = flash_attention_ref(q, k, v, **kw)
-            err = (o.float() - want_o.float()).abs().max().item()
-            lse_err = (lse - want_lse).abs().max().item()
-            grads = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
-            torch.cuda.synchronize()
-            want = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
-            gerr = [rel_err(a, b) for a, b in zip(grads, want)]
-            gabs = max((a.float() - b.float()).abs().max().item()
-                       for a, b in zip(grads, want))
-            # autograd of the plain forward: the gradient's second oracle
-            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-            ref_o, _ = flash_attention_ref(*leaves, **kw)
-            auto = torch.autograd.grad(ref_o, leaves, do)
-            aerr = [rel_err(a, b) for a, b in zip(grads, auto)]
-            del ref_o, auto, leaves
-            ok = (err <= TOL[dtype] and lse_err <= 1e-4
-                  and max(gerr + aerr) <= GRAD_TOL[dtype]
-                  and all(torch.isfinite(x).all() for x in (o, *grads)))
-            log(f"check flash_attention {name:<13} {str(dtype):<15} "
-                f"fwd max_abs_err={err:.3e} (tol {TOL[dtype]:g}) "
-                f"lse_err={lse_err:.3e} bwd rel_err dq/dk/dv="
-                f"{'/'.join(f'{e:.2e}' for e in gerr)} vs autograd of "
-                f"plain {'/'.join(f'{e:.2e}' for e in aerr)} "
-                f"(tol {GRAD_TOL[dtype]:g})")
-            if not ok:
-                raise AssertionError(f"flash_attention {name} {dtype}: "
-                                     "kernel disagrees with plain version")
-            if name == "qwen3" and dtype == torch.bfloat16:
-                out = dict(fwd_err=err, bwd_err=gabs, bwd_rel_err=max(gerr))
-    try:
-        x = torch.zeros((1, 8, 2, 48), device="cuda")
-        flash_attention_cuda(x, x, x, scale=1.0)
-    except ValueError as e:
-        log(f"check flash_attention head dim 48 raises: {e}")
-    else:
-        raise AssertionError("flash_attention: head dim 48 did not raise")
+    runs = [(name, case, dtype, False, SEED + i)
+            for dtype in (torch.bfloat16, torch.float32)
+            for i, (name, case) in enumerate(FLASH_CASES)]
+    runs += [(name, case, torch.bfloat16, True, SEED + len(FLASH_CASES) + i)
+             for i, (name, case) in enumerate(FLASH_FUSED)]
+    for name, case, dtype, fused, seed in runs:
+        q, k, v, do, kw = flash_inputs(case, dtype, seed, fused)
+        o, lse = flash_attention_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want_o, want_lse = flash_attention_ref(q, k, v, **kw)
+        err = (o.float() - want_o.float()).abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        grads = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        want = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        gerr = [rel_err(a, b) for a, b in zip(grads, want)]
+        gabs = max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(grads, want))
+        # autograd of the plain forward: the gradient's second oracle
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        ref_o, _ = flash_attention_ref(*leaves, **kw)
+        auto = torch.autograd.grad(ref_o, leaves, do)
+        aerr = [rel_err(a, b) for a, b in zip(grads, auto)]
+        del ref_o, auto, leaves
+        ok = (err <= TOL[dtype] and lse_err <= 1e-4
+              and max(gerr + aerr) <= GRAD_TOL[dtype]
+              and all(torch.isfinite(x).all() for x in (o, *grads)))
+        log(f"check flash_attention {name:<16} {str(dtype):<15} "
+            f"fwd max_abs_err={err:.3e} (tol {TOL[dtype]:g}) "
+            f"lse_err={lse_err:.3e} bwd rel_err dq/dk/dv="
+            f"{'/'.join(f'{e:.2e}' for e in gerr)} vs autograd of "
+            f"plain {'/'.join(f'{e:.2e}' for e in aerr)} "
+            f"(tol {GRAD_TOL[dtype]:g})")
+        if not ok:
+            raise AssertionError(f"flash_attention {name} {dtype}: "
+                                 "kernel disagrees with plain version")
+        if name == "qwen3" and dtype == torch.bfloat16:
+            out = dict(fwd_err=err, bwd_err=gabs, bwd_rel_err=max(gerr))
+    x = torch.zeros((1, 8, 6, 64), device="cuda", dtype=torch.bfloat16)
+    for what, args in (
+            ("head dim 48", [torch.zeros((1, 8, 2, 48), device="cuda")] * 3),
+            # slices starting one element in: 2-byte aligned addresses
+            ("a misaligned address", [x[:, :, 2 * i:2 * i + 2, 1:33]
+                                      for i in range(3)])):
+        try:
+            flash_attention_cuda(*args, scale=1.0)
+        except ValueError as e:
+            log(f"check flash_attention {what} raises: {e}")
+        else:
+            raise AssertionError(f"flash_attention: {what} did not raise")
     return out
 
 
@@ -585,8 +624,59 @@ def time_flash_attention(iters: int) -> dict:
         r[f"{name}_bound_by"] = "bytes" if t_b >= t_o else "operations"
         r[f"{name}_flops"] = flops
         r[f"{name}_bytes"] = nbytes
+        # achieved rate and share of the bound, kernel and library call
+        r[f"{name}_tflops"] = flops / r[f"{name}_ms"] / 1e9
+        r[f"{name}_bound_share"] = r[f"{name}_bound_ms"] / r[f"{name}_ms"]
+        r[f"library_{name}_tflops"] = flops / r[f"library_{name}_ms"] / 1e9
     r["library_max_abs_diff"] = lib_err
+    # the same shape without the causal mask: every block walks all 8 KV
+    # tiles and no tile is masked, which shows what the causal blocks'
+    # shortness and diagonal tiles cost
+    nq, nk, nv, ndo, nkw = flash_inputs((B, S, S, Hq, Hkv, D, 0, 0.0, False),
+                                        dtype, 201)
+    no, nlse = flash_attention_cuda(nq, nk, nv, **nkw)
+    for name, per_pair, fn in (
+            ("fwd", 4, lambda: flash_attention_cuda(nq, nk, nv, **nkw)),
+            ("bwd", 10, lambda: flash_attention_bwd_cuda(
+                nq, nk, nv, no, nlse, ndo, **nkw))):
+        ms = event_ms(fn, [()], iters)
+        r[f"noncausal_{name}_ms"] = ms
+        r[f"noncausal_{name}_tflops"] = (per_pair * D * B * Hq * S * S
+                                         / ms / 1e9)
     return r
+
+
+def check_tensor_cores() -> dict:
+    """Count the HGMMA (wgmma) instructions of every function in the two
+    flash libraries with ``cuobjdump --dump-sass``; each bf16 kernel must
+    have some.  Returns the count per library."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    for lib, kernel in (("flash_attention", "flash_fwd_sm90"),
+                        ("flash_attention_bwd", "flash_bwd_sm90")):
+        sass = subprocess.run([tool, "--dump-sass",
+                               str(kbuild.lib_path(lib))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        per, fn = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                per[fn] = 0
+            elif fn is not None and "HGMMA" in line:
+                per[fn] += 1
+        ours = {int(re.search(r"ILi(\d+)E", f).group(1)): c
+                for f, c in per.items() if kernel in f}
+        others = sum(c for f, c in per.items() if kernel not in f)
+        log(f"tensor cores: {lib} HGMMA instructions, bf16 {kernel} by "
+            f"head dim {dict(sorted(ours.items()))}, every other function "
+            f"{others}")
+        if sorted(ours) != [16, 32, 64, 128] or min(ours.values()) == 0:
+            raise AssertionError(f"{lib}: a bf16 kernel has no HGMMA "
+                                 f"instruction: {ours}")
+        counts[lib] = sum(ours.values())
+    return counts
 
 
 def profile_train_step(cfg, state) -> None:
@@ -1328,6 +1418,7 @@ def main() -> int:
         for line in text.strip().splitlines():
             log(f"  {line}")
     log(f"build: {len(kbuild.sources())} sources in {build_s:.1f} s")
+    check_tensor_cores()
 
     err = check_decode_attention()
     timings = [time_decode_attention(T, iters)

@@ -36,13 +36,16 @@ from_f32<__nv_bfloat16>(float x) {
 struct Mask {
   int SG, T, G, causal, window;
 
-  // Does folded row `row` see key `kpos`?
-  __device__ __forceinline__ bool visible(int row, int kpos) const {
-    if (row >= SG || kpos >= T) return false;
-    const int qpos = row / G;
+  // Does a query at position qpos (of a folded row < SG) see key kpos?
+  __device__ __forceinline__ bool sees(int qpos, int kpos) const {
+    if (kpos >= T) return false;
     if (causal && kpos > qpos) return false;
     if (window > 0 && qpos - kpos >= window) return false;
     return true;
+  }
+  // Does folded row `row` see key `kpos`?
+  __device__ __forceinline__ bool visible(int row, int kpos) const {
+    return row < SG && sees(row / G, kpos);
   }
 };
 

@@ -9,6 +9,12 @@ query heads of a KV head folded position-major (row ``s * G + g``); the
 backward has no Pallas counterpart (the JAX package trains through XLA's
 gradient of its chunked attention).  Their plain versions are
 ``kernels/ref.py::flash_attention_ref`` and ``flash_attention_bwd_ref``.
+
+Both kernels dispatch on dtype: bfloat16 goes to the Hopper kernels
+(``wgmma`` on the tensor cores, K/V by TMA in the forward), float32 to the
+exact scalar kernels.  Every base address and byte stride of q, k and v
+must be a multiple of 16 (TMA and 16-byte copies); ``_check`` raises
+otherwise.
 """
 from __future__ import annotations
 
@@ -26,6 +32,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SHAPE = [_I] * 6 + [_L] * 9 + [_F, _I, _I, _F, _P]
 _FWD_ARGTYPES = [_I, _P, _P, _P, _P, _P] + _SHAPE
 _BWD_ARGTYPES = [_I] + [_P] * 10 + _SHAPE
+_CONVERT_ARGTYPES = [_P, _P, _L, _P]
+_ALIGN = 16                       # bytes: TMA boxes and 16-byte copies
 
 
 def _lib(name: str, fn: str, argtypes) -> ctypes.CDLL:
@@ -65,16 +73,27 @@ def _check(q, k, v) -> None:
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention_cuda: {name} needs a "
                              f"contiguous last dim")
+        strides = [st * t.element_size() for st in _strides(t)]
+        if t.data_ptr() % _ALIGN or any(st % _ALIGN for st in strides):
+            raise ValueError(f"flash_attention_cuda: {name}'s address and "
+                             f"byte strides {strides} must be multiples of "
+                             f"{_ALIGN}")
+
+
+def _strides(t) -> tuple:
+    """The (batch, position, head) strides in elements; a dim of size 1 is
+    never stepped, so it gets the head dim (an aligned stand-in) whatever
+    stride PyTorch gave it."""
+    return tuple(t.stride(i) if t.shape[i] > 1 else t.shape[3]
+                 for i in range(3))
 
 
 def _shape_args(q, k, v, scale, causal, window, cap, stream):
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
-    return (B, S, T, Hkv, Hq // Hkv, D,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            float(scale), int(bool(causal)), int(window), float(cap), stream)
+    return (B, S, T, Hkv, Hq // Hkv, D, *_strides(q), *_strides(k),
+            *_strides(v), float(scale), int(bool(causal)), int(window),
+            float(cap), stream)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -131,4 +150,11 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, scale: float,
         dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *_shape_args(q, k, v, scale, causal, window, cap, stream))
     build.check(lib, BWD_NAME, code)
-    return dq_acc.to(q.dtype), dk, dv
+    if q.dtype == torch.float32:
+        return dq_acc, dk, dv
+    dq = torch.empty((B, S, Hq, D), dtype=q.dtype, device=dev)
+    lib = _lib(BWD_NAME, "flash_attention_dq_convert", _CONVERT_ARGTYPES)
+    code = lib.flash_attention_dq_convert(dq_acc.data_ptr(), dq.data_ptr(),
+                                          dq.numel(), stream)
+    build.check(lib, BWD_NAME, code)
+    return dq, dk, dv

@@ -1,7 +1,9 @@
 """Flash attention: the port's plain forward and backward against the JAX
 package's Pallas kernel (interpret mode), its oracle and ``jax.vjp`` of
 the oracle; the ``autograd.Function`` against autograd of the plain
-forward; and, on the card, the CUDA kernels against the plain versions.
+forward; and, on the card, the CUDA kernels against the plain versions
+(bf16 goes to the wgmma kernels, fp32 to the scalar ones), on the JAX
+package's cases and on the edges of the bf16 kernels' tiles.
 
 Forward tolerances are those of tests/test_kernels.py: 2e-5 in float32,
 2e-2 in bfloat16, absolute (both sides round the same bf16 inputs, then
@@ -38,6 +40,20 @@ CASES = [
 ]
 IDS = ["mha", "gqa4", "mqa_unaligned", "window", "softcap", "win_cap_odd",
        "noncausal", "g4_d128"]
+
+# On the card only: the edges of the bf16 kernels' 128-row / 128-key tiles
+# (S * G and T not multiples of 128), G = 3 and 8, head dim 16, a window
+# shorter than a tile at head dim 128, a cap with a window, non-causal
+# with T < S.
+EDGE_CASES = [
+    (2, 200, 200, 6, 2, 64, 0, 0.0, True),       # G = 3, S * G = 600
+    (2, 130, 130, 4, 2, 16, 0, 0.0, True),       # head dim 16, ragged
+    (1, 300, 300, 8, 2, 128, 20, 0.0, True),     # window 20 < one tile
+    (1, 300, 200, 4, 2, 64, 0, 0.0, False),      # non-causal, T < S
+    (1, 260, 260, 8, 1, 32, 50, 20.0, True),     # G = 8, cap + window
+]
+EDGE_IDS = ["g3_ragged", "d16_ragged", "win20_d128", "noncausal_t_lt_s",
+            "g8_cap_win"]
 
 
 def _inputs(case, seed=0):
@@ -172,13 +188,8 @@ def _need_card():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", CASES, ids=IDS)
-def test_kernels_match_plain_on_card(case, dtype):
-    _need_card()
-    q, k, v, do, kw = _inputs(case, seed=4)
-    tq, tk, tv, tdo = (_torch(x, dtype, "cuda") for x in (q, k, v, do))
+def _check_on_card(tq, tk, tv, tdo, kw, dtype):
+    """Both kernels against the plain versions on the same inputs."""
     o, lse = flash_attention_cuda(tq, tk, tv, **kw)
     torch.cuda.synchronize()
     want_o, want_lse = tref.flash_attention_ref(tq, tk, tv, **kw)
@@ -191,6 +202,80 @@ def test_kernels_match_plain_on_card(case, dtype):
     for name, g, w in zip("qkv", got, want):
         err = _rel_err(g.float().cpu().numpy(), w.float().cpu().numpy())
         assert err <= GRAD_RTOL[dtype], (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES + EDGE_CASES, ids=IDS + EDGE_IDS)
+def test_kernels_match_plain_on_card(case, dtype):
+    _need_card()
+    q, k, v, do, kw = _inputs(case, seed=4)
+    _check_on_card(*(_torch(x, dtype, "cuda") for x in (q, k, v, do)), kw,
+                   dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [CASES[7], EDGE_CASES[0]],
+                         ids=["g4_d128", "g3_ragged"])
+def test_kernels_read_slices_of_a_fused_buffer_on_card(case):
+    """q, k, v as strided slices of one (B, S, Hq + 2 Hkv, D) buffer, as a
+    fused projection gives them: the kernels read them through strides."""
+    _need_card()
+    B, S, T, Hq, Hkv, D, *_ = case
+    q, k, v, do, kw = _inputs(case, seed=6)
+    fused = torch.cat([_torch(x, "bfloat16", "cuda") for x in (q, k, v)],
+                      dim=2)
+    tq, tk, tv = (fused[:, :, :Hq], fused[:, :, Hq:Hq + Hkv],
+                  fused[:, :, Hq + Hkv:])
+    assert not tq.is_contiguous() and tk.stride(1) == (Hq + 2 * Hkv) * D
+    _check_on_card(tq, tk, tv, _torch(do, "bfloat16", "cuda"), kw,
+                   "bfloat16")
+
+
+@pytest.mark.gpu
+def test_kernels_raise_on_a_misaligned_address_or_stride():
+    """TMA and the 16-byte copies need every address and byte stride to be
+    a multiple of 16: a slice one element in, or a head stride of 20
+    elements, raises instead of reading wrong rows."""
+    _need_card()
+    x = torch.zeros((1, 8, 6, 64), device="cuda", dtype=torch.bfloat16)
+    shifted = [x[:, :, 2 * i:2 * i + 2, 1:33] for i in range(3)]
+    z = torch.zeros((1, 8, 40), device="cuda",
+                    dtype=torch.bfloat16).view(1, 8, 2, 20)[..., :16]
+    assert z.stride() == (320, 40, 20, 1)         # 40-byte head stride
+    for args in (shifted, [z] * 3):
+        with pytest.raises(ValueError, match="multiples of 16"):
+            flash_attention_cuda(*args, scale=1.0)
+
+
+@pytest.mark.gpu
+def test_model_qkv_pass_the_kernels_checks(monkeypatch):
+    """The model's own q, k, v (reshaped projections after the q/k norm and
+    RoPE) meet the kernels' layout and alignment rules: a bf16 forward of
+    the smoke Qwen3 on the card runs the forward kernel once a layer."""
+    _need_card()
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(smoke_config("qwen3-8b"), attn_impl="pallas",
+                              num_heads=8, num_kv_heads=2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    module = transformer.init_model(cfg, gen)
+    seen = []
+
+    def spy(q, k, v, **kw):
+        fa._check(q, k, v)
+        seen.append((q.dtype, q.stride(), k.stride()))
+        return fa.flash_attention_cuda(q, k, v, **kw)
+    monkeypatch.setattr(tops, "flash_attention_cuda", spy)
+    tokens = torch.arange(2 * 40, device="cuda").reshape(2, 40) % 257
+    positions = transformer.make_positions(2, 40, "cuda")
+    with torch.no_grad():
+        logits, _ = module(tokens, positions)
+    assert torch.isfinite(logits.float()).all()
+    assert len(seen) == cfg.num_layers
+    assert all(dt == torch.bfloat16 for dt, _, _ in seen)
 
 
 @pytest.mark.gpu
