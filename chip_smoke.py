@@ -8,23 +8,30 @@ prints no result.  Phases, each of which raises on failure:
 
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
-     nvcc per source, all at once), printing ``-Xptxas -v``; count the
-     HGMMA (``wgmma``) instructions of the flash libraries with
-     ``cuobjdump --dump-sass`` and fail if a bf16 flash kernel has none;
+     nvcc per source, all at once), printing ``-Xptxas -v`` and, for every
+     head-dim-256 kernel, its registers and spills; count the HGMMA
+     (``wgmma``) instructions of the flash libraries with ``cuobjdump
+     --dump-sass`` and fail if a bf16 flash kernel has none (the forward
+     at head dims 16-256, the backward at 16-128: at 256 the bf16
+     backward is the scalar kernel);
   3. hold each kernel against its plain PyTorch version on the card:
      decode attention at the serving shapes (B 8, T 256, 32 query heads
      on 8 KV heads of dim 128) in bf16 and fp32, lengths 0, 1, T and
      ragged, plus windowed, soft-capped and T % 32 != 0 cases, and
      RecurrentGemma-2B's heads (10 on 1 KV head of 256, window 2048) by
-     index and by stored positions, and wrapped rings of 64 entries with
-     stored positions (tolerances 2e-5 fp32, 2e-2 bf16);
-  4. time each kernel (CUDA events over many launches after warm-up, K/V
-     rotated through more buffers than the 50 MB L2 holds, as the 36
-     layers' caches are on the main path) beside its least time from
-     bytes, its plain version, and one PyTorch call that computes the same
+     index and by stored positions, wrapped rings of 64 entries with
+     stored positions, RecurrentGemma's full 2048-entry ring wrapped
+     (lengths 2049-4000) and Qwen3's heads over T 4096 (tolerances 2e-5
+     fp32, 2e-2 bf16; empty rows exactly 0);
+  4. time the decode kernel and one PyTorch call that computes the same
      function (``scaled_dot_product_attention`` with an explicit mask,
-     timed here only), at T 256 and T 4096, and at RecurrentGemma's
-     heads (T 256, stored positions);
+     timed here only; the kernels it ran, from a profile, are logged) as
+     CUDA-graph replays (``ms``, ``library_ms``) and launched eagerly
+     from Python (``eager_ms``, ``library_eager_ms``), K/V rotated through
+     more buffers than the 50 MB L2 holds (as the layers' caches are on
+     the main path), beside its least time from bytes and its plain
+     version: Qwen3's heads at T 256 and T 4096, RecurrentGemma's at T
+     256 and on its wrapped 2048-entry ring (stored positions);
   5. the main path: full-width, full-depth Qwen3-8B with random weights
      from a seed serves ``serve_mixed_slo`` (3 tenants, 12 requests,
      8 slots, max_len 256, prefill chunk 32) through ``ServeRuntime`` +
@@ -34,7 +41,8 @@ prints no result.  Phases, each of which raises on failure:
      path gives the plain path's logits (1e-4) and greedy tokens; at full
      width one decode step's logits are finite, of shape (8, 151936), and
      agree with the plain path's;
-  7. a profile of one full-width decode step: device time by kernel;
+  7. a profile of one full-width decode step: device time by kernel, and
+     the decode kernel's time per launch and share of the step;
   8. the WLBVT dispatch kernel against its plain version, bit for bit
      on picks, ql' and co': float32 and float64, R 1/7/256/4096, T
      2/8/128, max_picks 1/4/16/128, random and integer priorities, ties
@@ -62,17 +70,22 @@ prints no result.  Phases, each of which raises on failure:
      forward) on the cases of tests/test_kernels.py, causal off, the bf16
      kernels' edges (S * G and T off their 128-row tiles, G = 3 and 8,
      head dims 16 to 128, a window shorter than a tile, a cap with a
-     window, non-causal T != S), q/k/v as slices of one fused buffer, and
-     Qwen3-8B's heads (32 on 8 KV heads of dim 128) at S 1024, in bf16
+     window, non-causal T != S), head dim 256 with RecurrentGemma-2B's
+     10 heads on 1 (ragged, a window, a cap with a window, and its
+     cache-free shape S 4096, window 2048), q/k/v as slices of one fused
+     buffer, and Qwen3-8B's heads (32 on 8 KV heads of dim 128) at S
+     1024, in bf16
      (the wgmma kernels) and fp32 (the scalar kernels) (forward 2e-5
      fp32 / 2e-2 bf16 absolute, lse 1e-4; gradients max |diff| <= 1e-4
      fp32 / 2e-2 bf16 times max |reference|); a head dim of 48 and a
      misaligned address raise;
  12. their times at the training shape (B 4, S = T 1024, 32 / 8 heads of
-     dim 128, causal, bf16): forward, backward and forward + backward of
-     the kernels, the plain versions and ``scaled_dot_product_attention``
-     (timed here only), each beside its least time, with the achieved
-     TFLOP/s and the share of the bound;
+     dim 128, causal, bf16) and at RecurrentGemma-2B's cache-free
+     attention (B 1, S = T 4096, 10 / 1 heads of 256, window 2048):
+     forward, backward and forward + backward of the kernels, the plain
+     versions and ``scaled_dot_product_attention`` (timed here only),
+     each beside its least time, with the achieved TFLOP/s and the share
+     of the bound;
  13. the training path: Qwen3-8B's published widths with the depth cut
      to 8 of 36 layers, random weights from seed 0, f32 parameters and
      bf16 compute, AdamW, full remat, ``SyntheticLM`` batches of 4 x 1024,
@@ -103,7 +116,12 @@ prints no result.  Phases, each of which raises on failure:
      rglru_scan = 18 x prefill chunks and decode_attention = 8 x decode
      steps (RecurrentGemma's local layers); the kernel path's prefill and
      decode logits against the ``chunked`` path's at full width; a
-     profile of a prefill and of a decode step; peak memory.
+     profile of a prefill and of a decode step; peak memory;
+ 18. (run after phase 17) RecurrentGemma-2B's cache-free forward at full
+     width and depth, ``module(tokens, positions)`` under ``pallas`` on
+     1 x 4096 tokens, so the 2048 window binds: exactly 8 flash_attention
+     (head dim 256) and 18 rglru_scan launches, finite bf16 logits, and
+     fp32 logits within 2e-3 of their range of the ``chunked`` path's.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -157,6 +175,8 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 L2_BYTES = 50 * 2**20
 SERVE = dict(B=8, T=256, Hq=32, Hkv=8, D=128)
 RG_DECODE = dict(B=8, T=256, Hq=10, Hkv=1, D=256)   # RecurrentGemma-2B
+# a wrapped 2048-entry ring: every row has seen 2049-4000 tokens
+RG_RING_LENGTHS = [2049, 4000, 2817, 3500, 2100, 3999, 2560, 3072]
 SEED = 0
 
 
@@ -226,6 +246,12 @@ def check_decode_attention() -> float:
         # rings of 64 entries that wrapped, window the ring or less
         ("ring", dict(S, T=64), ring, 64, 0.0, True),
         ("ring_w48", dict(RG_DECODE, T=64), ring, 48, 0.0, True),
+        # RecurrentGemma-2B's full 2048-entry ring, wrapped in every row
+        ("rg_ring2048", dict(RG_DECODE, T=2048), RG_RING_LENGTHS, 2048, 0.0,
+         True),
+        # Qwen3-8B's heads over a 4096-entry cache, ragged
+        ("qwen3_t4096", dict(S, T=4096),
+         [4096, 1, 0, 3000, 2049, 4095, 17, 1024], 0, 0.0, False),
     ]
     serve_err = None
     for dtype in (torch.bfloat16, torch.float32):
@@ -272,21 +298,40 @@ def event_ms(fn, argsets, iters) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_decode_attention(T: int, iters: int, shape=None, window: int = 0,
-                          ring: bool = False) -> dict:
-    """Full caches (length T in every row); ``ring``: the kernel masks by
-    stored positions, as RecurrentGemma's local layers call it."""
+def library_kernels(fn) -> list:
+    """Names of the CUDA kernels one call of ``fn`` runs (profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key[:80] for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA})
+
+
+def time_decode_attention(T: int, calls: int, shape=None, window: int = 0,
+                          ring: bool = False, lengths=None) -> dict:
+    """Device time per call of the kernel and of SDPA (CUDA-graph replays
+    of ``calls`` calls, K/V rotated through more buffers than the 50 MB L2
+    holds, as the layers' caches are on the main path), the same launched
+    eagerly from Python (``eager_ms``, ``library_eager_ms``), and the
+    plain version's eager time.  Full caches (length T in every row)
+    unless ``lengths`` is given; ``ring``: the kernel masks by stored
+    positions, as RecurrentGemma's local layers call it (a wrapped ring
+    when a length exceeds T)."""
     S = dict(shape or SERVE, T=T)
     B, Hq, Hkv, D = S["B"], S["Hq"], S["Hkv"], S["D"]
     dtype, G = torch.bfloat16, S["Hq"] // S["Hkv"]
-    lengths = [T] * B
+    lengths = lengths or [T] * B
     pair_bytes = 2 * B * T * Hkv * D * 2
     nbuf = max(2, math.ceil(4 * L2_BYTES / pair_bytes))
     sets = [attn_inputs(**S, lengths=lengths, dtype=dtype, seed=100 + i)
             for i in range(nbuf)]
     scale = 1.0 / math.sqrt(D)
-    pos = (torch.arange(T, dtype=torch.int32, device="cuda")[None, :]
-           .expand(B, T).contiguous() if ring else None)
+    pos = ring_positions(lengths, T, SEED) if ring else None
     kw = dict(scale=scale, window=window, positions=pos)
 
     def kernel(q, k, v, lens):
@@ -295,15 +340,17 @@ def time_decode_attention(T: int, iters: int, shape=None, window: int = 0,
     def plain(q, k, v, lens):
         return decode_attention_ref(q, k, v, lens, **kw)
 
-    kpos = torch.arange(T, device="cuda")[None, :]
-    masks = [((kpos < lens[:, None]) & ((lens[:, None] - kpos <= window)
-                                        if window else True))
-             [:, None, None, :] for (_, _, _, lens) in sets]
-    lib_sets = [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), m)
-                for (q, k, v, _), m in zip(sets, masks)]
+    # the keys that count, as the kernel masks them
+    kpos = (pos.long() if ring else torch.arange(T, device="cuda")[None, :])
+    lens = sets[0][3].long()[:, None]
+    mask = (kpos >= 0) & (kpos < lens)
+    if window:
+        mask &= lens - kpos <= window
+    lib_sets = [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 mask[:, None, None, :]) for (q, k, v, _) in sets]
 
-    def library(q, k, v, mask):
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+    def library(q, k, v, m):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=m,
                                               scale=scale, enable_gqa=True)
 
     # the yardstick computes the same function: check it once
@@ -312,21 +359,27 @@ def time_decode_attention(T: int, iters: int, shape=None, window: int = 0,
     lib_err = (lib_out.float() - ker_out.float()).abs().max().item()
     if lib_err > TOL[dtype]:
         raise AssertionError(f"library yardstick disagrees: {lib_err}")
+    lib_kernels = library_kernels(lambda: library(*lib_sets[0]))
 
-    ms = event_ms(kernel, sets, iters)
-    plain_ms = event_ms(plain, sets, max(iters // 10, 5))
-    library_ms = event_ms(library, lib_sets, iters)
-    kv_elems = sum(min(n, T) for n in lengths) * Hkv * D   # K (and V) read
+    ms = graph_ms(kernel, calls, 20, sets)
+    library_ms = graph_ms(library, calls, 20, lib_sets)
+    eager_ms = event_ms(kernel, sets, 20 * calls)
+    library_eager_ms = event_ms(library, lib_sets, 20 * calls)
+    plain_ms = event_ms(plain, sets, max(calls // 5, 5))
+    counted = int(mask.sum().item())
+    kv_elems = counted * Hkv * D               # K (and V) read
     nbytes = 2 * kv_elems * 2 + 2 * (B * Hq * D * 2) + B * 4 \
         + (B * T * 4 if ring else 0)          # + q, out, lens, positions
     flops = 2 * 2 * G * kv_elems          # one MAC per query row, QK and PV
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return dict(B=B, T=T, Hq=Hq, Hkv=Hkv, D=D, window=window, ring=ring,
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=max(t_bytes, t_ops),
+                counted_keys=counted, ms=ms, library_ms=library_ms,
+                eager_ms=eager_ms, library_eager_ms=library_eager_ms,
+                plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, flops=flops, buffers=nbuf)
+                bytes=nbytes, flops=flops, buffers=nbuf,
+                library_kernels="|".join(lib_kernels))
 
 
 # ---------------------------------------------------------------------------
@@ -436,7 +489,8 @@ def profile_decode(ex) -> None:
     lengths = np.full(B, 128, np.int32)
     active = np.ones(B, bool)
     profile_step("qwen3-8b full-width decode step",
-                 lambda: ex.decode(tokens, lengths, active))
+                 lambda: ex.decode(tokens, lengths, active),
+                 kernel="decode_attention")
 
 
 # ---------------------------------------------------------------------------
@@ -461,9 +515,18 @@ FLASH_CASES = [
     ("win20_d128", (1, 300, 300, 8, 2, 128, 20, 0.0, True)),
     ("noncausal_ragged", (1, 300, 200, 4, 2, 64, 0, 0.0, False)),
     ("g8_cap_win", (1, 260, 260, 8, 1, 32, 50, 20.0, True)),
+    # head dim 256 with RecurrentGemma-2B's grouping (10 heads on 1): S * G
+    # off the tiles, a window, a cap with a window, and its cache-free
+    # forward's shape (S 4096, window 2048)
+    ("g10_d256", (1, 200, 200, 10, 1, 256, 0, 0.0, True)),
+    ("g10_d256_win", (2, 300, 300, 10, 1, 256, 100, 0.0, True)),
+    ("g10_d256_cap_win", (1, 260, 260, 10, 1, 256, 64, 30.0, True)),
+    ("rg_cache_free", (1, 4096, 4096, 10, 1, 256, 2048, 0.0, True)),
     ("qwen3", (4, 1024, 1024, 32, 8, 128, 0, 0.0, True)),
 ]
 TRAIN = dict(B=4, S=1024, Hq=32, Hkv=8, D=128)
+# RecurrentGemma-2B's local attention, cache-free (B 1, S 4096)
+RG_FLASH = dict(B=1, S=4096, Hq=10, Hkv=1, D=256, window=2048)
 assert FLASH_CASES[-1][1] == (TRAIN["B"], TRAIN["S"], TRAIN["S"], TRAIN["Hq"],
                               TRAIN["Hkv"], TRAIN["D"], 0, 0.0, True)
 
@@ -555,21 +618,28 @@ def check_flash_attention():
     return out
 
 
-def time_flash_attention(iters: int) -> dict:
-    """CUDA-event times at the training shape.  q, k, v and o together
-    (84 MB) exceed the 50 MB L2, so no buffers are rotated."""
-    T = TRAIN
+def time_flash_attention(iters: int, shape=None) -> dict:
+    """CUDA-event times at the training shape (or ``shape``, causal, with
+    its window).  At the training shape q, k, v and o together (84 MB)
+    exceed the 50 MB L2, so no buffers are rotated."""
+    T = shape or TRAIN
     B, S, Hq, Hkv, D = T["B"], T["S"], T["Hq"], T["Hkv"], T["D"]
+    win = T.get("window", 0)
     dtype = torch.bfloat16
-    case = (B, S, S, Hq, Hkv, D, 0, 0.0, True)
+    case = (B, S, S, Hq, Hkv, D, win, 0.0, True)
     q, k, v, do, kw = flash_inputs(case, dtype, 200)
+    # SDPA takes a window only as an explicit mask
+    qp = torch.arange(S, device="cuda")
+    lib_mask = ((qp[None, :] <= qp[:, None])
+                & (qp[:, None] - qp[None, :] < win)) if win else None
     o, lse = flash_attention_cuda(q, k, v, **kw)
     lq, lk, lv = (x.detach().transpose(1, 2).clone().requires_grad_(True)
                   for x in (q, k, v))
     ldo = do.transpose(1, 2)
 
     def sdpa():
-        return F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+        return F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lib_mask,
+                                              is_causal=lib_mask is None,
                                               scale=kw["scale"],
                                               enable_gqa=True)
     # the yardstick computes the same function: check it once
@@ -609,8 +679,9 @@ def time_flash_attention(iters: int) -> dict:
         library_fwd_ms=event_ms(sdpa, [()], iters),
         library_bwd_ms=event_ms(lib_bwd, [()], iters),
         library_fwd_bwd_ms=event_ms(lib_fwd_bwd, [()], iters))
-    # causal: every (query, key) pair with key <= query, counted exactly
-    pairs = B * Hq * S * (S + 1) // 2
+    # causal: every (query, key) pair with key <= query (and within the
+    # window), counted exactly
+    pairs = B * Hq * sum(min(s + 1, win or S) for s in range(S))
     elt = 2
     fwd_bytes = (2 * B * S * Hq * D + 2 * B * S * Hkv * D) * elt \
         + B * Hq * S * 4                                # q, o, k, v, lse
@@ -629,6 +700,8 @@ def time_flash_attention(iters: int) -> dict:
         r[f"{name}_bound_share"] = r[f"{name}_bound_ms"] / r[f"{name}_ms"]
         r[f"library_{name}_tflops"] = flops / r[f"library_{name}_ms"] / 1e9
     r["library_max_abs_diff"] = lib_err
+    if shape is not None:
+        return r
     # the same shape without the causal mask: every block walks all 8 KV
     # tiles and no tile is masked, which shows what the causal blocks'
     # shortness and diagonal tiles cost
@@ -672,11 +745,37 @@ def check_tensor_cores() -> dict:
         log(f"tensor cores: {lib} HGMMA instructions, bf16 {kernel} by "
             f"head dim {dict(sorted(ours.items()))}, every other function "
             f"{others}")
-        if sorted(ours) != [16, 32, 64, 128] or min(ours.values()) == 0:
+        # the backward runs the scalar kernel at D 256 (flash_attention_bwd.cu)
+        dims = [16, 32, 64, 128] + ([256] if lib == "flash_attention" else [])
+        if sorted(ours) != dims or min(ours.values()) == 0:
             raise AssertionError(f"{lib}: a bf16 kernel has no HGMMA "
                                  f"instruction: {ours}")
         counts[lib] = sum(ours.values())
     return counts
+
+
+def ptxas_report(logs: dict, pattern: str) -> list:
+    """(library, function, registers, spill stores, spill loads) of every
+    entry function whose mangled name matches ``pattern``, from the
+    ``-Xptxas -v`` build logs."""
+    out = []
+    for lib, text in logs.items():
+        fn, spill = None, (0, 0)
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn, spill = m.group(1), (0, 0)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spill = (int(m.group(1)), int(m.group(2)))
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn is not None and re.search(pattern, fn):
+                out.append((lib, fn, int(m.group(1)), *spill))
+                fn = None
+    return out
 
 
 def profile_train_step(cfg, state) -> None:
@@ -1326,9 +1425,10 @@ def check_full_width_recurrent(module, cfg) -> None:
                                  "path disagrees with chunked")
 
 
-def profile_step(label: str, step) -> None:
+def profile_step(label: str, step, kernel: str = "") -> None:
     """Wall time of ``step`` (host clock, mean of 5) against its device
-    time by kernel (profiler, mean of 2 steps): the idle share."""
+    time by kernel (profiler, mean of 2 steps): the idle share; with
+    ``kernel``, that kernel's device time per launch and its share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     step()                                      # warm
@@ -1347,6 +1447,13 @@ def profile_step(label: str, step) -> None:
         f"device time {total:.3f} ms (sum of kernel self time, mean of 2 "
         f"profiled steps) over {sum(e.count for e in rows) // 2} kernels, "
         f"idle share {1 - total / step_ms:.3f}")
+    if kernel:
+        mine = [e for e in rows if kernel in e.key]
+        t = sum(e.self_device_time_total for e in mine) / 2 / 1e3
+        n = sum(e.count for e in mine) // 2
+        log(f"profile: {label} {kernel}: {n} launches a step, "
+            f"{t:.4f} ms a step, {t / max(n, 1) * 1e3:.3f} us a launch, "
+            f"{t / total:.4f} of device time")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"profile:   {e.self_device_time_total / 2 / 1e3:9.3f} ms  "
             f"{e.count // 2:5d}x  {e.key[:90]}")
@@ -1391,11 +1498,73 @@ def serve_recurrent(arch: str) -> dict:
                  lambda: ex.prefill(tokens, zeros, full))
     active = np.ones(B, bool)
     profile_step(f"{arch} full-width decode step",
-                 lambda: ex.decode(tokens[:, 0], full, active))
+                 lambda: ex.decode(tokens[:, 0], full, active),
+                 kernel="decode_attention")
     del rt, ex
     torch.cuda.empty_cache()
     return dict(launches=launches, peak=peak, wall=wall)
 
+
+def rg_cache_free_phase() -> dict:
+    """Phase 18: RecurrentGemma-2B at full width and depth, random weights
+    from a seed, one cache-free forward ``module(tokens, positions)`` of
+    1 x 4096 tokens under ``pallas``, so the 2048 window binds: every
+    local-attention layer runs the flash forward at head dim 256 and every
+    RG-LRU layer the scan kernel, exactly once.  The bf16 logits are
+    finite; in fp32 the kernel path's logits agree with the ``chunked``
+    path's to 2e-3 of their range (phase 17's tolerance)."""
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b"),
+                              attn_impl="pallas")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    module = build_model(cfg).init(gen)
+    B, S = 1, 4096
+    tokens = torch.randint(1, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    positions = transformer.make_positions(B, S, "cuda")
+    kinds = cfg.pattern_for_layers()
+    want = dict(ops.LAUNCHES, decode_attention=0, flash_attention_bwd=0,
+                wlbvt_select=0, ssd_scan=0,
+                flash_attention=kinds.count(LOCAL_ATTN),
+                rglru_scan=kinds.count(RGLRU))
+
+    def forward(c):
+        module.cfg = c
+        with torch.no_grad():
+            return module(tokens, positions)[0][:, -64:].float()
+    ops.reset_launches()
+    served, wall = sync_time(lambda: forward(cfg))
+    launches = dict(ops.LAUNCHES)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    ker = forward(f32)
+    ops.reset_launches()
+    plain = forward(dataclasses.replace(f32, attn_impl="chunked"))
+    plain_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    module.cfg = cfg
+    err = (ker - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    agree = (ker.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    log(f"rg cache-free forward: layers={cfg.num_layers} "
+        f"({kinds.count(RGLRU)} rglru, {kinds.count(LOCAL_ATTN)} local, "
+        f"window {cfg.window_size}, head dim {cfg.head_dim}) B={B} S={S} "
+        f"bf16 wall_s={wall:.3f} launches={launches}; logits of the last 64 "
+        f"positions: bf16 finite={bool(torch.isfinite(served).all())}, "
+        f"fp32 kernel vs chunked max_abs_err={err:.4g} max_abs_logit="
+        f"{scale:.4g} (tol 2e-3 of it) greedy_agreement={agree:.3f}; "
+        f"chunked launched {plain_launches}")
+    del module
+    torch.cuda.empty_cache()
+    if launches != want:
+        raise AssertionError(f"rg cache-free: launches {launches}, want "
+                             f"{want}")
+    if not torch.isfinite(served).all() or served.shape != (
+            B, 64, cfg.vocab_size):
+        raise AssertionError("rg cache-free: bf16 logits not finite or of "
+                             "the wrong shape")
+    if err > 2e-3 * scale or plain_launches.get("flash_attention"):
+        raise AssertionError("rg cache-free: kernel path disagrees with "
+                             "chunked")
+    return dict(launches=launches, wall=wall, err=err, scale=scale)
 
 
 def main() -> int:
@@ -1418,15 +1587,22 @@ def main() -> int:
         for line in text.strip().splitlines():
             log(f"  {line}")
     log(f"build: {len(kbuild.sources())} sources in {build_s:.1f} s")
+    for lib, fn, regs, st, ld in ptxas_report(logs, r"Li256E"):
+        log(f"build {lib}: head dim 256 {fn}: {regs} registers, {st} bytes "
+            f"spill stores, {ld} bytes spill loads")
     check_tensor_cores()
 
     err = check_decode_attention()
-    timings = [time_decode_attention(T, iters)
-               for T, iters in ((256, 2000), (4096, 200))]
-    timings.append(time_decode_attention(256, 2000, shape=RG_DECODE,
-                                         window=2048, ring=True))
+    timings = [time_decode_attention(256, 100),
+               time_decode_attention(256, 100, shape=RG_DECODE, window=2048,
+                                     ring=True),
+               time_decode_attention(4096, 20),
+               time_decode_attention(2048, 50, shape=RG_DECODE, window=2048,
+                                     ring=True, lengths=RG_RING_LENGTHS)]
     for t in timings:
-        log("time decode_attention bf16 " + fields(t))
+        log("time decode_attention bf16 (ms, library_ms: CUDA-graph "
+            "replays; eager_ms, library_eager_ms, plain_ms: launched from "
+            "Python) " + fields(t))
     # Qwen3: GQA with G = 2 on the smoke config's 4 KV heads
     check_small("qwen3-8b", 16, 4, num_heads=8)
 
@@ -1471,6 +1647,7 @@ def main() -> int:
         check_small(arch, 24, 16)
     mamba = serve_recurrent("mamba2-370m")
     rgemma = serve_recurrent("recurrentgemma-2b")
+    rg_free = rg_cache_free_phase()
 
     sel_err = check_wlbvt_select()
     sel_times = [time_wlbvt_select(256, 8, 1, torch.float64, 5000),
@@ -1485,6 +1662,9 @@ def main() -> int:
     ft = time_flash_attention(20)
     log("time flash_attention bf16 B=4 S=T=1024 Hq=32 Hkv=8 D=128 causal "
         + fields(ft))
+    frg = time_flash_attention(10, RG_FLASH)
+    log("time flash_attention bf16 B=1 S=T=4096 Hq=10 Hkv=1 D=256 causal "
+        "window=2048 " + fields(frg))
     tr = train_phase()
     for h in tr["hist"]:
         log(f"train step {h['step']}: loss={h['loss']:.6f} "

@@ -22,8 +22,9 @@
 // bfloat16 (flash_fwd_sm90, the training path): FlashAttention-3's shape.
 // One block per (128 folded query rows, b * Hkv), heaviest causal tiles
 // first, three warpgroups.  One producer thread issues TMA loads of K and
-// V tiles of 128 keys (4-D tensor maps over k's and v's own strides, so
-// no folded or padded copy; keys past T read 0) into a 2-stage ring with
+// V tiles of 128 keys (64 at D 256, so that Q and the ring fit 227 KB;
+// 4-D tensor maps over k's and v's own strides, so no folded or padded
+// copy; keys past T read 0) into a 2-stage ring with
 // full and empty mbarriers per stage, K and V on separate barriers so the
 // scores start before V lands; setmaxnreg gives its registers to the two
 // consumer warpgroups, each owning 64 query rows.  Operands stay bf16 in
@@ -32,13 +33,14 @@
 // softmax runs on the accumulator fragments (exp2 with scale * log2(e)
 // folded in, the row max and sum across the 4 threads of a row, the mask
 // only on tiles that cross the diagonal, the window's edge, T or S * G);
-// P goes to bf16 in registers and O += P V is m64nDk16 with P as the
-// register operand and V read through the transpose bit.  Q is loaded
+// P goes to bf16 in registers and O += P V is m64nDk16 (up to m64n256)
+// with P as the register operand and V read through the transpose bit.  Q is loaded
 // once by 16-byte cp.async, since its folded rows mix positions and heads.
 //
 // float32 (flash_fwd_kernel): exact fp32, no TF32 — scalar FMAs from
-// shared memory, 64 x 64 tiles, 256 threads each holding a 4 x 4 block of
-// scores and a 4 x (D / 16) block of the output.  A bf16 input never
+// shared memory, 64 x 64 tiles (145 KB of shared memory at D 256), 256
+// threads each holding a 4 x 4 block of scores and a 4 x (D / 16) block
+// of the output.  A bf16 input never
 // reaches it.
 //
 // Both keep what the TPU kernel keeps: the S x T score matrix never
@@ -218,14 +220,23 @@ namespace hop {
 using namespace flash::sm90;
 
 constexpr int kRows = 128;      // folded query rows a block
-constexpr int kKeys = 128;      // keys a tile
 constexpr int kStages = 2;
 constexpr int kBlock = 3 * kWarpgroup;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// keys a tile: 128, or 64 at D 256, where Q (64 KB) and a 2-stage ring of
+// 128-key K and V tiles (256 KB) would not fit a block's 227 KB; the
+// 64-key ring is 128 KB, and O (m64n256, 128 fp32 registers a thread),
+// S (m64n64, 32) and P (16) fit the consumers' 240 registers
+template <int D>
+constexpr int keys_for() {
+  return D > 128 ? 64 : 128;
+}
+
 template <int D>
 struct Smem {
+  static constexpr int kKeys = keys_for<D>();
   static constexpr uint32_t kQ = kRows * D * 2;
   static constexpr uint32_t kKV = kKeys * D * 2;
   static constexpr uint32_t q = 0;
@@ -239,11 +250,11 @@ struct Smem {
   static constexpr uint32_t bytes = bars + 3 * kStages * 8 + 1024;
 };
 
-// One tile of the online softmax on a warpgroup's m64n128 score fragment,
+// One tile of the online softmax on a warpgroup's m64nN score fragment,
 // in the log2 domain: scale (or soft-cap), mask (kMasked), the new row
 // max m across the 4 threads of a row, corr = exp2(m_old - m), the
 // probabilities in place, and this thread's part of the row sums l.
-template <bool kMasked, bool kCapped>
+template <bool kMasked, bool kCapped, int kKeys>
 __device__ __forceinline__ void softmax_tile(
     Frag<kKeys>& s, float (&m)[2], float (&l)[2], float (&corr)[2],
     const Mask& mask, const bool (&row_ok)[2], const int (&qpos)[2],
@@ -290,6 +301,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap kmap,
   using Tl = Tile<D>;
   using L = Smem<D>;
   constexpr int W = Tl::W;
+  constexpr int kKeys = L::kKeys;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint64_t* full_k = reinterpret_cast<uint64_t*>(sm + L::bars);
@@ -466,6 +478,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap kmap,
 template <int D>
 int launch(const Params& p, int B, cudaStream_t stream) {
   CUtensorMap kmap, vmap;
+  constexpr int kKeys = Smem<D>::kKeys;
   int e = tensor_map<D>(&kmap, p.k, B, p.T, p.Hkv, p.k_sb, p.k_st, p.k_sh,
                         1, kKeys);
   if (e) return e;
@@ -495,6 +508,7 @@ int launch_dim(const Params& p, int B, int D, bool bf16, cudaStream_t s) {
     case 32: return launch_one<32>(p, B, bf16, s);
     case 64: return launch_one<64>(p, B, bf16, s);
     case 128: return launch_one<128>(p, B, bf16, s);
+    case 256: return launch_one<256>(p, B, bf16, s);
   }
   return int(cudaErrorInvalidValue);
 }
@@ -508,7 +522,7 @@ extern "C" {
 // strides in elements; for bfloat16 every pointer and byte stride is a
 // multiple of 16 (TMA and 16-byte copies; the wrapper checks).  o:
 // (B, S, Hq, D) contiguous; lse: fp32 (B, Hkv, S * G).  D in {16, 32,
-// 64, 128}.  Returns the cudaError_t of the launch (0 = success).
+// 64, 128, 256}.  Returns the cudaError_t of the launch (0 = success).
 int flash_attention_fwd(int dtype, const void* q, const void* k,
                         const void* v, void* o, float* lse, int B, int S,
                         int T, int Hkv, int G, int D, long long q_sb,

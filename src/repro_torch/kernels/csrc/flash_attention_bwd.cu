@@ -55,8 +55,11 @@
 // scheduled longest first (causal: key tile 0 sees every row).
 //
 // float32 (flash_bwd_kernel): exact fp32, no TF32 — scalar FMAs from
-// shared memory, 64-key x 64-row tiles, dQ by atomicAdd; dq_acc is the
-// result.  A bf16 input never reaches it.
+// shared memory, 64-key x 64-row tiles (32 x 32 at D 256, so that they
+// fit 227 KB), dQ by atomicAdd; dq_acc is the result.  At D 256 it also
+// takes bf16 (read as bf16, summed in fp32, dQ converted by
+// flash_attention_dq_convert): the wgmma kernel's dK and dV accumulators
+// at 64 keys x 256 would not fit a thread's registers.
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
 
@@ -101,30 +104,37 @@ flash_bwd_delta(const T* o, const T* dout, float* delta, int B, int S,
   if (lane == 0) delta[warp] = acc;
 }
 
+// BQ folded rows x BK keys a tile: 64 x 64, or 32 x 32 at D 256, where
+// the 64 x 64 tiles' shared memory (297 KB) would not fit a block
 template <int D>
-size_t smem_bytes() {
-  // K, V, q*scale, dO tiles; P and dS tiles; lse and delta of the rows
-  return sizeof(float) * (2 * size_t(kBK) * (D + 1) +
-                          2 * size_t(kBQ) * (D + 1) + 2 * size_t(kBQ) * kPS +
-                          2 * size_t(kBQ));
+constexpr int bwd_tile() {
+  return D > 128 ? 32 : 64;
 }
 
-template <typename T, int D>
+template <int D, int BQ, int BK>
+size_t smem_bytes() {
+  // K, V, q*scale, dO tiles; P and dS tiles; lse and delta of the rows
+  return sizeof(float) * (2 * size_t(BK) * (D + 1) + 2 * size_t(BQ) * (D + 1) +
+                          2 * size_t(BQ) * (BK + 1) + 2 * size_t(BQ));
+}
+
+template <typename T, int D, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_kernel(Params p) {
-  constexpr int DS = D + 1, DC = D / 16;
+  constexpr int DS = D + 1, DC = D / 16, PS = BK + 1;
+  constexpr int RQ = BQ / 16, RK = BK / 16;   // rows, keys a thread
   extern __shared__ float smem[];
-  float* k_s = smem;                // [kBK][DS]
-  float* v_s = k_s + kBK * DS;      // [kBK][DS]
-  float* q_s = v_s + kBK * DS;      // [kBQ][DS]  q * scale
-  float* do_s = q_s + kBQ * DS;     // [kBQ][DS]
-  float* p_s = do_s + kBQ * DS;     // [kBQ][kPS]
-  float* ds_s = p_s + kBQ * kPS;    // [kBQ][kPS]
-  float* lse_s = ds_s + kBQ * kPS;  // [kBQ]
-  float* dl_s = lse_s + kBQ;        // [kBQ]
+  float* k_s = smem;                // [BK][DS]
+  float* v_s = k_s + BK * DS;       // [BK][DS]
+  float* q_s = v_s + BK * DS;       // [BQ][DS]  q * scale
+  float* do_s = q_s + BQ * DS;      // [BQ][DS]
+  float* p_s = do_s + BQ * DS;      // [BQ][PS]
+  float* ds_s = p_s + BQ * PS;      // [BQ][PS]
+  float* lse_s = ds_s + BQ * PS;    // [BQ]
+  float* dl_s = lse_s + BQ;         // [BQ]
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int k0 = blockIdx.x * kBK;
+  const int k0 = blockIdx.x * BK;
   const int bh = blockIdx.y, b = bh / p.Hkv, h = bh - b * p.Hkv;
   const int G = p.G, SG = p.S * G, T_ = p.T;
   const Mask mask{SG, T_, G, p.causal, p.window};
@@ -135,58 +145,59 @@ flash_bwd_kernel(Params p) {
   const float* lse = p.lse + (long long)bh * SG;
   const float* delta = p.delta + (long long)bh * SG;
 
-  load_k_rows<T, D>(k_s, static_cast<const T*>(p.k), k0, T_, h, b, p.k_sb,
-                    p.k_st, p.k_sh);
-  load_k_rows<T, D>(v_s, static_cast<const T*>(p.v), k0, T_, h, b, p.v_sb,
-                    p.v_st, p.v_sh);
+  load_k_rows<T, D, BK>(k_s, static_cast<const T*>(p.k), k0, T_, h, b,
+                        p.k_sb, p.k_st, p.k_sh);
+  load_k_rows<T, D, BK>(v_s, static_cast<const T*>(p.v), k0, T_, h, b,
+                        p.v_sb, p.v_st, p.v_sh);
 
   // the folded rows that can see a key of this tile
-  const int kmax = min(T_, k0 + kBK) - 1;
+  const int kmax = min(T_, k0 + BK) - 1;
   const int r_begin = p.causal ? min(SG, k0 * G) : 0;
   const int r_end = p.window > 0 ? min(SG, (kmax + p.window) * G) : SG;
-  const int r_first = (r_begin / kBQ) * kBQ;
+  const int r_first = (r_begin / BQ) * BQ;
 
-  float dk[4][DC], dv[4][DC];
+  float dk[RK][DC], dv[RK][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RK; ++i)
 #pragma unroll
     for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.f;
 
-  for (int r0 = r_first; r0 < r_end; r0 += kBQ) {
+  for (int r0 = r_first; r0 < r_end; r0 += BQ) {
     __syncthreads();               // last iteration is done with the tiles
-    load_q_rows<T, D>(q_s, q, r0, SG, G, h, b, p.q_sb, p.q_ss, p.q_sh,
-                      p.scale);
-    load_q_rows<T, D>(do_s, dout, r0, SG, G, h, b, c_sb, c_ss, c_sh, 1.f);
-    for (int r = tid; r < kBQ; r += kThreads) {
+    load_q_rows<T, D, BQ>(q_s, q, r0, SG, G, h, b, p.q_sb, p.q_ss, p.q_sh,
+                          p.scale);
+    load_q_rows<T, D, BQ>(do_s, dout, r0, SG, G, h, b, c_sb, c_ss, c_sh,
+                          1.f);
+    for (int r = tid; r < BQ; r += kThreads) {
       const bool in = r0 + r < SG;
       lse_s[r] = in ? lse[r0 + r] : 0.f;
       dl_s[r] = in ? delta[r0 + r] : 0.f;
     }
     __syncthreads();
 
-    // ---- s = (q*scale) K^T and dP = dO V^T, 4 rows x 4 keys a thread ------
-    float s[4][4], dp[4][4];
+    // ---- s = (q*scale) K^T and dP = dO V^T, RQ rows x RK keys a thread ---
+    float s[RQ][RK], dp[RQ][RK];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RQ; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < RK; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 2
     for (int d = 0; d < D; ++d) {
-      float a[4], g[4], kk[4], vv[4];
+      float a[RQ], g[RQ], kk[RK], vv[RK];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RQ; ++i) {
         a[i] = q_s[(ty + 16 * i) * DS + d];
         g[i] = do_s[(ty + 16 * i) * DS + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RK; ++j) {
         kk[j] = k_s[(tx + 16 * j) * DS + d];
         vv[j] = v_s[(tx + 16 * j) * DS + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RQ; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RK; ++j) {
           s[i][j] = fmaf(a[i], kk[j], s[i][j]);
           dp[i][j] = fmaf(g[i], vv[j], dp[i][j]);
         }
@@ -194,10 +205,10 @@ flash_bwd_kernel(Params p) {
 
     // ---- P and dS --------------------------------------------------------
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RQ; ++i) {
       const int r = ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RK; ++j) {
         const int c = tx + 16 * j;
         float x = s[i][j], t = 0.f;
         if (p.cap > 0.f) {
@@ -208,20 +219,20 @@ flash_bwd_kernel(Params p) {
         const float pj = ok ? expf(x - lse_s[r]) : 0.f;
         float dsj = pj * (dp[i][j] - dl_s[r]);
         if (p.cap > 0.f) dsj *= 1.f - t * t;
-        p_s[r * kPS + c] = pj;
-        ds_s[r * kPS + c] = dsj;
+        p_s[r * PS + c] = pj;
+        ds_s[r * PS + c] = dsj;
       }
     }
     __syncthreads();
 
-    // ---- dV += P^T dO, dK += dS^T (q*scale): 4 keys x D/16 cols a thread --
-    const int rn = min(kBQ, SG - r0);
+    // ---- dV += P^T dO, dK += dS^T (q*scale): RK keys x D/16 cols a thread -
+    const int rn = min(BQ, SG - r0);
     for (int r = 0; r < rn; ++r) {
-      float pr[4], sr[4], gr[DC], qr[DC];
+      float pr[RK], sr[RK], gr[DC], qr[DC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pr[i] = p_s[r * kPS + ty + 16 * i];
-        sr[i] = ds_s[r * kPS + ty + 16 * i];
+      for (int i = 0; i < RK; ++i) {
+        pr[i] = p_s[r * PS + ty + 16 * i];
+        sr[i] = ds_s[r * PS + ty + 16 * i];
       }
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
@@ -229,7 +240,7 @@ flash_bwd_kernel(Params p) {
         qr[c] = q_s[r * DS + tx + 16 * c];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RK; ++i)
 #pragma unroll
         for (int c = 0; c < DC; ++c) {
           dv[i][c] = fmaf(pr[i], gr[c], dv[i][c]);
@@ -237,27 +248,27 @@ flash_bwd_kernel(Params p) {
         }
     }
 
-    // ---- dQ += scale * dS K: 4 rows x D/16 cols a thread, atomically ----
+    // ---- dQ += scale * dS K: RQ rows x D/16 cols a thread, atomically ----
     {
-      float dq[4][DC];
+      float dq[RQ][DC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RQ; ++i)
 #pragma unroll
         for (int c = 0; c < DC; ++c) dq[i][c] = 0.f;
       const int cn = kmax - k0 + 1;
       for (int j = 0; j < cn; ++j) {
-        float sr[4], kr[DC];
+        float sr[RQ], kr[DC];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) sr[i] = ds_s[(ty + 16 * i) * kPS + j];
+        for (int i = 0; i < RQ; ++i) sr[i] = ds_s[(ty + 16 * i) * PS + j];
 #pragma unroll
         for (int c = 0; c < DC; ++c) kr[c] = k_s[j * DS + tx + 16 * c];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < RQ; ++i)
 #pragma unroll
           for (int c = 0; c < DC; ++c) dq[i][c] = fmaf(sr[i], kr[c], dq[i][c]);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RQ; ++i) {
         const int row = r0 + ty + 16 * i;
         if (row >= SG) continue;
         float* dst = p.dq + row_offset(row, G, h, c_sb, c_ss, c_sh, b);
@@ -274,7 +285,7 @@ flash_bwd_kernel(Params p) {
   const long long t_sh = D, t_st = (long long)p.Hkv * D,
                   t_sb = (long long)T_ * t_st;    // contiguous (B,T,Hkv,D)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RK; ++i) {
     const int kpos = k0 + ty + 16 * i;
     if (kpos >= T_) continue;
     const long long off = b * t_sb + kpos * t_st + h * t_sh;
@@ -286,15 +297,16 @@ flash_bwd_kernel(Params p) {
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch_scalar(const Params& p, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
+  constexpr int BQ = bwd_tile<D>(), BK = bwd_tile<D>();
+  const size_t smem = smem_bytes<D, BQ, BK>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      flash_bwd_kernel<T, D, BQ, BK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);
-  const int nk = (p.T + kBK - 1) / kBK;
-  flash_bwd_kernel<float, D>
+  const int nk = (p.T + BK - 1) / BK;
+  flash_bwd_kernel<T, D, BQ, BK>
       <<<dim3(nk, B * p.Hkv), kThreads, smem, stream>>>(p);
   return int(cudaGetLastError());
 }
@@ -681,7 +693,7 @@ __global__ void dq_to_bf16(const float4* src, uint2* dst, long long n4) {
 
 template <int D>
 int launch_one(const Params& p, int B, bool bf16, cudaStream_t s) {
-  return bf16 ? hop::launch<D>(p, B, s) : launch_scalar<D>(p, B, s);
+  return bf16 ? hop::launch<D>(p, B, s) : launch_scalar<float, D>(p, B, s);
 }
 
 template <typename T>
@@ -699,6 +711,9 @@ int run(const Params& p, const void* o, int B, int D, cudaStream_t s) {
     case 32: return launch_one<32>(p, B, kBf16, s);
     case 64: return launch_one<64>(p, B, kBf16, s);
     case 128: return launch_one<128>(p, B, kBf16, s);
+    // both dtypes on the scalar kernel: the wgmma kernel's dK and dV at
+    // 64 keys x 256 would take 256 registers a thread
+    case 256: return launch_scalar<T, 256>(p, B, s);
   }
   return int(cudaErrorInvalidValue);
 }
@@ -707,7 +722,8 @@ int run(const Params& p, const void* o, int B, int D, cudaStream_t s) {
 
 extern "C" {
 
-// dtype: 0 = float32 (the scalar kernel), 1 = bfloat16 (the wgmma kernel).
+// dtype: 0 = float32 (the scalar kernel), 1 = bfloat16 (the wgmma kernel;
+// the scalar kernel at D 256).
 // q: (B, S, Hq, D), k/v: (B, T, Hkv, D), last dim contiguous, other
 // strides in elements; for bfloat16 every pointer and byte stride is a
 // multiple of 16 (the wrapper checks).  o and dout: (B, S, Hq, D)
@@ -715,7 +731,7 @@ extern "C" {
 // fp32 (B, Hkv, S * G); dq_acc fp32 (B, S, Hq, D), zeroed by the caller.
 // Outputs: dq_acc holds dq in fp32 (flash_attention_dq_convert gives it in
 // bf16); dk/dv (B, T, Hkv, D) contiguous in q's dtype.  D in {16, 32, 64,
-// 128}.  Returns the first cudaError_t of the launches (0 = success).
+// 128, 256}.  Returns the first cudaError_t of the launches (0 = success).
 int flash_attention_bwd(int dtype, const void* q, const void* k,
                         const void* v, const void* o, const void* dout,
                         const float* lse, float* delta, float* dq_acc,

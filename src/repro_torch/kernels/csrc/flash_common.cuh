@@ -58,16 +58,16 @@ __device__ __forceinline__ long long row_offset(int row, int G, int h,
   return b * sb + s * ss + (long long)(h * G + g) * sh;
 }
 
-// Copy rows [r0, r0 + kBQ) of (b, h) into a padded fp32 tile (row stride
+// Copy rows [r0, r0 + R) of (b, h) into a padded fp32 tile (row stride
 // D + 1), times `mul`; rows past SG are 0.  Neighbouring threads read
 // neighbouring elements of a row.
-template <typename T, int D>
+template <typename T, int D, int R = kBQ>
 __device__ __forceinline__ void load_q_rows(float* dst, const T* src,
                                             int r0, int SG, int G, int h,
                                             int b, long long sb,
                                             long long ss, long long sh,
                                             float mul) {
-  for (int i = threadIdx.x; i < kBQ * D; i += kThreads) {
+  for (int i = threadIdx.x; i < R * D; i += kThreads) {
     const int r = i / D, d = i - r * D;
     const int row = r0 + r;
     float x = 0.f;
@@ -77,14 +77,14 @@ __device__ __forceinline__ void load_q_rows(float* dst, const T* src,
   }
 }
 
-// Copy keys [k0, k0 + kBK) of (b, h) of a (B, T, Hkv, D) tensor into a
+// Copy keys [k0, k0 + R) of (b, h) of a (B, T, Hkv, D) tensor into a
 // padded fp32 tile; keys past T are 0.
-template <typename T, int D>
+template <typename T, int D, int R = kBK>
 __device__ __forceinline__ void load_k_rows(float* dst, const T* src,
                                             int k0, int T_, int h, int b,
                                             long long sb, long long st,
                                             long long sh) {
-  for (int i = threadIdx.x; i < kBK * D; i += kThreads) {
+  for (int i = threadIdx.x; i < R * D; i += kThreads) {
     const int j = i / D, d = i - j * D;
     const int kpos = k0 + j;
     float x = 0.f;

@@ -12,7 +12,8 @@ gradient of its chunked attention).  Their plain versions are
 
 Both kernels dispatch on dtype: bfloat16 goes to the Hopper kernels
 (``wgmma`` on the tensor cores, K/V by TMA in the forward), float32 to the
-exact scalar kernels.  Every base address and byte stride of q, k and v
+exact scalar kernels; at head dim 256 the bfloat16 backward also runs the
+scalar kernel (bf16 in, fp32 sums).  Every base address and byte stride of q, k and v
 must be a multiple of 16 (TMA and 16-byte copies); ``_check`` raises
 otherwise.
 """
@@ -26,7 +27,7 @@ from repro_torch.kernels import build
 
 NAME = "flash_attention"
 BWD_NAME = "flash_attention_bwd"
-HEAD_DIMS = (16, 32, 64, 128)     # the head dims the kernels are built for
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the head dims the kernels are built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SHAPE = [_I] * 6 + [_L] * 9 + [_F, _I, _I, _F, _P]

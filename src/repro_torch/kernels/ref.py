@@ -45,6 +45,65 @@ def decode_attention_ref(q, k, v, lengths, *, scale: float, window: int = 0,
     return o.reshape(B, 1, Hq, D).to(q.dtype)
 
 
+def decode_attention_split_ref(q, k, v, lengths, *, scale: float,
+                               window: int = 0, cap: float = 0.0,
+                               positions=None, splits: int = 1
+                               ) -> torch.Tensor:
+    """``decode_attention_ref``'s function in the kernel's split form.
+
+    Each row's live range ``[kbeg, kend)`` (by index: ``[max(0, length -
+    window), min(length, T))``; with positions: ``[0, T)``; empty when
+    ``length <= 0``) is cut into ``splits`` parts of ``ceil(len /
+    splits)`` keys, as each block of the kernel cuts it.  Each part gives
+    its row max m, sum l and accumulator over the keys that count in it
+    (m = NEG_INF, l = 0 where none does); the parts are combined in
+    order, a part weighing ``exp(m_r - max m)`` where l > 0 and 0 where
+    not.  fp32 arithmetic; the output has q's dtype."""
+    B, _, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qf = (q.float() * scale).reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bthd->bhgt", qf, k.float())
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    idx = torch.arange(T, device=q.device)[None, :]
+    kpos = idx if positions is None else positions.to(q.device).long()
+    length = lengths.to(q.device).long()[:, None]
+    mask = (kpos >= 0) & (kpos < length)
+    if window:
+        mask &= length - kpos <= window
+    live = length > 0
+    if positions is None:
+        kend = torch.where(live, length.clamp(max=T), 0)
+        kbeg = (torch.where(live, (length - window).clamp(min=0), 0)
+                if window > 0 else torch.zeros_like(kend))
+    else:
+        kend = torch.where(live, T, 0)
+        kbeg = torch.zeros_like(kend)
+    per = ((kend - kbeg).clamp(min=0) + splits - 1) // splits
+    vf = v.float()
+    ms, ls, accs = [], [], []
+    for r in range(splits):
+        sb = torch.minimum(kend, kbeg + r * per)
+        se = torch.minimum(kend, sb + per)
+        m_r = mask & (idx >= sb) & (idx < se)              # (B, T)
+        sr = torch.where(m_r[:, None, None, :], s, NEG_INF)
+        mx = sr.amax(dim=-1)                               # (B, Hkv, G)
+        p = torch.exp(sr - mx[..., None]) * m_r[:, None, None, :]
+        ms.append(mx)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhgt,bthd->bhgd", p, vf))
+    m = torch.stack(ms).amax(dim=0)
+    o = torch.zeros_like(accs[0])
+    lsum = torch.zeros_like(ls[0])
+    for mx, l, acc in zip(ms, ls, accs):
+        w = torch.where(l > 0, torch.exp(mx - m), 0.0)
+        lsum = lsum + w * l
+        o = o + w[..., None] * acc
+    o = o / torch.clamp(lsum, min=1e-30)[..., None]
+    return o.reshape(B, 1, Hq, D).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # SSD and RG-LRU scans (csrc/ssd_scan.cu, csrc/rglru_scan.cu)
 # ---------------------------------------------------------------------------

@@ -13,7 +13,9 @@ import torch
 
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.decode_attention import (MAX_SPLITS, TILE_KEYS,
+                                                  decode_attention_cuda,
+                                                  num_splits)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -139,6 +141,97 @@ def test_plain_with_positions_matches_jax_naive_attention(case):
     assert np.all(got.numpy()[lengths <= 0] == 0.0)
 
 
+# ---------------------------------------------------------------------------
+# the kernel's split form (split-K across a cluster), the plain way
+# ---------------------------------------------------------------------------
+SPLITS = [1, 3, 8]
+
+
+@pytest.mark.parametrize("splits", SPLITS)
+@pytest.mark.parametrize("case", CASES)
+def test_split_plain_matches_plain_and_jax_oracle(case, splits):
+    """The split form gives decode_attention_ref's and the JAX oracle's
+    answer (fp32, 2e-5), and exactly 0 on a row of length 0."""
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+    q, k, v, lengths, scale, win, cap = _inputs(case, "float32", seed=3)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    tl = torch.from_numpy(lengths)
+    got = tref.decode_attention_split_ref(tq, tk, tv, tl, scale=scale,
+                                          window=win, cap=cap, splits=splits)
+    want = tref.decode_attention_ref(tq, tk, tv, tl, scale=scale, window=win,
+                                     cap=cap)
+    oracle = jref.decode_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), jnp.asarray(lengths),
+                                       scale=scale, window=win, cap=cap)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5,
+                               rtol=2e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), atol=2e-5,
+                               rtol=2e-5)
+    assert np.all(got.numpy()[lengths <= 0] == 0.0)
+
+
+@pytest.mark.parametrize("splits", SPLITS)
+@pytest.mark.parametrize("case", RING_CASES)
+def test_split_plain_on_a_wrapped_ring_matches_jax_naive_attention(case,
+                                                                   splits):
+    import jax.numpy as jnp
+    from repro.models.attention import naive_attention as jax_naive
+    B, T, Hq, Hkv, D, win, lens = case
+    q, k, v, _, scale, _, _ = _inputs((B, T, Hq, Hkv, D, win, 0.0, lens),
+                                      "float32", seed=4)
+    lengths = np.asarray(lens, np.int32)
+    pos = _ring_positions(lens, T)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    tl, tp = torch.from_numpy(lengths), torch.from_numpy(pos)
+    got = tref.decode_attention_split_ref(tq, tk, tv, tl, scale=scale,
+                                          window=win, positions=tp,
+                                          splits=splits)
+    want = tref.decode_attention_ref(tq, tk, tv, tl, scale=scale, window=win,
+                                     positions=tp)
+    qpos = jnp.asarray(lengths - 1)[:, None]
+    oracle = jax_naive(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), qpos,
+                       jnp.asarray(pos), scale=scale, window=win,
+                       k_valid=jnp.asarray(pos >= 0))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5,
+                               rtol=2e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), atol=2e-5,
+                               rtol=2e-5)
+    assert np.all(got.numpy()[lengths <= 0] == 0.0)
+
+
+@pytest.mark.parametrize("window", [0, 6])
+def test_split_plain_with_more_splits_than_live_keys(window):
+    """Rows of 0, 1 and 3 live keys over 8 splits: most splits see no
+    counted key (m = -inf, l = 0) and must weigh nothing; a row with no
+    counted key at all is exactly 0."""
+    case = (4, 40, 8, 2, 16, window, 0.0, [0, 1, 3, 40])
+    q, k, v, lengths, scale, win, cap = _inputs(case, "float32", seed=5)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    tl = torch.from_numpy(lengths)
+    want = tref.decode_attention_ref(tq, tk, tv, tl, scale=scale, window=win)
+    for splits in (8, 40):
+        got = tref.decode_attention_split_ref(tq, tk, tv, tl, scale=scale,
+                                              window=win, splits=splits)
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+        assert torch.all(got[0] == 0) and torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("T,rows,window,positions,want", [
+    (256, 64, 0, False, 2),          # Qwen3-8B serving: B 8 x 8 KV heads
+    (256, 8, 2048, True, 8),         # RecurrentGemma-2B: B 8 x 1, a ring
+    (4096, 64, 0, False, 2),
+    (2048, 8, 2048, True, 8),
+    (40, 8, 0, False, 2),            # at most one split per 32 keys
+    (4096, 64, 16, False, 1),        # by index the window bounds the keys
+    (4096, 4096, 0, False, 1),       # enough (b, h) pairs to fill the card
+])
+def test_num_splits(T, rows, window, positions, want):
+    got = num_splits(T, rows, 132, window=window, positions=positions)
+    assert got == want
+    assert 1 <= got <= MAX_SPLITS and got <= -(-T // TILE_KEYS)
+
+
 def test_cuda_wrapper_refuses_cpu_tensors():
     q, k, v, lengths, scale, _, _ = _inputs(CASES[0], "float32")
     with pytest.raises(ValueError, match="CUDA"):
@@ -151,6 +244,8 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", CASES + [
     (8, 256, 32, 8, 128, 0, 0.0, [0, 1, 256, 7, 100, 129, 64, 255]),
+    # Qwen3-8B's heads over a 4096-entry cache: 8 splits of up to 512 keys
+    (8, 4096, 32, 8, 128, 0, 0.0, [4096, 1, 0, 3000, 2049, 4095, 17, 1024]),
 ])
 def test_kernel_matches_plain_on_card(case, dtype):
     if not torch.cuda.is_available():
@@ -173,6 +268,9 @@ def test_kernel_matches_plain_on_card(case, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", RING_CASES + [
     (8, 256, 10, 1, 256, 2048, [0, 1, 256, 7, 100, 129, 64, 255]),
+    # RecurrentGemma-2B's full 2048-entry ring, wrapped in every row
+    (8, 2048, 10, 1, 256, 2048, [2049, 4000, 2817, 3500, 2100, 3999, 2560,
+                                 3072]),
 ])
 def test_kernel_with_positions_matches_plain_on_card(case, dtype):
     if not torch.cuda.is_available():
@@ -192,3 +290,41 @@ def test_kernel_with_positions_matches_plain_on_card(case, dtype):
     tol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     assert torch.all(got[tl <= 0] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_replays_in_a_cuda_graph_with_new_lengths(dtype):
+    """``ops.decode_attention`` captured in a CUDA graph and replayed after
+    the lengths (and the ring's positions) were changed in place gives the
+    plain version's answer for the new lengths: nothing about the lengths
+    is read on the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    B, T, Hq, Hkv, D, win = 8, 256, 10, 1, 256, 64
+    q, k, v, _, scale, _, _ = _inputs((B, T, Hq, Hkv, D, win, 0.0, [T] * B),
+                                      dtype, seed=8)
+    dev = torch.device("cuda")
+    tq, tk, tv = (_torch(x, dtype).to(dev) for x in (q, k, v))
+    old, new = [T] * B, [0, 1, 5, 256, 300, 33, 1000, 2]
+    lens = torch.tensor(old, dtype=torch.int32, device=dev)
+    pos = torch.from_numpy(_ring_positions(old, T)).to(dev)
+    for positions, window in ((None, 0), (pos, win)):
+        out = tops.decode_attention(tq, tk, tv, lens, scale=scale,
+                                    window=window, positions=positions)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = tops.decode_attention(tq, tk, tv, lens, scale=scale,
+                                        window=window, positions=positions)
+        lens.copy_(torch.tensor(new, dtype=torch.int32))
+        pos.copy_(torch.from_numpy(_ring_positions(new, T, seed=1)))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tref.decode_attention_ref(tq, tk, tv, lens, scale=scale,
+                                         window=window, positions=positions)
+        tol = TOL[dtype]
+        torch.testing.assert_close(out.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        assert torch.all(out[lens <= 0] == 0)
+        lens.copy_(torch.tensor(old, dtype=torch.int32))
+        pos.copy_(torch.from_numpy(_ring_positions(old, T)))

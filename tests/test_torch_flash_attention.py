@@ -51,9 +51,20 @@ EDGE_CASES = [
     (1, 300, 300, 8, 2, 128, 20, 0.0, True),     # window 20 < one tile
     (1, 300, 200, 4, 2, 64, 0, 0.0, False),      # non-causal, T < S
     (1, 260, 260, 8, 1, 32, 50, 20.0, True),     # G = 8, cap + window
+    # head dim 256 with RecurrentGemma-2B's grouping (10 heads on 1 KV
+    # head): the bf16 forward's 64-key tiles and m64n256 output, the
+    # scalar backward's 32 x 32 tiles
+    (1, 200, 200, 10, 1, 256, 0, 0.0, True),     # S * G = 2000, ragged
+    (2, 300, 300, 10, 1, 256, 100, 0.0, True),   # window
+    (1, 260, 260, 10, 1, 256, 64, 30.0, True),   # cap + window
 ]
 EDGE_IDS = ["g3_ragged", "d16_ragged", "win20_d128", "noncausal_t_lt_s",
-            "g8_cap_win"]
+            "g8_cap_win", "g10_d256_ragged", "g10_d256_window",
+            "g10_d256_cap_win"]
+
+# head dim 256 on the CPU: RecurrentGemma-2B's grouping, a window shorter
+# than S, causal
+D256_CASE = (1, 96, 96, 10, 1, 256, 32, 0.0, True)
 
 
 def _inputs(case, seed=0):
@@ -99,7 +110,30 @@ def test_plain_forward_matches_jax_kernel_and_oracle(case, dtype):
         assert err < TOL[dtype], err
 
 
-@pytest.mark.parametrize("case", CASES, ids=IDS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_forward_at_head_dim_256_matches_jax_kernel_and_oracle(dtype):
+    """The shape the kernels now take at head dim 256 (RecurrentGemma-2B's
+    local attention): the plain forward against the JAX package's Pallas
+    kernel in interpret mode and its oracle."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+    q, k, v, _, kw = _inputs(D256_CASE, seed=7)
+    got = tops.flash_attention(*(_torch(x, dtype) for x in (q, k, v)), **kw)
+    jq, jk, jv = (jnp.asarray(x).astype(getattr(jnp, dtype))
+                  for x in (q, k, v))
+    want_kernel = jops.flash_attention(jq, jk, jv, bq=64, bk=64,
+                                       interpret=True, **kw)
+    want_ref = jref.flash_attention_ref(jq, jk, jv, **kw)
+    got = got.float().numpy()
+    for want in (want_kernel, want_ref):
+        err = np.abs(got - np.asarray(want.astype(jnp.float32))).max()
+        assert err < TOL[dtype], err
+
+
+@pytest.mark.parametrize("case", CASES + [D256_CASE],
+                         ids=IDS + ["g10_d256"])
 def test_plain_backward_matches_jax_vjp(case):
     jax = pytest.importorskip("jax")
     import jax.numpy as jnp
@@ -118,7 +152,8 @@ def test_plain_backward_matches_jax_vjp(case):
         assert err <= GRAD_RTOL["float32"], (name, err)
 
 
-@pytest.mark.parametrize("case", CASES, ids=IDS)
+@pytest.mark.parametrize("case", CASES + [D256_CASE],
+                         ids=IDS + ["g10_d256"])
 def test_autograd_function_matches_autograd_of_plain_forward(case):
     q, k, v, do, kw = _inputs(case, seed=2)
     a = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
