@@ -47,7 +47,8 @@ prints no result.  Phases, each of which raises on failure:
      on picks, ql' and co': float32 and float64, R 1/7/256/4096, T
      2/8/128, max_picks 1/4/16/128, random and integer priorities, ties
      (every metric 0), free_k 0, empty rows; T 129 and max_picks 129
-     raise;
+     raise.  Its round (``csrc/wlbvt_round.cuh``) is the one the sweep
+     scan kernel runs in every step;
   9. its time (CUDA events around CUDA-graph replays, and launched
      eagerly from Python) beside its plain version and its least time
      from bytes, at the sweep shape (R 256, T 8, max_picks 1, float64
@@ -57,13 +58,13 @@ prints no result.  Phases, each of which raises on failure:
      ``launch.sweep.run_sweep``: the JAX package's headline mix (8
      tenants, 24 us, 256 seeds) and ``fig9_congestor_victim`` at its
      published defaults (300 us) under wlbvt and rr, 8 seeds each.  The
-     kernel must have run once per wlbvt scan step; every replica's
-     arrivals must equal completed + killed + drops (a drained run
-     leaves nothing queued); the card's rows must equal the port's CPU
-     rows on the first 8 mix replicas and fig9 seed 0 under wlbvt; then
-     a profile of scan steps of the mix, launched eagerly and as the
-     CUDA-graph replays the sweep runs by default.
-
+     scan kernel must have run once per scheduler group (1 for the mix,
+     2 for fig9) and ``wlbvt_select`` never; every replica's arrivals
+     must equal completed + killed + drops (a drained run leaves nothing
+     queued); the card's rows must equal the port's CPU rows on the
+     first 8 mix replicas and fig9 seed 0 under wlbvt; then the mix's
+     stages on the host clock, its scan's device time (CUDA events) and
+     the card's idle share over the scan;
  11. the flash-attention kernels against their plain versions on the card:
      the forward (output and log-sum-exp) and the backward (dq, dk, dv,
      against the plain backward and against autograd of the plain
@@ -122,6 +123,17 @@ prints no result.  Phases, each of which raises on failure:
      1 x 4096 tokens, so the 2048 window binds: exactly 8 flash_attention
      (head dim 256) and 18 rglru_scan launches, finite bf16 logits, and
      fp32 logits within 2e-3 of their range of the ``chunked`` path's.
+ 19. (run after phase 10) the sweep scan kernel against the plain step
+     (``ref.sweep_scan_ref``, CUDA-graph replays) on the card, element
+     for element on every [S, R] record and every final state field:
+     the mix's first 32 replicas at its full S, fig9 at 300 us under
+     wlbvt and rr (8 seeds), 128 tenants (8 seeds, 6 us), each in
+     float64 and float32; T 129 and P 129 raise.  Then its times: one
+     launch for the mix (R 256) beside its least time from bytes and
+     the whole graph-replayed run of the plain step and of the step the
+     sweep ran before (its round the ``wlbvt_select`` kernel); the mix
+     at R 1 (ns a step of one replica's serial chain); fig9 under wlbvt
+     and rr.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -155,12 +167,15 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd_cuda, flash_attention_cuda)
-from repro_torch.kernels.ref import (decode_attention_ref,  # noqa: E402
+from repro_torch.kernels.ref import (GRAPH_STEPS, SWEEP_STATE,  # noqa: E402
+                                    decode_attention_ref,
                                     flash_attention_bwd_ref,
                                     flash_attention_ref, rglru_scan_ref,
-                                    ssd_scan_ref, wlbvt_select_rounds_ref)
+                                    ssd_scan_ref, sweep_scan_ref,
+                                    wlbvt_select_rounds_ref)
 from repro_torch.kernels.rglru_scan import rglru_scan_cuda  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda  # noqa: E402
+from repro_torch.kernels.sweep_scan import sweep_scan_cuda  # noqa: E402
 from repro_torch.kernels.wlbvt_select import wlbvt_select_cuda  # noqa: E402
 from repro_torch.launch import sweep as sweep_cli  # noqa: E402
 from repro_torch.launch.sweep import build_sweep, run_sweep  # noqa: E402
@@ -1054,7 +1069,8 @@ def scan_steps(specs) -> tuple:
 
 
 def run_sweep_leg(name, sweep):
-    """The main path: ``run_sweep`` on the card, launches counted."""
+    """The main path: ``run_sweep`` on the card, launches counted: one
+    scan kernel per scheduler group, and no standalone WLBVT round."""
     pairs = list(sweep.replicas())
     groups = {}
     for _, spec in pairs:
@@ -1062,19 +1078,19 @@ def run_sweep_leg(name, sweep):
     steps = {k: scan_steps(v) for k, v in groups.items()}
     ops.reset_launches()
     (rows, wall) = sync_time(lambda: run_sweep(sweep, device="cuda")[0])
-    launches = ops.LAUNCHES["wlbvt_select"]
-    want = steps.get("wlbvt", (0, 0))[0]
+    launches = dict(ops.LAUNCHES)
     S_all = sum(S for S, _ in steps.values())
     pkts = sum(p for _, p in steps.values())
     log(f"sweep {name}: {len(rows)} replicas, {S_all} scan steps "
         f"({', '.join(f'{k} S={v[0]}' for k, v in steps.items())}), "
-        f"{pkts} packets, wall_s={wall:.3f} scenarios_per_s="
+        f"{pkts} packets, wall_s={wall:.4f} scenarios_per_s="
         f"{len(rows) / wall:.3f} packets_per_s={pkts / wall:.1f} "
-        f"ms_per_scan_step={wall / S_all * 1e3:.4f} "
-        f"wlbvt_select_launches={launches}")
-    if launches != want:
-        raise AssertionError(f"{name}: wlbvt_select launches {launches} != "
-                             f"wlbvt scan steps {want}")
+        f"sweep_scan_launches={launches['sweep_scan']} "
+        f"wlbvt_select_launches={launches['wlbvt_select']}")
+    if launches["sweep_scan"] != len(groups) or launches["wlbvt_select"]:
+        raise AssertionError(f"{name}: launches {launches}, want sweep_scan "
+                             f"= {len(groups)} scheduler groups and "
+                             "wlbvt_select = 0")
     for (knobs, spec), row in zip(pairs, rows):
         arrivals = np.bincount(build_traces(spec, arrays=True).tenants,
                                minlength=len(spec.tenants))
@@ -1103,38 +1119,170 @@ def check_rows_against_cpu(name, sweep, rows) -> None:
         f"{len(cpu_rows)} replica(s) {[r['knobs'] for r in cpu_rows]}")
 
 
-def profile_sweep_step() -> None:
-    """Where the mix's sweep time goes.  First the whole sweep in the
-    stages of ``devicepath._run_batch``, each on the host clock: traces
-    and replica arrays (host numpy), the copy to the card, the scan loop
-    (capture included), the results back to the host and their
-    materialisation.  Then device time by kernel over scan steps launched
-    eagerly and as CUDA-graph replays (the sweep's default); a replayed
-    step's wall time is the difference of two runs of different lengths
-    over their difference in steps, so the capture's one-off cost
-    cancels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def mix_specs(n: int, T: int = 8, duration_us: float = 24.0) -> list:
+    return [dataclasses.replace(mix_spec(T, duration_us), seed=s)
+            for s in range(n)]
+
+
+def fig9_specs(scheduler: str, n: int = 8) -> list:
+    """fig9_congestor_victim at its published defaults (300 us)."""
+    base = dataclasses.replace(get_scenario("fig9_congestor_victim",
+                                            scheduler=scheduler),
+                               record_timeline=False)
+    return [dataclasses.replace(base, seed=s) for s in range(n)]
+
+
+def scan_inputs(specs, precision: str = "exact"):
+    """The scan's inputs on the card and its geometry."""
     from repro_torch.sim import devicepath as DP
-    specs = [dataclasses.replace(mix_spec(8, 24.0), seed=s)
-             for s in range(256)]
-    per_spec, t_arrays = sync_time(
-        lambda: [DP._spec_arrays(s, np.float64) for s in specs])
-    (data, n_arr, NB), t_copy = sync_time(
-        lambda: DP._stack_data(per_spec, np.float64, "cuda"))
-    C = max(1, min(max(s.fifo_capacity for s in specs), NB))
-    P = DP.PSPIN.num_pus
-    B = DP.GRAPH_STEPS
-    S = 2 * max(a["n_live"] for a in per_spec) + 2
+    _, data, kw = DP.scan_inputs(specs, DP.PRECISIONS[precision], "cuda")
+    return data, kw
 
-    def run(steps, graph_steps):
-        state = DP._init_state(len(specs), 8, P, C, NB, n_arr, np.float64,
-                               "cuda")
-        with torch.inference_mode():
-            return DP._build_launch(8, P, C, steps, "wlbvt", "",
-                                    graph_steps=graph_steps)(state, data)
 
-    (fin, ys), t_loop = sync_time(lambda: run(S, B))
+def scan_diff(got, want) -> float:
+    """max |kernel - plain| over every record and state field; raises
+    unless every element is equal."""
+    worst = 0.0
+    pairs = list(zip(("eq_pack", "t", "comp_meta", "comp_ktime"),
+                     got[1], want[1]))
+    pairs += [(n, got[0][n], want[0][n]) for n in SWEEP_STATE]
+    for name, a, b in pairs:
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"sweep_scan {name}: {a.dtype} "
+                                 f"{tuple(a.shape)} != {b.dtype} "
+                                 f"{tuple(b.shape)}")
+        if not torch.equal(a, b):
+            idx = (a != b).nonzero()[0].tolist()
+            raise AssertionError(f"sweep_scan {name} differs first at "
+                                 f"{idx}: {a[tuple(idx)].item()} != "
+                                 f"{b[tuple(idx)].item()}")
+        worst = max(worst, (a.double() - b.double()).abs().max().item()
+                    if a.numel() else 0.0)
+    return worst
+
+
+def check_sweep_scan() -> float:
+    """Phase 19: the scan kernel against the plain step (CUDA-graph
+    replays of ``GRAPH_STEPS`` steps) on the card, element for element on
+    the [S, R] records and the final state: the mix's first 32 replicas
+    at its full S, fig9 at 300 us (wlbvt and rr, 8 seeds), and 128
+    tenants; float64 and float32.  T 129 and P 129 raise."""
+    worst = 0.0
+    cases = [("mix R32", mix_specs(32)), ("fig9 wlbvt", fig9_specs("wlbvt")),
+             ("fig9 rr", fig9_specs("rr")),
+             ("mix T128 R8", mix_specs(8, 128, 6.0))]
+    for precision in ("exact", "fast"):
+        for label, specs in cases:
+            data, kw = scan_inputs(specs, precision)
+            got = sweep_scan_cuda(data, **kw)
+            torch.cuda.synchronize()
+            want, plain_s = sync_time(lambda: sweep_scan_ref(
+                data, **kw, graph_steps=GRAPH_STEPS))
+            worst = max(worst, scan_diff(got, want))
+            log(f"check sweep_scan {label} {precision}: R={len(specs)} "
+                f"T={kw['T']} S={kw['S']} kernel == plain step on every "
+                f"record and state field (plain graph-replayed run "
+                f"{plain_s:.3f} s)")
+    data, kw = scan_inputs(mix_specs(2))
+    for T, P in ((129, 32), (8, 129)):
+        try:
+            sweep_scan_cuda(data, **{**kw, "T": T, "P": P})
+        except ValueError as e:
+            log(f"check sweep_scan T={T} P={P} raises: {e}")
+        else:
+            raise AssertionError(f"sweep_scan T={T} P={P} did not raise")
+    return worst
+
+
+def scan_cost(data, kw, state, ys) -> tuple:
+    """(bytes, flops) the scan must move and compute for this run's
+    data: each input read once (arrivals [R, NB+1]: time, tenant (int64),
+    cycles; prio, klim, tlim; four per-row values), each output written
+    once (24 B of records a step and row, the final state); operations
+    per live step (a live step consumes one event: na + completions),
+    for T tenants: the fold (2 mul + 2 add + 1 div + 1 mul a tenant), the
+    three lane sums, Jain (5), dt (1), the slot start and kill time (5),
+    and under wlbvt the round (2 div for the metric, mul, div, sub, ceil
+    and the compare a tenant, the psum)."""
+    T, S = kw["T"], kw["S"]
+    R, NB1 = data["arr_t"].shape
+    f = data["prio"].element_size()
+    nbytes = R * NB1 * (2 * f + 8) + 3 * R * T * f + R * (12 + f)
+    nbytes += S * R * (8 + 2 * f)
+    nbytes += sum(v.numel() * v.element_size() for v in state.values())
+    live = int((state["na"] + (ys[2] != -1).sum(dim=0)).sum().item())
+    per_step = 6 * T + 3 * (T - 1) + 11
+    if kw["scheduler"] == "wlbvt":
+        per_step += 7 * T + (T - 1)
+    return nbytes, live * per_step
+
+
+def time_sweep_scan() -> dict:
+    """Phase 19's times.  The kernel (CUDA events around single launches,
+    the median of 5) at the sweep's shapes: the mix (R 256, float64), the
+    mix at R 1 (each step's serial chain alone), fig9 wlbvt and rr (R 8,
+    300 us); beside the mix's bound and, on the host clock, the plain
+    step's whole graph-replayed run and the step the sweep ran before
+    (its WLBVT round the ``wlbvt_select`` kernel), also graph-replayed."""
+    out = {}
+
+    def kernel_ms(data, kw):
+        sweep_scan_cuda(data, **kw)
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            sweep_scan_cuda(data, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            ts.append(start.elapsed_time(end))
+        return float(np.median(ts))
+
+    data, kw = scan_inputs(mix_specs(256))
+    state, ys = sweep_scan_cuda(data, **kw)
+    nbytes, flops = scan_cost(data, kw, state, ys)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS_F64 * 1e3
+    out["ms"] = kernel_ms(data, kw)
+    out["S"] = kw["S"]
+    out["us_per_step"] = out["ms"] * 1e3 / kw["S"]
+    out["bound_ms"] = max(t_bytes, t_ops)
+    out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    out["bytes"], out["flops"] = nbytes, flops
+    _, out["plain_s"] = sync_time(lambda: sweep_scan_ref(
+        data, **kw, graph_steps=GRAPH_STEPS))
+    _, out["old_step_s"] = sync_time(lambda: sweep_scan_ref(
+        data, **kw, graph_steps=GRAPH_STEPS,
+        select=ops.wlbvt_select_rounds))
+    out["plain_ms"] = out["plain_s"] * 1e3
+    del data, state, ys
+    data1, kw1 = scan_inputs(mix_specs(1))
+    out["r1_ms"] = kernel_ms(data1, kw1)
+    out["r1_ns_per_step"] = out["r1_ms"] * 1e6 / kw1["S"]
+    for sched in ("wlbvt", "rr"):
+        d9, k9 = scan_inputs(fig9_specs(sched))
+        out[f"fig9_{sched}_ms"] = kernel_ms(d9, k9)
+        out[f"fig9_{sched}_ns_per_step"] = (out[f"fig9_{sched}_ms"] * 1e6
+                                            / k9["S"])
+    out["library_ms"] = None
+    return out
+
+
+def profile_sweep_scan() -> None:
+    """Where the mix's sweep time goes: the stages of
+    ``devicepath._run_batch`` on the host clock (traces, replica arrays
+    and their copy to the card; the scan; the results back to the host
+    and their materialisation), then the scan's device time (CUDA events
+    around its one launch) and the card's idle share over the scan's wall
+    time.  Not ``torch.profiler``: in this script's process it saw no
+    kernel of the scan and slowed the scan 5.8x (PERF.md)."""
+    from repro_torch.sim import devicepath as DP
+    specs = mix_specs(256)
+    (per_spec, data, kw), t_inputs = sync_time(
+        lambda: DP.scan_inputs(specs, np.float64, "cuda"))
+    (fin, ys), t_scan = sync_time(lambda: sweep_scan_cuda(data, **kw))
 
     def results():
         fin_np = {k: v.cpu().numpy() for k, v in fin.items()}
@@ -1143,39 +1291,23 @@ def profile_sweep_step() -> None:
                 for r, s in enumerate(specs)]
 
     _, t_results = sync_time(results)
-    log(f"profile: sweep mix R=256 T=8 float64 S={S}, stages (host clock): "
-        f"traces and replica arrays {t_arrays:.3f} s, copy to card "
-        f"{t_copy:.3f} s, scan loop {t_loop:.3f} s ({t_loop / S * 1e3:.4f} "
-        f"ms/step, capture included), results to host and materialised "
-        f"{t_results:.3f} s")
-    for name, steps, gs, short in (("eager", 200, 0, 0),
-                                   ("graph", 2 + 20 * B, B, 2 + 4 * B)):
-        run(steps, gs)
-        _, wall = sync_time(lambda: run(steps, gs))
-        step_s = wall / steps
-        if short:
-            _, wall_short = sync_time(lambda: run(short, gs))
-            step_s = (wall - wall_short) / (steps - short)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run(steps, gs)
-            torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-        # self_device_time_total is in us: seconds of device time per step
-        dev_s = sum(e.self_device_time_total for e in rows) / 1e6 / steps
-        sel_s = sum(e.self_device_time_total for e in rows
-                    if "wlbvt_select" in e.key) / 1e6 / steps
-        launches = sum(e.count for e in rows)
-        log(f"profile: sweep mix R=256 T=8 float64, {steps} scan steps "
-            f"{name}: wall {step_s * 1e3:.4f} ms/step (host clock), "
-            f"device {dev_s * 1e6:.2f} us/step over {launches / steps:.1f} "
-            f"kernels/step, idle share {1 - dev_s / step_s:.3f}, "
-            f"wlbvt_select share of device time {sel_s / dev_s:.3f} "
-            f"({sel_s * 1e6:.2f} us/step)")
-        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
-            log(f"profile:   {e.self_device_time_total / steps:8.3f} "
-                f"us/step  {e.count / steps:5.1f}x  {e.key[:90]}")
+    log(f"profile: sweep mix R=256 T=8 float64 S={kw['S']}, stages (host "
+        f"clock): traces, replica arrays and their copy to the card "
+        f"{t_inputs:.4f} s, scan {t_scan:.4f} s, results to host and "
+        f"materialised {t_results:.4f} s")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def scan():
+        start.record()
+        sweep_scan_cuda(data, **kw)
+        end.record()
+
+    _, wall = sync_time(scan)
+    dev_s = start.elapsed_time(end) / 1e3
+    log(f"profile: sweep mix scan: wall {wall * 1e3:.4f} ms (host clock), "
+        f"device {dev_s * 1e3:.4f} ms (CUDA events around its one launch), "
+        f"idle share {1 - dev_s / wall:.4f}")
 
 
 def sweep_phase():
@@ -1205,8 +1337,8 @@ def sweep_phase():
     check_rows_against_cpu(
         "fig9", dataclasses.replace(fig9, axes=(
             SweepAxis("scheduler", ("wlbvt",)),), seeds=(0,)), fig9_rows[:1])
-    profile_sweep_step()
-    return mix_launches + fig9_launches
+    profile_sweep_scan()
+    return {k: mix_launches[k] + fig9_launches[k] for k in mix_launches}
 
 # ---------------------------------------------------------------------------
 # phases 14-17: the SSD and RG-LRU scan kernels and the recurrent families
@@ -1476,7 +1608,7 @@ def serve_recurrent(arch: str) -> dict:
                                  + kinds.count(GLOBAL_ATTN)) * ds,
             "flash_attention": 0, "flash_attention_bwd": 0,
             "wlbvt_select": 0, "ssd_scan": kinds.count(SSD) * pc,
-            "rglru_scan": kinds.count(RGLRU) * pc}
+            "rglru_scan": kinds.count(RGLRU) * pc, "sweep_scan": 0}
     log(f"serve {arch}: layers={cfg.num_layers} ({kinds.count(SSD)} ssd, "
         f"{kinds.count(RGLRU)} rglru, {kinds.count(LOCAL_ATTN)} local) "
         f"d_model={cfg.d_model} params={n_params} init_s={init_s:.2f} "
@@ -1524,7 +1656,7 @@ def rg_cache_free_phase() -> dict:
     positions = transformer.make_positions(B, S, "cuda")
     kinds = cfg.pattern_for_layers()
     want = dict(ops.LAUNCHES, decode_attention=0, flash_attention_bwd=0,
-                wlbvt_select=0, ssd_scan=0,
+                wlbvt_select=0, ssd_scan=0, sweep_scan=0,
                 flash_attention=kinds.count(LOCAL_ATTN),
                 rglru_scan=kinds.count(RGLRU))
 
@@ -1656,7 +1788,15 @@ def main() -> int:
     for st in sel_times:
         log("time wlbvt_select (ms: CUDA-graph replays; eager_ms: launched "
             "from Python) " + fields(st))
-    sel_launches = sweep_phase()
+    sweep_launches = sweep_phase()
+    sel_launches = sweep_launches["wlbvt_select"]
+    scan_launches = sweep_launches["sweep_scan"]
+    scan_err = check_sweep_scan()
+    scan_t = time_sweep_scan()
+    log("time sweep_scan (ms, r1_ms, fig9_*_ms: CUDA events around one "
+        "launch, median of 5; plain_s, old_step_s: host clock around the "
+        "whole graph-replayed run of the plain step and of the step with "
+        "the wlbvt_select kernel) " + fields(scan_t))
 
     flash_err = check_flash_attention()
     ft = time_flash_attention(20)
@@ -1687,6 +1827,14 @@ def main() -> int:
         "launches": sel_launches, "max_abs_err": sel_err,
         "ms": st["ms"], "plain_ms": st["plain_ms"],
         "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+        "library_ms": None}, {
+        "name": "sweep_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sweep_scan.cu",
+        "replaces": "src/repro/kernels/wlbvt_select.py:114 (inlined in "
+                    "the scan of src/repro/sim/devicepath.py:285)",
+        "launches": scan_launches, "max_abs_err": scan_err,
+        "ms": scan_t["ms"], "plain_ms": scan_t["plain_ms"],
+        "bound_ms": scan_t["bound_ms"], "bound_by": scan_t["bound_by"],
         "library_ms": None}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

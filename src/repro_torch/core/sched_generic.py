@@ -193,7 +193,8 @@ def select_lanes(prio, queue_len, cur_occup, total_occup, bvt, num_pus, xp,
 # ---------------------------------------------------------------------------
 def lane_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum over the trailing (tenant) axis in one fixed order, the order
-    of the CUDA ``wlbvt_select`` kernel: lanes in warps of 32, zero
+    of the CUDA kernels' ``lane_sum`` (``kernels/csrc/wlbvt_round.cuh``,
+    run by ``wlbvt_select`` and ``sweep_scan``): lanes in warps of 32, zero
     padded; each warp summed by a halving tree (lane i + lane i+16, then
     +8, +4, +2, +1); the warps' sums added left to right.  Zero lanes
     add exactly, so the tree over the next power of two >= T gives the

@@ -11,16 +11,10 @@
 // eligible metrics (BIG = 1e30 elsewhere), and grants it when some lane
 // is eligible and k < free_k: ql -= 1, co += 1.  picks[r, k] is the lane
 // or -1.  float and double; the plain version is
-// kernels/ref.py::wlbvt_select_rounds_ref, and the two agree bit for bit:
-//   * every product and quotient is written with the _rn intrinsics, so
-//     no multiply is contracted into an FMA, and the build uses IEEE
-//     division (no --use_fast_math);
-//   * the sum of non-empty priorities is taken in one fixed order, the
-//     order of core/sched_generic.py::lane_sum: a halving tree inside each
-//     warp of 32 lanes (zero padded), then the warps left to right;
-//   * the argmin is a shuffle min over (metric, lane) pairs in which the
-//     lower lane wins a tie, as argmin's first index does (at t = 0 every
-//     metric is 0, so ties are the common case).
+// kernels/ref.py::wlbvt_select_rounds_ref, and the two agree bit for bit.
+// Each pick is wlbvt_round.cuh's `round_pick`, the round that
+// sweep_scan.cu runs in each step of the sweep's scan: one definition, so
+// the standalone round checked here is the round the scan runs.
 //
 // What bounds it: neither bytes nor operations but latency.  A call reads
 // five [R, T] arrays and free_k and writes picks, ql and co once (about
@@ -34,33 +28,18 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "wlbvt_round.cuh"
+
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kMaxT = 128;
+using wlbvt::kWarp;
+constexpr int kMaxT = wlbvt::kMaxLanes;
 constexpr int kMaxPicks = 128;
 constexpr int kBlockThreads = 128;
-constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float ceil_(float a) { return ceilf(a); }
-__device__ __forceinline__ double ceil_(double a) { return ceil(a); }
-
-// (m, i) := the lower of (m, i) and (m2, i2): smaller metric, then lower lane
-template <typename F>
-__device__ __forceinline__ void take_min(F& m, int& i, F m2, int i2) {
-  if (m2 < m || (m2 == m && i2 < i)) {
-    m = m2;
-    i = i2;
-  }
-}
+struct BlockBarrier {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
 
 template <typename F>
 __global__ void __launch_bounds__(kBlockThreads)
@@ -70,22 +49,16 @@ wlbvt_select_kernel(const F* __restrict__ prio, const int* __restrict__ ql_in,
                     int* __restrict__ picks, int* __restrict__ ql_out,
                     int* __restrict__ co_out, int R, int T, int num_pus,
                     int max_picks, int warps_per_row, int rows_per_block) {
-  // per (row of the block, warp of the row): partial sum, argmin, any
-  __shared__ F s_sum[kBlockThreads / kWarp];
-  __shared__ F s_min[kBlockThreads / kWarp];
-  __shared__ int s_idx[kBlockThreads / kWarp];
-  __shared__ int s_any[kBlockThreads / kWarp];
+  // each row's cross-warp partials (rows of several warps)
+  __shared__ wlbvt::RoundScratch<F> s_round[kBlockThreads / kWarp];
 
   const int row_threads = warps_per_row * kWarp;
   const int rb = threadIdx.x / row_threads;         // row within the block
   const int t = threadIdx.x % row_threads;          // tenant lane
-  const int warp = t / kWarp;
-  const int lane = threadIdx.x % kWarp;
   const int r = blockIdx.x * rows_per_block + rb;
   const bool row_ok = r < R;
   const bool valid = row_ok && t < T;
   const size_t off = size_t(r) * T + t;
-  const int slot = rb * warps_per_row;              // first s_* entry of the row
 
   F p = F(1);
   int q = 0, c = 0;
@@ -95,10 +68,9 @@ wlbvt_select_kernel(const F* __restrict__ prio, const int* __restrict__ ql_in,
     q = ql_in[off];
     c = co_in[off];
     const F b = bvt[off];
-    metric = div_rn(div_rn(to[off], b > F(1) ? b : F(1)), p);
+    metric = wlbvt::div_rn(wlbvt::div_rn(to[off], b > F(1) ? b : F(1)), p);
   }
   const int fk = row_ok ? free_k[r] : 0;
-  const F big = F(1e30), eps = F(1e-6), tiny = F(1e-9);
   const F pus = F(num_pus);
 
   // `live`: the row granted at every pick so far.  A row that grants
@@ -109,42 +81,10 @@ wlbvt_select_kernel(const F* __restrict__ prio, const int* __restrict__ ql_in,
   for (; k < max_picks; ++k) {
     // every thread of the block reaches each barrier of the loop body
     if (!__syncthreads_or(live && k < fk)) break;
-    // psum over the non-empty queues: tree in the warp, warps in order
-    F v = (valid && q > 0) ? p : F(0);
-#pragma unroll
-    for (int o = kWarp / 2; o >= 1; o >>= 1)
-      v = add_rn(v, __shfl_xor_sync(kFull, v, o));
-    if (lane == 0) s_sum[slot + warp] = v;
-    __syncthreads();
-    F psum = s_sum[slot];
-    for (int w = 1; w < warps_per_row; ++w) psum = add_rn(psum, s_sum[slot + w]);
-    const F lim = psum > F(0)
-        ? ceil_(sub_rn(div_rn(mul_rn(pus, p), psum > tiny ? psum : tiny), eps))
-        : pus;
-    const bool elig = valid && q > 0 && F(c) < lim;
-    // first argmin over (masked metric, lane); pad lanes never win
-    F m = valid ? (elig ? metric : big) : F(INFINITY);
-    int idx = valid ? t : kMaxT;
-#pragma unroll
-    for (int o = kWarp / 2; o >= 1; o >>= 1) {
-      const F m2 = __shfl_xor_sync(kFull, m, o);
-      const int i2 = __shfl_xor_sync(kFull, idx, o);
-      take_min(m, idx, m2, i2);
-    }
-    const int any_w = __any_sync(kFull, elig);
-    if (lane == 0) {
-      s_min[slot + warp] = m;
-      s_idx[slot + warp] = idx;
-      s_any[slot + warp] = any_w;
-    }
-    __syncthreads();
-    m = s_min[slot];
-    idx = s_idx[slot];
-    int any = s_any[slot];
-    for (int w = 1; w < warps_per_row; ++w) {
-      take_min(m, idx, s_min[slot + w], s_idx[slot + w]);
-      any |= s_any[slot + w];
-    }
+    bool any;
+    const int idx = wlbvt::round_pick(valid, t, p, q, c, metric, pus,
+                                      warps_per_row, s_round[rb],
+                                      BlockBarrier(), any);
     const bool can = live && any && k < fk;
     if (can && t == idx) {
       q -= 1;

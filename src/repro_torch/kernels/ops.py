@@ -20,11 +20,13 @@ from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                  flash_attention_cuda)
 from repro_torch.kernels.rglru_scan import rglru_scan_cuda
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+from repro_torch.kernels.sweep_scan import check_limits as sweep_limits
+from repro_torch.kernels.sweep_scan import sweep_scan_cuda
 from repro_torch.kernels.wlbvt_select import check_limits, wlbvt_select_cuda
 
 LAUNCHES: Dict[str, int] = {"decode_attention": 0, "flash_attention": 0,
                             "flash_attention_bwd": 0, "wlbvt_select": 0,
-                            "ssd_scan": 0, "rglru_scan": 0}
+                            "ssd_scan": 0, "rglru_scan": 0, "sweep_scan": 0}
 WLBVT_IMPLS = ("", "jnp", "jnp_ref", "pallas")
 
 
@@ -180,4 +182,35 @@ def wlbvt_select_rounds(prio, queue_len, cur_occup, total_occup, bvt,
                          "runs (impl '' or 'pallas')")
     out = wlbvt_select_cuda(*args, **kw)
     LAUNCHES["wlbvt_select"] += 1
+    return out
+
+
+def sweep_scan(data: dict, *, T: int, P: int, C: int, S: int,
+               scheduler: str, impl: str = ""):
+    """``S`` steps of the sweep datapath's event loop over every replica
+    row of ``data`` (``sim/devicepath.scan_inputs``), from the empty state
+    -> ``(state, ys)`` (contract: ``kernels/ref.py::sweep_scan_ref``).
+
+    ``impl`` is the WLBVT round's (``wlbvt_select_rounds``): on a CUDA
+    tensor ``""`` and ``"pallas"`` launch the kernel, in which the round
+    is inlined, and the plain impls raise; on a CPU tensor every impl runs
+    the plain version."""
+    if impl not in WLBVT_IMPLS:
+        raise ValueError(f"unknown wlbvt_select impl {impl!r} "
+                         "(expected jnp | jnp_ref | pallas)")
+    if impl == "pallas":      # the kernel's limits, on every device
+        sweep_limits(T, P, scheduler)
+    dev = data["arr_t"].device.type
+    kw = dict(T=T, P=P, C=C, S=S, scheduler=scheduler)
+    if dev == "cpu":
+        return ref.sweep_scan_ref(data, **kw)
+    if dev != "cuda":
+        raise ValueError(f"sweep_scan: no kernel for device "
+                         f"{data['arr_t'].device}")
+    if impl not in ("", "pallas"):
+        raise ValueError(f"wlbvt_select impl {impl!r} is a plain version, "
+                         "for CPU tensors; on a CUDA tensor only the kernel "
+                         "runs (impl '' or 'pallas')")
+    out = sweep_scan_cuda(data, **kw)
+    LAUNCHES["sweep_scan"] += 1
     return out

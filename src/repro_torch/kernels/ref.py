@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.configs.osmosis_pspin import PSPIN
 from repro_torch.core import sched_generic as G
 
 NEG_INF = -1.0e30
@@ -303,3 +304,320 @@ def wlbvt_select_rounds_early_exit(prio, queue_len, cur_occup, total_occup,
         if not bool((pick >= 0).any()):
             break
     return picks, queue_len, cur_occup
+
+
+# ---------------------------------------------------------------------------
+# the sweep datapath's scan (csrc/sweep_scan.cu)
+# ---------------------------------------------------------------------------
+# the state the scan hands back (the kernel writes exactly these)
+SWEEP_STATE = ("now", "na", "seq", "free_pus", "rr_ptr", "queue_len",
+               "cur_occup", "total_occup", "bvt", "fifo_head", "spent",
+               "jain_acc", "jain_t")
+# on the card the plain step's ~126 kernels are each shorter than their
+# launch from Python, so there blocks of GRAPH_STEPS steps run as CUDA-graph
+# replays (3.0 -> 0.23 ms a step of the 256-replica mix on an NVIDIA H100
+# 80GB HBM3 at a 700 W power limit, PERF.md); the sweep itself runs the
+# kernel, and only the card's checks and timings run the plain step there
+GRAPH_STEPS = 128
+_WARM_STEPS = 2
+
+
+def sweep_init_state(R: int, T: int, P: int, C: int, NB: int, n_arr,
+                     fdt, device) -> dict:
+    """The scan's empty state.  Slot arrays carry an inert pad at index P
+    and the FIFO ring a discard column at index C (masked writes aim
+    there, see ``sweep_scan_ref``); no per-tenant counters ride the state
+    — they are all recoverable from the EQ/completion streams."""
+    i32, i64 = torch.int32, torch.int64
+
+    def z(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def full(shape, v, dtype):
+        return torch.full(shape, v, dtype=dtype, device=device)
+
+    return {
+        "now": z(R, fdt),
+        "na": z(R, i64),
+        "seq": torch.as_tensor(n_arr, dtype=i32, device=device).clone(),
+        "free_pus": full((R,), P, i32),
+        "rr_ptr": z(R, i64),
+        "queue_len": z((R, T), i32),
+        "cur_occup": z((R, T), i32),
+        "total_occup": z((R, T), fdt),
+        "bvt": z((R, T), fdt),
+        "fifo_head": z((R, T), i64),
+        "fifo_buf": z((R, T, C + 1), i64),
+        "spent": z((R, T), fdt),
+        # slot pairs: s_tf = (t_fin, t0) float, s_ps = (pkt-meta, seq)
+        # int32 — paired so grant/free are single row writes
+        "s_tf": torch.stack([full((R, P + 1), float("inf"), fdt),
+                             z((R, P + 1), fdt)], dim=-1),
+        "s_ps": torch.stack([full((R, P + 1), NB, i32),
+                             full((R, P + 1), int(torch.iinfo(i32).max),
+                                  i32)], dim=-1),
+        "jain_acc": z(R, fdt),
+        "jain_t": z(R, fdt),
+    }
+
+
+def sweep_scan_ref(data: dict, *, T: int, P: int, C: int, S: int,
+                   scheduler: str, graph_steps: int = 0, select=None):
+    """The sweep datapath's scan, the plain way: ``S`` steps of the PsPIN
+    event loop over every replica row of ``data`` (``devicepath.scan_inputs``:
+    arrivals ``[R, NB + 1]``, per-tenant ``[R, T]`` config, ``n_arr``),
+    from the empty state, each step a few dozen PyTorch ops on the replica
+    tensors, updated in place.  Returns ``(state, ys)``: the ``SWEEP_STATE``
+    fields and the per-step records ``(eq_pack, t, comp_meta,
+    comp_ktime)``, each ``[S, R]``.  ``csrc/sweep_scan.cu`` computes the
+    same, bit for bit: a change to the step changes both.
+
+    On the card, after ``_WARM_STEPS`` eager steps, whole blocks of
+    ``graph_steps`` steps are CUDA-graph replays (0: every step eager).
+    ``select``: the WLBVT round (default the dense plain version, which
+    runs on any device; ``ops.wlbvt_select_rounds`` puts the round's
+    kernel in the step).
+
+    Single-grant theorem (what makes the step cheap): the host dispatch
+    loop maintains the quiescence invariant "free_pus == 0 or nothing
+    eligible" after every event.  An arrival adds exactly one packet (a
+    new non-empty queue only *shrinks* other tenants' ``pu_limit``), a
+    completion frees exactly one PU — so every event grants **at most
+    one** PU under both wlbvt and rr, and the per-event dispatch is one
+    WLBVT round with ``max_picks=1``, no loop.
+
+    Slot arrays are sized ``P + 1``: index P is an inert pad (t_fin
+    ``+inf``, seq sentinel) that masked writes aim at, so no gather-merge
+    is needed on the no-op branch.  Likewise the FIFO ring is ``C + 1``
+    wide with column C as the discard target.  Within a step every
+    replica row writes one index of each array, so the in-place writes
+    (``index_put_``, ``scatter_add_``) never collide.
+    """
+    select = select or wlbvt_select_rounds_ref
+    dma_ns = PSPIN.cycles_ns(PSPIN.dma_setup_cycles)
+    ns_per_cycle = PSPIN.ns_per_cycle
+    wlbvt = scheduler == "wlbvt"
+    i32, i64 = torch.int32, torch.int64
+    PKT = (1 << 30) - 1                      # slot meta: pkt | kill<<30 |
+    KILL = 1 << 30                           # budget-kill<<31
+
+    def _pre(s, d, k):
+        """Consume one event (or nothing): pick the earliest of the next
+        arrival and the earliest slot finish, advance the BVT/Jain
+        integrals to it, apply the event, emit the EQ/completion record.
+        Everything the event reads (slot finish times, the completing
+        slot's meta and start, the arrival's queue length and FIFO head)
+        is read before the first in-place write."""
+        eq_pack_k, t_k, comp_meta_k, comp_ktime_k = k["ys"]
+        na = s["na"][:, None]
+        ta = d["arr_t"].gather(1, na)[:, 0]
+        tfin = s["s_tf"][:, :, 0]            # slot pairs: (t_fin, t0)
+        tmin = torch.amin(tfin, dim=1)
+        # completion candidate: lowest seq among the min-finish slots
+        pc = torch.where(tfin == tmin[:, None], s["s_ps"][:, :, 1],
+                         k["sent"]).argmin(dim=1, keepdim=True)
+        is_arr = ta <= tmin                  # arrival seqs < completion seqs
+        t_ev = torch.where(is_arr, ta, tmin)
+        # horizon_live = min(horizon, largest finite): t_ev <= horizon
+        # and t_ev < inf in one compare
+        live = t_ev <= d["horizon_live"]
+        t = torch.where(live, t_ev, s["now"], out=t_k)
+        prio = d["prio"]
+        # --- advance fold (Simulator._advance_to, pre-event state) ----
+        # ``now`` doubles as the fold's last-advance time (the two are
+        # always set together), so a dead step has dt = 0
+        dt = (t - s["now"]).clamp_min_(0.0)
+        ql = s["queue_len"]
+        co = s["cur_occup"]
+        act = (ql > 0) | (co > 0)
+        occf = co.to(prio.dtype)
+        # an inactive tenant has co == 0: its occupancy term is exactly 0
+        s["total_occup"] += occf * dt[:, None]
+        s["bvt"] += dt[:, None] * act
+        x = occf / prio
+        actn, s1, s2 = G.lane_sum(torch.stack([act.to(prio.dtype), x,
+                                               x * x]))
+        jain = torch.where(s2 > 0.0, s1 * s1 / (actn * s2), k["one"])
+        two_act = actn >= 2.0
+        s["jain_acc"] += jain * dt * two_act
+        s["jain_t"] += dt * two_act
+        # --- arrival branch (FMQ push: admit -> overflow -> ECN) ------
+        ia = d["arr_tenant"].gather(1, na)
+        qa = ql.gather(1, ia)
+        head_a = s["fifo_head"].gather(1, ia)
+        marr = (live & is_arr)[:, None]
+        acc = marr & (qa < d["fifo_cap"])
+        drop = marr ^ acc
+        mark = acc & (qa >= d["ecn_m1"])     # qa + 1 >= ecn threshold
+        # --- completion branch (tenant derived from the packet id) ----
+        mcomp = live[:, None] ^ marr
+        pk = s["s_ps"][:, :, 0].gather(1, pc)
+        ic = d["arr_tenant"].gather(1, (pk & PKT).long())
+        kflag = mcomp & ((pk & KILL) != 0)
+        bkflag = mcomp & (pk < 0)
+        # host op order: now - (t0 - dma_ns), NOT now - grant
+        ktime = t[:, None] - (s["s_tf"][:, :, 1].gather(1, pc) - dma_ns)
+        # --- apply (masked writes aim at the pad slot/column) ---------
+        mc = mcomp.to(i32)
+        ql.scatter_add_(1, ia, acc.to(i32))
+        co.scatter_add_(1, ic, -mc)
+        tail_w = torch.where(acc, torch.remainder(head_a + qa, C), k["C"])
+        s["fifo_buf"].index_put_((k["ar"], ia[:, 0], tail_w[:, 0]),
+                                 s["na"])
+        # the freed slot keeps its stale seq: seqs are only consulted
+        # among the tfin == tmin slots, and a freed slot sits at +inf
+        # until the next grant overwrites both fields
+        pc_w = torch.where(mcomp, pc, k["P"])
+        tfin.scatter_(1, pc_w, float("inf"))
+        s["free_pus"] += mc[:, 0]
+        # --- per-step records (step order IS host heap-pop order, so
+        # the completion stream needs no carried per-packet arrays; the
+        # packed slot meta ships as-is, -1 = no completion) -------------
+        torch.where(mcomp[:, 0], pk[:, 0], k["neg1"], out=comp_meta_k)
+        torch.where(mcomp[:, 0], ktime[:, 0], k["zero"], out=comp_ktime_k)
+        # --- EQ (at most one event per step; code | tenant<<3 packed):
+        # 1 mark, 2 drop (arrivals), 3 kill, 4 budget kill (completions)
+        code = torch.where(kflag, bkflag + 3, drop * 2 + mark)
+        ten = torch.where(is_arr[:, None], ia, ic)
+        eq_pack_k.copy_(((ten << 3) | code)[:, 0])
+        s["na"] += marr[:, 0]
+        s["now"].copy_(t)
+        return t, torch.where(live, s["free_pus"], k["zero_i"])
+
+    def _rr_pick(s, free_k, k):
+        """Host `_dispatch` rr arm, single-grant form: the pointer only
+        advances on an actual grant (host never probes with 0 free)."""
+        ptr, ql, co = s["rr_ptr"], s["queue_len"], s["cur_occup"]
+        idx, ptr1 = G.select_rr(ptr, ql, G.torch_namespace(ql.device))
+        can = (idx >= 0) & (free_k > 0)
+        hot = ((k["lane"] == idx[:, None]) & can[:, None]).to(i32)
+        ql -= hot
+        co += hot
+        s["rr_ptr"] = torch.where(can, ptr1, ptr)
+        return torch.where(can, idx, k["neg1_l"])
+
+    def _apply_one(s, d, pick, t, k):
+        """Host ``_pop_and_start`` for the (single) winner: FIFO pop,
+        budget clamps (exact op order of the inlined BudgetLedger
+        mirror), slot fill, ``(t_fin, seq)`` heap push."""
+        won = (pick >= 0)[:, None]
+        wi = won.to(i32)
+        i = pick.clamp_min(0).long()[:, None]
+        head_i = s["fifo_head"].gather(1, i)
+        j = s["fifo_buf"][k["ar"], i[:, 0], torch.remainder(head_i[:, 0], C)]
+        j = j[:, None]
+        s["fifo_head"].scatter_add_(1, i, won.to(i64))
+        comp = d["arr_comp"].gather(1, j)
+        # per-tenant (klim, tlim); klim is +inf where there is no limit,
+        # so ``comp > klim`` is the host's ``klim > 0 and comp > klim``
+        klim = d["klim"].gather(1, i)
+        kill1 = comp > klim
+        comp = torch.where(kill1, klim, comp)
+        tlim = d["tlim"].gather(1, i)
+        remaining = tlim - s["spent"].gather(1, i)
+        bk = (tlim > 0) & (comp > remaining)
+        comp = torch.where(bk, remaining.clamp_min(0.0), comp)
+        s["spent"].scatter_add_(1, i, comp * won)
+        # any free slot (t_fin == +inf, the max; the pad P is the last):
+        # the heap orders by (t_fin, seq), not by slot index
+        slot = s["s_tf"][:, :, 0].argmax(dim=1, keepdim=True)
+        sw = torch.where(won, slot, k["P"])[:, 0]
+        t0v = t + dma_ns
+        tfv = t0v + comp[:, 0] * ns_per_cycle
+        j32 = j[:, 0].to(i32)
+        meta = torch.where(bk[:, 0], j32 | k["kill_bk"],
+                           torch.where(kill1[:, 0], j32 | KILL, j32))
+        won = won[:, 0]
+        s["s_tf"].index_put_((k["ar"], sw), torch.stack(
+            [torch.where(won, tfv, k["inf"]), t0v], dim=-1))
+        s["s_ps"].index_put_((k["ar"], sw), torch.stack(
+            [meta, torch.where(won, s["seq"], k["sent"])], dim=-1))
+        s["seq"] += wi[:, 0]
+        s["free_pus"] -= wi[:, 0]
+
+    def _step(s, d, k):
+        t, free_k = _pre(s, d, k)
+        if wlbvt:
+            picks, ql2, co2 = select(
+                d["prio"], s["queue_len"], s["cur_occup"],
+                s["total_occup"], s["bvt"], free_k, num_pus=P,
+                max_picks=1)
+            pick = picks[:, 0]
+            s["queue_len"], s["cur_occup"] = ql2, co2
+        else:
+            pick = _rr_pick(s, free_k, k)
+        _apply_one(s, d, pick, t, k)
+
+    def _replay_blocks(state, data, k, ys, B, start, n_blocks):
+        """Steps ``start ..`` in whole blocks of ``B``: one CUDA graph
+        captures B steps once and is replayed, so the ~126 small kernels
+        of a step are launched as one graph, not one by one from
+        Python.  The graph reads and writes the state's own tensors: the
+        entries a step replaces (kernel outputs) are copied back into
+        them at the end of the block.  The per-step records go to a block
+        buffer, copied into ``ys`` after each replay.  Kernel launches
+        (``select`` = ``ops.wlbvt_select_rounds``) are counted per replay:
+        the kernels the capture recorded, once more for every replay (the
+        capture itself runs nothing)."""
+        from repro_torch.kernels import ops
+        blk = tuple(torch.empty((B,) + tuple(y.shape[1:]), dtype=y.dtype,
+                                device=y.device) for y in ys)
+        base = dict(state)
+        before = dict(ops.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for i in range(B):
+                k["ys"] = tuple(b[i] for b in blk)
+                _step(state, data, k)
+            for key, t in base.items():
+                if state[key] is not t:
+                    t.copy_(state[key])
+        state.update(base)
+        per_replay = {n: ops.LAUNCHES[n] - before[n] for n in before}
+        ops.LAUNCHES.update(before)
+        for s0 in range(start, start + n_blocks * B, B):
+            graph.replay()
+            for n, c in per_replay.items():
+                ops.LAUNCHES[n] += c
+            for y, b in zip(ys, blk):
+                y[s0:s0 + B].copy_(b)
+
+    R, NB1 = data["arr_t"].shape
+    dev = data["arr_t"].device
+    fdt = data["prio"].dtype
+    state = sweep_init_state(R, T, P, C, NB1 - 1, data["n_arr"], fdt, dev)
+
+    def const(v, dtype):
+        return torch.tensor(v, dtype=dtype, device=dev)
+
+    ys = (torch.empty((S, R), dtype=i32, device=dev),    # eq_pack
+          torch.empty((S, R), dtype=fdt, device=dev),    # event time
+          torch.empty((S, R), dtype=i32, device=dev),    # comp_meta
+          torch.empty((S, R), dtype=fdt, device=dev))    # comp_ktime
+    k = {"ar": torch.arange(R, device=dev),
+         "lane": torch.arange(T, device=dev),
+         "inf": const(float("inf"), fdt), "zero": const(0.0, fdt),
+         "one": const(1.0, fdt), "zero_i": const(0, i32),
+         "neg1": const(-1, i32), "neg1_l": const(-1, i64),
+         "C": const(C, i64), "P": const(P, i64),
+         "sent": const(int(torch.iinfo(i32).max), i32),
+         "kill_bk": const(-(1 << 30), i32)}   # bits 30 and 31
+    done = 0
+
+    def eager(n):
+        nonlocal done
+        for step in range(done, done + n):
+            k["ys"] = tuple(y[step] for y in ys)
+            _step(state, data, k)
+        done += n
+
+    # the first steps run eagerly: they also fill every lazily made
+    # constant and load every kernel before a capture
+    eager(min(S, _WARM_STEPS))
+    B = graph_steps if dev.type == "cuda" else 0
+    if B and S - done >= B:
+        n_blocks = (S - done) // B
+        _replay_blocks(state, data, k, ys, B, done, n_blocks)
+        done += n_blocks * B
+    eager(S - done)
+    return {name: state[name] for name in SWEEP_STATE}, ys

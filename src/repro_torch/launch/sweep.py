@@ -2,8 +2,9 @@
 
 Expand a registered scenario into a ``SweepSpec`` (knob axes × seeds),
 run every replica as one row of a batched loop on the sweep datapath
-(``sim/devicepath.py``; each WLBVT dispatch is the CUDA kernel
-``kernels/csrc/wlbvt_select.cu``), and dump per-replica summary rows.
+(``sim/devicepath.py``; on the card the whole loop of each scheduler
+group is one launch of the CUDA kernel ``kernels/csrc/sweep_scan.cu``),
+and dump per-replica summary rows.
 
     PYTHONPATH=src python -m repro_torch.launch.sweep fig9_congestor_victim \
         --axis tenants.0.priority=1,2,4 --seeds 8 --out /tmp/sweep.json

@@ -1,9 +1,9 @@
 """The sweep datapath on the card against its own CPU run.
 
-On the card the scan steps run as CUDA-graph replays of blocks of
-``devicepath.GRAPH_STEPS`` steps, with eager steps before and after; on
-the CPU every step is eager.  The two must agree field for field, and the
-kernel must have been counted once per wlbvt scan step, replays included.
+On the card the whole scan is one launch of ``csrc/sweep_scan.cu`` (the
+WLBVT round inlined, so ``wlbvt_select`` is never launched); on the CPU
+every step is the plain version's.  The two must agree field for field,
+and the scan kernel must have been counted once per scheduler group.
 These tests need the card (the kernel has no CPU mode) and skip without
 one.
 """
@@ -45,15 +45,12 @@ def test_graph_replayed_sweep_equals_cpu_run(scheduler, precision):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     specs = _specs(scheduler, 3)
-    per_spec = [DP._spec_arrays(s, np.float64) for s in specs]
-    S = 2 * max(a["n_live"] for a in per_spec) + 2
-    assert S > DP._WARM_STEPS + 2 * DP.GRAPH_STEPS   # replays and a tail
     ops.reset_launches()
     card = DP.run_sweep_specs(specs, precision=precision,
                               record_completions=True)
-    launches = ops.LAUNCHES["wlbvt_select"]
+    launches = dict(ops.LAUNCHES)
     cpu = DP.run_sweep_specs(specs, precision=precision,
                              record_completions=True, device="cpu")
-    assert launches == (S if scheduler == "wlbvt" else 0)
+    assert launches["sweep_scan"] == 1 and launches["wlbvt_select"] == 0
     for a, b in zip(card, cpu):
         _same(a, b)
