@@ -13,7 +13,9 @@ prints no result.  Phases, each of which raises on failure:
      (``wgmma``) instructions of the flash libraries with ``cuobjdump
      --dump-sass`` and fail if a bf16 flash kernel has none (the forward
      at head dims 16-256, the backward at 16-128: at 256 the bf16
-     backward is the scalar kernel);
+     backward is the scalar kernel); count the HMMA (``mma.sync``)
+     instructions of the SSD library's bf16 kernels (``ssd_scan_tc``,
+     chunks of 32 and 64 rows) and fail if one has none;
   3. hold each kernel against its plain PyTorch version on the card:
      decode attention at the serving shapes (B 8, T 256, 32 query heads
      on 8 KV heads of dim 128) in bf16 and fp32, lengths 0, 1, T and
@@ -95,18 +97,30 @@ prints no result.  Phases, each of which raises on failure:
      a step under full remat); the first loss is finite and near
      ln(151936); then the same first 2 steps on the plain ``chunked``
      attention give the same losses (1e-2 relative);
- 14. (run after phase 7) the SSD scan kernel against its plain version:
-     tests/test_kernels.py's three shapes (groups, ragged chunks; B/C in
-     fp32) with and without an initial state, Mamba2-370M's serve shape
-     (B 8, S 32, 32 heads of 64, state 128, chunk 256: Q 32) with a
-     state, and a cache-free run at its widths (B 4, S 1024: four chunks
-     of 256 rows, sub-tiled), in bf16 and fp32 (5e-2 / 1e-3); the RG-LRU
-     scan kernel on tests/test_kernels.py's three shapes with and
-     without h0 and the serve shape (B 8, S 32, W 2560) with h0 (1e-5);
+ 14. (run after phase 7) the SSD scan kernels against their plain
+     version: tests/test_kernels.py's three shapes (groups, ragged
+     chunks; N 16 and 32), S 1 with P 32, a ragged last chunk of 8 rows,
+     48-row chunks with 2 groups and N 20 / P 24 (unaligned rows), each
+     with and without an initial state, B/C in fp32 and, with bf16 x,
+     also in bf16 (the tensor-core kernel); Mamba2-370M's serve shape (B
+     8, S 32, 32 heads of 64, state 128, chunk 256: Q 32) with and
+     without a state and a cache-free run at its widths (B 4, S 1024:
+     four chunks of 256 rows), B/C in x's dtype; in bf16 and fp32 (5e-2
+     / 1e-3); where x, B and C are bf16 (the tensor-core kernel), also
+     against ``ref.ssd_scan_bf16_ref``, its own rounding (y within one
+     bf16 ulp, the state within 1e-4 of its largest entry).  The RG-LRU scan kernel on tests/test_kernels.py's three
+     shapes, the serve shape (B 8, S 32, W 2560), S 1, W 33 over 1000
+     steps and phase 18's shape (B 1, S 4096, W 2560), each with and
+     without h0, the serve and W 33 shapes also with a and b read as
+     halves of one (B, S, 2W) buffer (1e-5);
  15. their device times (CUDA-graph replays, inputs rotated past the
      L2) and eager times, beside their plain versions and their least
-     time from bytes or operations; no single PyTorch call computes
-     either, so neither has a library time;
+     time from bytes or operations, at the serve shapes, the SSD's
+     cache-free shape and the RG-LRU's phase-18 shape, the RG-LRU's also
+     beside one elementwise pass (a + b) over the same inputs; no single
+     PyTorch call computes either, so neither has a library time.  Then the bf16
+     SSD kernel's clock64 cycles by phase at the serve shape (a build
+     with ``-DSSD_PHASE_TRACE``, ``ssd_phases``);
  16. small fp32 Mamba2 and RecurrentGemma models on the card: the kernel
      path gives the ``chunked`` path's logits (1e-4) over a ragged
      two-chunk prefill and 16 decode steps that wrap the local ring;
@@ -117,7 +131,8 @@ prints no result.  Phases, each of which raises on failure:
      rglru_scan = 18 x prefill chunks and decode_attention = 8 x decode
      steps (RecurrentGemma's local layers); the kernel path's prefill and
      decode logits against the ``chunked`` path's at full width; a
-     profile of a prefill and of a decode step; peak memory;
+     profile of a prefill step (with the SSD or RG-LRU kernel's share of
+     its device time) and of a decode step; peak memory;
  18. (run after phase 17) RecurrentGemma-2B's cache-free forward at full
      width and depth, ``module(tokens, positions)`` under ``pallas`` on
      1 x 4096 tokens, so the 2048 window binds: exactly 8 flash_attention
@@ -164,6 +179,7 @@ from repro_torch.configs import (  # noqa: E402
     GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD, get_config, smoke_config)
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd_cuda, flash_attention_cuda)
@@ -171,7 +187,8 @@ from repro_torch.kernels.ref import (GRAPH_STEPS, SWEEP_STATE,  # noqa: E402
                                     decode_attention_ref,
                                     flash_attention_bwd_ref,
                                     flash_attention_ref, rglru_scan_ref,
-                                    ssd_scan_ref, sweep_scan_ref,
+                                    ssd_scan_bf16_ref, ssd_scan_ref,
+                                    sweep_scan_ref,
                                     wlbvt_select_rounds_ref)
 from repro_torch.kernels.rglru_scan import rglru_scan_cuda  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda  # noqa: E402
@@ -734,26 +751,33 @@ def time_flash_attention(iters: int, shape=None) -> dict:
     return r
 
 
+def sass_counts(lib: str, opcode: str) -> dict:
+    """Instructions of ``opcode`` in each function of a kernel library
+    (``cuobjdump --dump-sass``)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(kbuild.lib_path(lib))],
+                          capture_output=True, text=True, check=True).stdout
+    per, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            per[fn] = 0
+        elif fn is not None and opcode in line:
+            per[fn] += 1
+    return per
+
+
 def check_tensor_cores() -> dict:
     """Count the HGMMA (wgmma) instructions of every function in the two
-    flash libraries with ``cuobjdump --dump-sass``; each bf16 kernel must
-    have some.  Returns the count per library."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    flash libraries and the HMMA (mma.sync) instructions of the SSD
+    library; each bf16 flash kernel and each bf16 SSD kernel
+    (``ssd_scan_tc``, chunks of 32 and 64 rows) must have some.  Returns
+    the count per library."""
     counts = {}
     for lib, kernel in (("flash_attention", "flash_fwd_sm90"),
                         ("flash_attention_bwd", "flash_bwd_sm90")):
-        sass = subprocess.run([tool, "--dump-sass",
-                               str(kbuild.lib_path(lib))],
-                              capture_output=True, text=True,
-                              check=True).stdout
-        per, fn = {}, None
-        for line in sass.splitlines():
-            m = re.search(r"Function : (\S+)", line)
-            if m:
-                fn = m.group(1)
-                per[fn] = 0
-            elif fn is not None and "HGMMA" in line:
-                per[fn] += 1
+        per = sass_counts(lib, "HGMMA")
         ours = {int(re.search(r"ILi(\d+)E", f).group(1)): c
                 for f, c in per.items() if kernel in f}
         others = sum(c for f, c in per.items() if kernel not in f)
@@ -766,6 +790,15 @@ def check_tensor_cores() -> dict:
             raise AssertionError(f"{lib}: a bf16 kernel has no HGMMA "
                                  f"instruction: {ours}")
         counts[lib] = sum(ours.values())
+    per = sass_counts("ssd_scan", "HMMA")
+    ours = {f: c for f, c in per.items() if "ssd_scan_tc" in f}
+    log(f"tensor cores: ssd_scan HMMA instructions, bf16 ssd_scan_tc "
+        f"{list(ours.values())}, every other function "
+        f"{sum(per.values()) - sum(ours.values())}")
+    if len(ours) != 2 or min(ours.values()) == 0:
+        raise AssertionError(f"ssd_scan: a bf16 kernel has no HMMA "
+                             f"instruction: {ours}")
+    counts["ssd_scan"] = sum(ours.values())
     return counts
 
 
@@ -1346,21 +1379,34 @@ def sweep_phase():
 SCAN_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
 RGLRU_TOL = 1e-5
 # B, S, H, P, G, N, chunk: tests/test_kernels.py's three (groups, ragged
-# chunks), the serve shape (one prefill chunk of Mamba2-370M: Q = 32) and
-# a cache-free run at its widths (4 chunks of 256 rows: the sub-tiling)
+# chunks; N 16 and 32), the serve shape (one prefill chunk of Mamba2-370M:
+# Q = 32), a cache-free run at its widths (4 chunks of 256 rows), and the
+# tensor-core kernel's edges: S 1 with P 32, a ragged last chunk of 8
+# rows, chunks of 48 rows with 2 groups, and N 20 / P 24 (rows that are
+# not whole 16-byte pieces: the element-by-element loads)
 SSD_CASES = [
     ("k128", (2, 128, 4, 32, 1, 16, 64)),
     ("k200_groups", (2, 200, 4, 32, 2, 16, 64)),
     ("k96", (2, 96, 2, 64, 1, 32, 32)),
     ("serve", (8, 32, 32, 64, 1, 128, 256)),
     ("cache_free", (4, 1024, 32, 64, 1, 128, 256)),
+    ("s1_p32", (2, 1, 4, 32, 1, 16, 64)),
+    ("ragged", (2, 40, 4, 64, 1, 128, 32)),
+    ("q48_groups", (2, 100, 4, 64, 2, 64, 48)),
+    ("unaligned", (2, 50, 4, 24, 1, 20, 32)),
 ]
 SSD_SERVE = dict(SSD_CASES)["serve"]
-# B, S, W: tests/test_kernels.py's three and the serve shape (one prefill
-# chunk of RecurrentGemma-2B)
+# B, S, W: tests/test_kernels.py's three, the serve shape (one prefill
+# chunk of RecurrentGemma-2B), S 1, W 33 over 1000 steps (a cluster of 8
+# blocks) and phase 18's cache-free forward (1 x 4096: four tiles of a
+# cluster of 8)
 RGLRU_CASES = [("k128", (2, 128, 128)), ("k100x96", (2, 100, 96)),
-               ("k64x256", (2, 64, 256)), ("serve", (8, 32, 2560))]
+               ("k64x256", (2, 64, 256)), ("serve", (8, 32, 2560)),
+               ("s1", (2, 1, 2560)), ("w33", (2, 1000, 33)),
+               ("rg_free", (1, 4096, 2560))]
+SSD_STATE_TOL = 1e-4   # the bf16 kernel's state against its rounding
 RGLRU_SERVE = dict(RGLRU_CASES)["serve"]
+RGLRU_FREE = dict(RGLRU_CASES)["rg_free"]
 
 
 def ssd_inputs(case, xdtype, bcdtype, state: bool, seed: int):
@@ -1377,20 +1423,21 @@ def ssd_inputs(case, xdtype, bcdtype, state: bool, seed: int):
 
 
 def check_ssd_scan() -> float:
-    """The SSD kernel against its plain version; returns the serve case's
-    max |kernel - plain| (y and state) in bf16.  The test shapes read B/C
-    in fp32 (as tests/test_kernels.py), the serve and cache-free shapes
-    in x's dtype (as the model path)."""
-    serve_err = None
+    """The SSD kernels against their plain version; returns the serve
+    case's max |kernel - plain| (y and state) in bf16.  The serve and
+    cache-free shapes read B/C in x's dtype (as the model path); the other
+    shapes in fp32 (as tests/test_kernels.py) and, with bf16 x, also in
+    bf16 (the tensor-core kernel)."""
+    serve_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for i, (name, case) in enumerate(SSD_CASES):
             model_path = name in ("serve", "cache_free")
-            states = {"serve": (True,), "cache_free": (False,)}.get(
-                name, (False, True))
-            for state in states:
-                args, st = ssd_inputs(case, dtype,
-                                      dtype if model_path else torch.float32,
-                                      state, SEED + i)
+            states = (False,) if name == "cache_free" else (False, True)
+            bcs = ((dtype,) if model_path else
+                   (torch.float32,) + ((dtype,) if dtype == torch.bfloat16
+                                       else ()))
+            for bc, state in ((bc, state) for bc in bcs for state in states):
+                args, st = ssd_inputs(case, dtype, bc, state, SEED + i)
                 y, last = ssd_scan_cuda(*args, chunk=case[-1],
                                         init_state=st)
                 torch.cuda.synchronize()
@@ -1412,8 +1459,35 @@ def check_ssd_scan() -> float:
                     raise AssertionError(f"ssd_scan {name} {dtype}: kernel "
                                          "disagrees with plain version")
                 if name == "serve" and dtype == torch.bfloat16:
-                    serve_err = max(ey, es)
+                    serve_err = max(serve_err, ey, es)
+                if dtype == torch.bfloat16 and bc == torch.bfloat16:
+                    check_ssd_rounding(name, args, st, case[-1], y, last)
     return serve_err
+
+
+def check_ssd_rounding(name, args, st, chunk, y, last) -> None:
+    """The tensor-core kernel's y and final state against
+    ``ssd_scan_bf16_ref`` (its chunking, cumsum order and hi + lo
+    rounding, run on the CPU) on the same inputs: y within one bf16 ulp
+    (2^-7 of its size) and 1e-4, the state within 1e-4 of its largest
+    entry.  A kernel without the lo products misses the state by ~2^-9."""
+    cpu = [a.cpu() for a in args]
+    wy, wlast = ssd_scan_bf16_ref(*cpu, None if st is None else st.cpu(),
+                                  chunk=chunk)
+    yk, lk = y.cpu().float(), last.cpu()
+    ey = ((yk - wy.float()).abs()
+          / (wy.float().abs() * 2**-7 + 1e-4)).max().item()
+    scale = wlast.abs().max().item()
+    es = ((lk - wlast).abs().max().item() / scale) if scale else 0.0
+    ok = (torch.allclose(yk, wy.float(), rtol=2**-7, atol=1e-4)
+          and torch.allclose(lk, wlast, rtol=SSD_STATE_TOL,
+                             atol=SSD_STATE_TOL * scale))
+    log(f"check ssd_scan {name:<11} against its rounding: y err / (one "
+        f"ulp + 1e-4) {ey:.3f}, state err / max |state| {es:.2e} "
+        f"(tol {SSD_STATE_TOL:g})")
+    if not ok:
+        raise AssertionError(f"ssd_scan {name}: tensor-core kernel departs "
+                             "from its rounding (ssd_scan_bf16_ref)")
 
 
 def ssd_cost(case, xbytes: int, state: bool):
@@ -1457,7 +1531,7 @@ def time_ssd_scan(case, state: bool, calls: int, plain_calls: int) -> dict:
     eager_ms = event_ms(kernel, sets, 10 * calls)
     plain_ms = graph_ms(plain, plain_calls, 2, sets)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3      # the tensor cores' rate
     B, S, H, P, G, N, _ = case
     return dict(B=B, S=S, H=H, P=P, G=G, N=N, chunk=chunk,
                 init_state=state, ms=ms, eager_ms=eager_ms,
@@ -1465,6 +1539,52 @@ def time_ssd_scan(case, state: bool, calls: int, plain_calls: int) -> dict:
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, flops=flops, buffers=nbuf, library_ms=None)
+
+
+SSD_PHASES = ("prologue", "inputs: copies, dt and its cumsum",
+              "C B^T and W", "P", "pass 0", "pass 1")
+
+
+def ssd_phases() -> None:
+    """clock64 cycles of each phase of the bf16 SSD kernel at the serve
+    shape with 8 rows (256 blocks, two an SM) and with 1 row (32 blocks,
+    one an SM), with and without an initial state: ``csrc/ssd_scan.cu``
+    built with ``-DSSD_PHASE_TRACE`` into a library of its own, whose
+    kernel records the cycle count at each phase boundary of every
+    block's first chunk."""
+    import ctypes
+    out = kbuild.BUILD_DIR / "ssd_scan-phases.so"
+    kbuild.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-DSSD_PHASE_TRACE",
+                    "-o", str(out), str(kbuild.CSRC / "ssd_scan.cu")],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(out))
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    lib.ssd_phase_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.ssd_phase_read.restype = ctypes.c_int
+    kbuild._LOADED[kssd.NAME] = lib
+    try:
+        for rows in (8, 1):
+            case = (rows,) + SSD_SERVE[1:]
+            for state in (True, False):
+                args, st = ssd_inputs(case, torch.bfloat16, torch.bfloat16,
+                                      state, 7)
+                for _ in range(4):      # the last launch is the one read
+                    ssd_scan_cuda(*args, chunk=case[-1], init_state=st)
+                torch.cuda.synchronize()
+                blocks = rows * case[2]
+                clk = np.zeros((blocks, len(SSD_PHASES) + 1), np.int64)
+                code = lib.ssd_phase_read(clk.ctypes.data, blocks)
+                if code:
+                    raise RuntimeError(f"ssd_phase_read: cudaError {code}")
+                d = np.diff(clk, axis=1).mean(axis=0)
+                log(f"ssd_scan phases B={rows} init_state={state} "
+                    f"(clock64 cycles a block, mean of {blocks}): "
+                    + ", ".join(f"{n} {c:.0f}" for n, c in zip(SSD_PHASES, d))
+                    + f"; total {d.sum():.0f}")
+    finally:
+        del kbuild._LOADED[kssd.NAME]
 
 
 def rglru_inputs(case, h0: bool, seed: int):
@@ -1478,11 +1598,18 @@ def rglru_inputs(case, h0: bool, seed: int):
 
 def check_rglru_scan() -> float:
     """The RG-LRU kernel against its plain version (tol 1e-5); returns
-    the serve case's max |kernel - plain|."""
+    the serve case's max |kernel - plain|.  The serve and W 33 shapes are
+    also read as a and b halves of one (B, S, 2W) buffer (a row stride of
+    2W)."""
     serve_err = None
     for i, (name, case) in enumerate(RGLRU_CASES):
-        for h0 in ((True,) if name == "serve" else (False, True)):
+        strided = (False, True) if name in ("serve", "w33") else (False,)
+        for h0, split in ((h0, sp) for h0 in (False, True) for sp in strided):
             a, b, h = rglru_inputs(case, h0, SEED + i)
+            if split:
+                W = case[2]
+                ab = torch.cat([a, b], dim=-1)
+                a, b = ab[..., :W], ab[..., W:]
             got, got_last = rglru_scan_cuda(a, b, h)
             torch.cuda.synchronize()
             want, want_last = rglru_scan_ref(a, b, h)
@@ -1491,18 +1618,21 @@ def check_rglru_scan() -> float:
             ok = (torch.allclose(got, want, atol=RGLRU_TOL, rtol=RGLRU_TOL)
                   and torch.allclose(got_last, want_last, atol=RGLRU_TOL,
                                      rtol=RGLRU_TOL))
-            log(f"check rglru_scan {name:<8} h0={h0!s:<5} "
-                f"max_abs_err={err:.3e} tol={RGLRU_TOL:g}")
+            log(f"check rglru_scan {name:<8} h0={h0!s:<5} a/b row stride "
+                f"{a.stride(1)} max_abs_err={err:.3e} tol={RGLRU_TOL:g}")
             if not ok:
                 raise AssertionError(f"rglru_scan {name}: kernel disagrees "
                                      "with plain version")
             if name == "serve":
-                serve_err = err
+                serve_err = max(serve_err or 0.0, err)
     return serve_err
 
 
 def time_rglru_scan(case, calls: int) -> dict:
-    """As ``time_ssd_scan``, in fp32, with h0."""
+    """As ``time_ssd_scan``, in fp32, with h0; ``stream_ms``: one
+    elementwise PyTorch kernel (a + b, graph-replayed) over the same
+    inputs, which moves the kernel's bytes but for h0 and h_last: what a
+    single pass over them costs on this card at this size."""
     B, S, W = case
     nbytes = 3 * B * S * W * 4 + 2 * B * W * 4     # a, b, h; h0, h_last
     flops = 2 * B * S * W
@@ -1511,9 +1641,11 @@ def time_rglru_scan(case, calls: int) -> dict:
     ms = graph_ms(rglru_scan_cuda, calls, 5, sets)
     eager_ms = event_ms(rglru_scan_cuda, sets, 10 * calls)
     plain_ms = graph_ms(rglru_scan_ref, max(calls // 10, 2), 2, sets)
+    stream_ms = graph_ms(lambda a, b, h: torch.add(a, b), calls, 5, sets)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
     return dict(B=B, S=S, W=W, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                stream_ms=stream_ms,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, flops=flops, buffers=nbuf, library_ms=None)
@@ -1627,7 +1759,8 @@ def serve_recurrent(arch: str) -> dict:
     tokens = np.ones((B, C), np.int32)
     zeros, full = np.zeros(B, np.int32), np.full(B, C, np.int32)
     profile_step(f"{arch} full-width prefill step (8 x 32 tokens)",
-                 lambda: ex.prefill(tokens, zeros, full))
+                 lambda: ex.prefill(tokens, zeros, full),
+                 kernel="ssd_scan" if kinds.count(SSD) else "rglru_scan")
     active = np.ones(B, bool)
     profile_step(f"{arch} full-width decode step",
                  lambda: ex.decode(tokens[:, 0], full, active),
@@ -1770,10 +1903,13 @@ def main() -> int:
     for t in (ssd_t, ssd_cf):
         log("time ssd_scan bf16 (ms, plain_ms: CUDA-graph replays; "
             "eager_ms: launched from Python) " + fields(t))
+    ssd_phases()
     rg_err = check_rglru_scan()
     rg_t = time_rglru_scan(RGLRU_SERVE, 200)
-    log("time rglru_scan fp32 (ms, plain_ms: CUDA-graph replays; eager_ms: "
-        "launched from Python) " + fields(rg_t))
+    rg_free_t = time_rglru_scan(RGLRU_FREE, 20)
+    for t in (rg_t, rg_free_t):
+        log("time rglru_scan fp32 (ms, plain_ms: CUDA-graph replays; "
+            "eager_ms: launched from Python) " + fields(t))
     # a ragged second SSD chunk (16 + 8), decode past the 32-entry ring
     for arch in ("mamba2-370m", "recurrentgemma-2b"):
         check_small(arch, 24, 16)

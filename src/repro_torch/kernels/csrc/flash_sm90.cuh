@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of the bf16 flash kernels
-// (flash_attention.cu, flash_attention_bwd.cu): swizzled shared-memory
-// tiles, wgmma descriptors and instructions, mbarriers, TMA and cp.async
-// copies, and the host-side tensor map.
+// Hopper (sm_90a) building blocks of the bf16 kernels (flash_attention.cu,
+// flash_attention_bwd.cu, decode_attention.cu, ssd_scan.cu): swizzled
+// shared-memory tiles, wgmma descriptors and instructions, mbarriers, TMA,
+// bulk and cp.async copies, ldmatrix and mma.sync, and the host-side
+// tensor map.
 //
 // Tile layout.  A tile of R rows by D bf16 columns is NH = 2D / W column
 // panels of R rows of W = min(128, 2D) bytes, panel after panel; inside a
@@ -333,6 +334,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                    smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
                : "memory");
 }
+// arrive on `bar` once this thread's earlier cp.async copies have landed
+// (the barrier's count includes this arrival)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(smem_u32(bar)) : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -344,6 +351,29 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // async-proxy reads (wgmma operands, bulk copies)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// four 8x8 b16 matrices from shared memory (lane l gives the address of
+// row l % 8 of matrix l / 8); .trans hands out their transposes
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+// c += a b, m16n8k16, bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {

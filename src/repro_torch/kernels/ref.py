@@ -147,6 +147,136 @@ def rglru_scan_ref(a, b, h0=None):
     return torch.stack(hs, dim=1), h
 
 
+def _bf16_split(t):
+    """fp32 -> (hi, lo), both bf16 values held in fp32: hi + lo keeps
+    ~16 bits of t, as the tensor-core SSD kernel feeds an fp32 operand."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def _lane_cumsum(a):
+    """The tensor-core SSD kernel's inclusive cumsum over a chunk's rows
+    (the last dim, at most 64), in its order: lane l adds rows 2l and
+    2l + 1, the 32 lanes scan those sums by doubling (Hillis-Steele), and
+    each lane adds its rows to the sum before it."""
+    q = a.shape[-1]
+    a = torch.nn.functional.pad(a, (0, 64 - q))
+    a0, a1 = a[..., 0::2], a[..., 1::2]
+    v = a0 + a1
+    for o in (1, 2, 4, 8, 16):
+        v = torch.cat([v[..., :o], v[..., o:] + v[..., :-o]], dim=-1)
+    c0 = torch.nn.functional.pad(v[..., :-1], (1, 0)) + a0
+    c1 = c0 + a1
+    return torch.stack([c0, c1], dim=-1).flatten(-2)[..., :q]
+
+
+def ssd_scan_bf16_ref(x, dt, A_log, B_mat, C_mat, init_state=None, *,
+                      chunk: int):
+    """``ssd_scan_ref``'s function in the bf16 kernel's chunked form and
+    rounding (``csrc/ssd_scan.cu``, x and B/C in bf16).
+
+    Chunks of ``min(chunk, S, 64)`` rows.  In a chunk, with dA = dt A and
+    cs its cumsum: P = (C B^T) o exp(cs_i - cs_j) o dt_j masked to j <= i;
+    y = exp(cs_i) (C . state) + P x; state = state exp(cs_last) + x^T W
+    with W = B o dt_j exp(cs_last - cs_j).  x, B and C go into the
+    products as they are; the fp32 operands P, W and the carried state go
+    in as a bf16 hi + lo pair (two products); every sum is fp32 and the
+    state stays fp32 between chunks.  The cumsum is the kernel's
+    (``_lane_cumsum``), in log2 units, and every exp an exp2.  Returns (y
+    in x's dtype, final state fp32)."""
+    Bb, S, H, P = x.shape
+    rep = H // B_mat.shape[2]
+    A = -torch.exp(A_log.float()) * 1.44269504
+    xf, dtf = x.float(), dt.float()
+    Bf = B_mat.float().repeat_interleave(rep, dim=2)            # (B,S,H,N)
+    Cf = C_mat.float().repeat_interleave(rep, dim=2)
+    state = (torch.zeros((Bb, H, P, Bf.shape[-1]), dtype=torch.float32,
+                         device=x.device)
+             if init_state is None else init_state.float().clone())
+    Q = min(chunk, S, 64)
+    ys = []
+    for s0 in range(0, S, Q):
+        xs, ds = xf[:, s0:s0 + Q], dtf[:, s0:s0 + Q]
+        Bs, Cs = Bf[:, s0:s0 + Q], Cf[:, s0:s0 + Q]
+        q = xs.shape[1]
+        cs = _lane_cumsum((ds * A).transpose(1, 2))             # (B,H,q)
+        dsh = ds.transpose(1, 2)
+        keep = torch.tril(torch.ones(q, q, dtype=torch.bool,
+                                     device=x.device))
+        seg = torch.where(keep, cs[..., :, None] - cs[..., None, :],
+                          -torch.inf)
+        scores = torch.einsum("bihn,bjhn->bhij", Cs, Bs)
+        pm = torch.where(keep, scores * torch.exp2(seg) * dsh[..., None, :],
+                         0.0)
+        p_hi, p_lo = _bf16_split(pm)
+        y = (torch.einsum("bhij,bjhp->bihp", p_hi, xs)
+             + torch.einsum("bhij,bjhp->bihp", p_lo, xs))
+        s_hi, s_lo = _bf16_split(state)
+        inter = (torch.einsum("bihn,bhpn->bihp", Cs, s_hi)
+                 + torch.einsum("bihn,bhpn->bihp", Cs, s_lo))
+        y = torch.exp2(cs).transpose(1, 2)[..., None] * inter + y
+        last = cs[..., -1:]
+        w = (dsh * torch.exp2(last - cs)).transpose(1, 2)        # (B,q,H)
+        w_hi, w_lo = _bf16_split(Bs * w[..., None])
+        state = (state * torch.exp2(last)[..., None]
+                 + torch.einsum("bjhp,bjhn->bhpn", xs, w_hi)
+                 + torch.einsum("bjhp,bjhn->bhpn", xs, w_lo))
+        ys.append(y)
+    return torch.cat(ys, dim=1).to(x.dtype), state
+
+
+def rglru_scan_segments_ref(a, b, h0=None, *, seg_len: int, cluster: int,
+                            warps: int):
+    """``rglru_scan_ref``'s function in the kernel's segmented order
+    (``csrc/rglru_scan.cu``; ``seg_len`` and ``cluster`` from
+    ``kernels/rglru_scan.py::geometry``).
+
+    The sequence is walked in tiles of ``cluster`` blocks of ``warps``
+    segments of ``seg_len`` steps.  Each segment is scanned from zero
+    (its product of a and its local h); each block composes its segments
+    in order; the carry before a segment is the tile's carry taken
+    through the earlier blocks' compositions, then the earlier segments'
+    of its block; the segment is rerun from that carry, and the next
+    tile's carry is the h of the tile's last step before S.  Steps past
+    S are the identity (a = 1, b = 0).  fp32; returns (h (B,S,W), h_last
+    (B,W))."""
+    Bb, S, W = a.shape
+    tile = cluster * warps * seg_len
+    pad = -S % tile
+    af = torch.cat([a.float(), a.new_ones((Bb, pad, W))], dim=1)
+    bf = torch.cat([b.float(), b.new_zeros((Bb, pad, W))], dim=1)
+    carry = a.new_zeros((Bb, W)) if h0 is None else h0.float()
+    hs = []
+    for s0 in range(0, S + pad, tile):
+        at = af[:, s0:s0 + tile].reshape(Bb, cluster, warps, seg_len, W)
+        bt = bf[:, s0:s0 + tile].reshape(Bb, cluster, warps, seg_len, W)
+        seg_a = torch.ones_like(at[..., 0, :])
+        seg_h = torch.zeros_like(seg_a)
+        for t in range(seg_len):
+            seg_h = at[..., t, :] * seg_h + bt[..., t, :]
+            seg_a = seg_a * at[..., t, :]
+        blk_a = torch.ones_like(seg_a[:, :, 0])
+        blk_h = torch.zeros_like(blk_a)
+        for j in range(warps):
+            blk_h = seg_a[:, :, j] * blk_h + seg_h[:, :, j]
+            blk_a = blk_a * seg_a[:, :, j]
+        c_blk = [carry]
+        for r in range(cluster - 1):
+            c_blk.append(blk_a[:, r] * c_blk[-1] + blk_h[:, r])
+        c = [torch.stack(c_blk, dim=1)]                      # (B, C, W)
+        for j in range(warps - 1):
+            c.append(seg_a[:, :, j] * c[-1] + seg_h[:, :, j])
+        h = torch.stack(c, dim=2)                            # (B, C, w, W)
+        out = []
+        for t in range(seg_len):
+            h = at[..., t, :] * h + bt[..., t, :]
+            out.append(h)
+        hs.append(torch.stack(out, dim=3).reshape(Bb, tile, W))
+        last = (min(S, s0 + tile) - 1 - s0) // seg_len   # its segment
+        carry = h[:, last // warps, last % warps]
+    return torch.cat(hs, dim=1)[:, :S], carry
+
+
 # ---------------------------------------------------------------------------
 # flash attention, forward and backward (csrc/flash_attention{,_bwd}.cu)
 # ---------------------------------------------------------------------------

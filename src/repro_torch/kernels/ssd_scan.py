@@ -6,7 +6,9 @@ group h // (H/G)), all read through their strides; an optional initial state
 (B, H, P, N) fp32.  Returns y (B, S, H, P) in x's dtype and the final
 state (B, H, P, N) fp32.  The kernel replaces the Pallas TPU kernel
 ``repro/kernels/ssd_scan.py::_ssd_kernel``; its plain version is
-``kernels/ref.py::ssd_scan_ref``.
+``kernels/ref.py::ssd_scan_ref``.  x, B and C in bf16 run on the tensor
+cores (``ref.ssd_scan_bf16_ref`` is that kernel's order and rounding in
+plain torch); fp32 x, or fp32 B/C, run the exact scalar kernel.
 """
 from __future__ import annotations
 

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rglru_scan as krg
 from repro_torch.kernels.rglru_scan import rglru_scan_cuda
 from repro_torch.models.rglru import prefix_scan
 
@@ -58,6 +59,61 @@ def test_plain_matches_jax_pallas_kernel_and_oracle(case, h0):
                                    atol=TOL, rtol=TOL, err_msg=name)
 
 
+# B, S, W at the kernel's segment geometry: one block of 8 warps of 4
+# steps (a serve chunk's S), S 1, 3 blocks a cluster over a ragged tile,
+# 8 blocks over 1000 steps of 33 channels, and phase 18's S (four tiles
+# of a cluster of 8)
+SEG_CASES = [(2, 32, 96), (2, 1, 40), (2, 300, 128), (1, 1000, 33),
+             (1, 4096, 64)]
+
+
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("case", SEG_CASES)
+def test_segmented_order_matches_plain_and_jax_pallas_kernel(case, h0):
+    """The kernel's order of operations (``ref.rglru_scan_segments_ref``
+    at the lengths ``geometry`` gives it) against the sequential plain
+    version and the JAX Pallas kernel in interpret mode, 1e-5; h_last is
+    the h of the last step, bit for bit."""
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    B, S, W = case
+    a, b, h = _inputs((S, W), seed=3, B=B, h0=h0)
+    seg_len, cluster = krg.geometry(S)
+    got, got_last = tref.rglru_scan_segments_ref(
+        _t(a), _t(b), _t(h), seg_len=seg_len, cluster=cluster,
+        warps=krg.WARPS)
+    assert torch.equal(got_last, got[:, -1])
+    want, want_last = jops.rglru_scan(
+        jnp.asarray(a), jnp.asarray(b), None if h is None else jnp.asarray(h),
+        interpret=True)
+    for name, (w, wl) in (("Pallas kernel", (want, want_last)),
+                          ("plain", tref.rglru_scan_ref(_t(a), _t(b),
+                                                        _t(h)))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=TOL,
+                                   rtol=TOL, err_msg=name)
+        np.testing.assert_allclose(got_last.numpy(), np.asarray(wl),
+                                   atol=TOL, rtol=TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("B, S, W", [(8, 32, 2560), (1, 4096, 2560)])
+def test_geometry_fills_the_card(B, S, W):
+    """At both main-path shapes (a RecurrentGemma-2B serve chunk, phase
+    18's cache-free forward) the launch has at least one block per SM of
+    an H100 (132), and a warp's two buffers fit its registers."""
+    seg_len, cluster = krg.geometry(S)
+    assert seg_len <= krg.MAX_SEG and 1 <= cluster <= krg.MAX_CLUSTER
+    assert cluster * krg.WARPS * seg_len >= min(S, krg.MAX_CLUSTER
+                                                * krg.WARPS * krg.MAX_SEG)
+    assert B * cluster * -(-W // 32) >= 132
+
+
+@pytest.mark.parametrize("S, want", [(1, (1, 1)), (32, (4, 1)),
+                                     (100, (16, 1)), (1000, (16, 8)),
+                                     (4096, (16, 8)), (100_000, (16, 8))])
+def test_geometry(S, want):
+    assert krg.geometry(S) == want
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_prefix_scan_matches_jax_associative_scan(case):
     """The ``chunked`` model path: ``Bc + A h0`` from the doubling scan
@@ -98,15 +154,27 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         rglru_scan_cuda(a, b, h)
 
 
+# the serve shape (B 8), S 1, W 33 and phase 18's shape (B 1, S 4096)
+CARD_CASES = ([(2, S, W) for S, W in CASES]
+              + [(8, 32, 2560), (2, 1, 2560), (2, 1000, 33), (1, 4096, 2560)])
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("strided", [False, True])
 @pytest.mark.parametrize("h0", [False, True])
-@pytest.mark.parametrize("case", CASES + [(32, 2560), (1000, 33)])
-def test_kernel_matches_plain_on_card(case, h0):
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_kernel_matches_plain_on_card(case, h0, strided):
+    """``strided``: a and b are the halves of one (B, S, 2W) buffer, read
+    through a row stride of 2W."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    B, S, W = case
     a, b, h = (None if t is None else _t(t).cuda()
-               for t in _inputs(case, seed=2, B=8 if case[1] == 2560 else 2,
-                                h0=h0))
+               for t in _inputs((S, W), seed=2, B=B, h0=h0))
+    if strided:
+        ab = torch.cat([a, b], dim=-1)
+        a, b = ab[..., :W], ab[..., W:]
+        assert a.stride(1) == 2 * W
     got, got_last = rglru_scan_cuda(a, b, h)
     torch.cuda.synchronize()
     want, want_last = tref.rglru_scan_ref(a, b, h)

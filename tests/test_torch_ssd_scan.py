@@ -118,6 +118,95 @@ def test_port_chunked_path_matches_jax_chunked_path(case, state):
     _close(last.numpy(), clast, ORACLE_TOL, "state")
 
 
+# S, H, P, G, N, chunk in the tensor-core kernel's shapes: N 128, P 64,
+# Q 32 (a serve chunk's), two chunks, a ragged last chunk of 8 rows, 2
+# groups, and a 256-row chunk (run as 64-row chunks)
+BF16_CASES = [(64, 2, 64, 1, 128, 32), (40, 2, 64, 1, 128, 32),
+              (96, 4, 64, 2, 128, 32), (300, 2, 64, 1, 128, 256)]
+
+
+@pytest.mark.parametrize("case", BF16_CASES)
+def test_bf16_kernel_order_matches_jax_pallas_kernel(case):
+    """The tensor-core kernel's chunking and rounding
+    (``ref.ssd_scan_bf16_ref``: bf16 x, B, C; fp32 operands as bf16 hi +
+    lo; fp32 sums and state) against the JAX Pallas kernel in interpret
+    mode and the JAX oracle, bf16, 5e-2."""
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+    x, dt, A_log, Bm, Cm, _ = _inputs(case, seed=4)
+    x, Bm, Cm = (_t(a, "bfloat16") for a in (x, Bm, Cm))
+    y, last = tref.ssd_scan_bf16_ref(x, _t(dt), _t(A_log), Bm, Cm,
+                                     chunk=case[-1])
+    jargs = (jnp.asarray(x.float().numpy()).astype(jnp.bfloat16),
+             jnp.asarray(dt), jnp.asarray(A_log),
+             jnp.asarray(Bm.float().numpy()).astype(jnp.bfloat16),
+             jnp.asarray(Cm.float().numpy()).astype(jnp.bfloat16))
+    tol = TOL["bfloat16"]
+    for name, (wy, wlast) in (
+            ("Pallas kernel", jops.ssd_scan(*jargs, chunk=case[-1],
+                                            interpret=True)),
+            ("oracle", jref.ssd_scan_ref(*jargs))):
+        _close(y.float().numpy(), wy.astype(jnp.float32), tol, "y vs " + name)
+        _close(last.numpy(), wlast, tol, "state vs " + name)
+
+
+@pytest.mark.parametrize("case", BF16_CASES)
+def test_bf16_kernel_order_with_initial_state_matches_jax_oracle(case):
+    """The same, from a carried state (the serving prefill): against the
+    JAX oracle, y at 5e-2; the final state, fp32 throughout but for the
+    hi + lo operands, at 1e-3."""
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+    x, dt, A_log, Bm, Cm, st = _inputs(case, seed=5, state=True)
+    x, Bm, Cm = (_t(a, "bfloat16") for a in (x, Bm, Cm))
+    y, last = tref.ssd_scan_bf16_ref(x, _t(dt), _t(A_log), Bm, Cm, _t(st),
+                                     chunk=case[-1])
+    wy, wlast = jref.ssd_scan_ref(
+        *(jnp.asarray(a.float().numpy()) for a in (x, _t(dt), _t(A_log), Bm,
+                                                   Cm)),
+        init_state=jnp.asarray(st))
+    _close(y.float().numpy(), wy, TOL["bfloat16"], "y vs oracle")
+    _close(last.numpy(), wlast, TOL["float32"], "state vs oracle")
+
+
+@pytest.mark.parametrize("q", [1, 8, 32, 48, 64])
+def test_lane_cumsum_is_the_inclusive_cumsum(q):
+    """The tensor-core kernel's cumsum order (``ref._lane_cumsum``: pairs,
+    then a doubling scan over 32 lanes) is an inclusive cumsum, to fp32
+    rounding."""
+    a = torch.from_numpy(np.random.default_rng(q).standard_normal((3, q))
+                         .astype(np.float32)) * -5.0
+    want = torch.cumsum(a.double(), dim=-1)
+    got = tref._lane_cumsum(a)
+    assert got.dtype == torch.float32 and got.shape == a.shape
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5)
+
+
+STATE_TOL = 1e-4        # the final state's, relative to its largest entry
+
+
+def _close_state(got, want):
+    """fp32 states that differ only in the order of their sums."""
+    torch.testing.assert_close(got, want, rtol=STATE_TOL,
+                               atol=STATE_TOL * want.abs().max().item())
+
+
+@pytest.mark.parametrize("case", BF16_CASES)
+def test_bf16_kernel_order_keeps_the_lo_products(case):
+    """With the same bf16 x, B and C, the emulation's final state is the
+    fp32 plain version's to 1e-4 of its largest entry: the hi + lo pairs
+    keep ~16 bits of P, W and the state (bf16 operands alone, 8 bits,
+    miss by ~2^-9)."""
+    x, dt, A_log, Bm, Cm, st = _inputs(case, seed=8, state=True)
+    args = [_t(x, "bfloat16"), _t(dt), _t(A_log), _t(Bm, "bfloat16"),
+            _t(Cm, "bfloat16")]
+    _, last = tref.ssd_scan_bf16_ref(*args, _t(st), chunk=case[-1])
+    _, want = tref.ssd_scan_ref(*(a.float() for a in args),
+                                init_state=_t(st))
+    _close_state(last, want)
+
+
 def test_ops_on_cpu_takes_the_plain_version():
     x, dt, A_log, Bm, Cm, st = (_t(a) for a in _inputs(CASES[1],
                                                         state=True))
@@ -143,8 +232,12 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 
 # the serve shape (one prefill chunk of Mamba2-370M: B 8, S 32, H 32,
-# P 64, N 128, chunk 256 -> Q 32) and a cache-free chunk of 256 rows
-CARD_CASES = CASES + [(32, 32, 64, 1, 128, 256), (512, 4, 64, 1, 128, 256)]
+# P 64, N 128, chunk 256 -> Q 32), a cache-free chunk of 256 rows, and the
+# tensor-core kernel's edges: S 1 with P 32, a ragged last chunk of 8 rows,
+# 48-row chunks with 2 groups, N 20 / P 24 (element-by-element loads)
+CARD_CASES = CASES + [(32, 32, 64, 1, 128, 256), (512, 4, 64, 1, 128, 256),
+                      (1, 4, 32, 1, 16, 64), (40, 4, 64, 1, 128, 32),
+                      (100, 4, 64, 2, 64, 48), (50, 4, 24, 1, 20, 32)]
 
 
 @pytest.mark.gpu
@@ -165,3 +258,51 @@ def test_kernel_matches_plain_on_card(case, dtype, state):
     tol = TOL[dtype]
     torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(last, wlast, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_tensor_core_kernel_matches_plain_on_card(case, state):
+    """x, B and C in bf16, as the model serves them: the tensor-core
+    kernel, against the plain version at 5e-2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    x, dt, A_log, Bm, Cm, st = _inputs(case, seed=6, state=state,
+                                       B=8 if case[1] == 32 else 2)
+    dev = torch.device("cuda")
+    args = [_t(x, "bfloat16").to(dev), _t(dt).to(dev), _t(A_log).to(dev),
+            _t(Bm, "bfloat16").to(dev), _t(Cm, "bfloat16").to(dev)]
+    st = None if st is None else _t(st).to(dev)
+    y, last = ssd_scan_cuda(*args, chunk=case[-1], init_state=st)
+    torch.cuda.synchronize()
+    wy, wlast = tref.ssd_scan_ref(*args, init_state=st)
+    tol = TOL["bfloat16"]
+    torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(last, wlast, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_tensor_core_kernel_matches_its_rounding_on_card(case, state):
+    """The tensor-core kernel against ``ref.ssd_scan_bf16_ref`` (its
+    chunking, cumsum order and hi + lo rounding, run on the CPU) on the
+    same inputs: y within one bf16 ulp (2^-7 of its size) and 1e-4, the
+    final state within 1e-4 of its largest entry.  A kernel that dropped
+    the lo products would miss the state by ~2^-9."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    x, dt, A_log, Bm, Cm, st = _inputs(case, seed=9, state=state,
+                                       B=8 if case[1] == 32 else 2)
+    args = [_t(x, "bfloat16"), _t(dt), _t(A_log), _t(Bm, "bfloat16"),
+            _t(Cm, "bfloat16")]
+    st = None if st is None else _t(st)
+    dev = torch.device("cuda")
+    y, last = ssd_scan_cuda(*(a.to(dev) for a in args), chunk=case[-1],
+                            init_state=None if st is None else st.to(dev))
+    torch.cuda.synchronize()
+    wy, wlast = tref.ssd_scan_bf16_ref(*args, st, chunk=case[-1])
+    torch.testing.assert_close(y.cpu().float(), wy.float(), rtol=2**-7,
+                               atol=1e-4)
+    _close_state(last.cpu(), wlast)
