@@ -149,6 +149,23 @@ prints no result.  Phases, each of which raises on failure:
      sweep ran before (its round the ``wlbvt_select`` kernel); the mix
      at R 1 (ns a step of one replica's serial chain); fig9 under wlbvt
      and rr.
+ 20. (run after phase 19) the scenario CLI and the host simulators:
+     (a) ``launch.scenario --all`` runs every registered scenario on every
+     backend it supports at its published size, and every report
+     validates; (b) ``run_one("serve_mixed_slo", "serve", {},
+     arch="mamba2-370m")`` serves full-width, full-depth Mamba2-370M on
+     the card: every request done, ssd_scan = 48 x prefill chunks, and
+     the per-tenant summary equal to phase 17's where the engine shape is
+     the same; (c) the card's sweep (one ``sweep_scan`` launch a leg)
+     against the port's host ``BatchedSimulator``: fig9 at 300 us under
+     wlbvt and rr, a fifo_capacity=8 leg (drops) and a budget-kill leg
+     (kills), and four mix replicas: time, completion stream, EQ events,
+     per-tenant stats and p99, final scheduler state equal, Jain within
+     1e-9; fig9 wlbvt's per-tenant counts on the event-loop ``Simulator``
+     equal the batched run's; (d) wall times of the event loop, the
+     batched host path and the card's sweep (1 and 8 seeds) for fig9
+     under wlbvt and rr, with scenarios/s and packets/s, beside the
+     card's name and power limit.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -172,9 +189,10 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.api import (ArrivalSpec, ScenarioSpec, ServeRuntime,  # noqa: E402
-                             SweepAxis, SweepSpec, TenantSpec, WorkloadSpec,
-                             build_traces, get_scenario)
+from repro_torch.api import (ArrivalSpec, RunReport, ScenarioSpec,  # noqa: E402
+                             ServeRuntime, SweepAxis, SweepSpec, TenantSpec,
+                             WorkloadSpec, build_traces, get_scenario,
+                             list_scenarios)
 from repro_torch.configs import (  # noqa: E402
     GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD, get_config, smoke_config)
 from repro_torch.kernels import build as kbuild  # noqa: E402
@@ -194,12 +212,16 @@ from repro_torch.kernels.rglru_scan import rglru_scan_cuda  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda  # noqa: E402
 from repro_torch.kernels.sweep_scan import sweep_scan_cuda  # noqa: E402
 from repro_torch.kernels.wlbvt_select import wlbvt_select_cuda  # noqa: E402
+from repro_torch.core.slo import ECTX  # noqa: E402
+from repro_torch.launch import scenario as scenario_cli  # noqa: E402
 from repro_torch.launch import sweep as sweep_cli  # noqa: E402
 from repro_torch.launch.sweep import build_sweep, run_sweep  # noqa: E402
 from repro_torch.launch.train import run_training  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serving.engine import ModelExecutor  # noqa: E402
 from repro_torch.serving.request import RequestStatus  # noqa: E402
+from repro_torch.sim import devicepath as DP  # noqa: E402
+from repro_torch.sim.fastpath import build_simulator  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -417,10 +439,14 @@ def time_decode_attention(T: int, calls: int, shape=None, window: int = 0,
 # ---------------------------------------------------------------------------
 # phases 5-7: the served model
 # ---------------------------------------------------------------------------
-def serve(cfg, seed: int):
-    spec = get_scenario("serve_mixed_slo", tenants=3, requests=12,
+def serve_spec(cfg, seed: int):
+    return get_scenario("serve_mixed_slo", tenants=3, requests=12,
                         max_slots=8, max_len=256, prefill_chunk=32,
                         vocab=cfg.vocab_size, seed=seed)
+
+
+def serve(cfg, seed: int):
+    spec = serve_spec(cfg, seed)
     (rt, init_s) = sync_time(lambda: ServeRuntime.from_spec(
         spec, executor=lambda e: ModelExecutor(cfg, e, rng_seed=seed,
                                                device="cuda")))
@@ -1767,7 +1793,8 @@ def serve_recurrent(arch: str) -> dict:
                  kernel="decode_attention")
     del rt, ex
     torch.cuda.empty_cache()
-    return dict(launches=launches, peak=peak, wall=wall)
+    return dict(launches=launches, peak=peak, wall=wall,
+                spec=serve_spec(cfg, SEED), summary=rep.summary())
 
 
 def rg_cache_free_phase() -> dict:
@@ -1830,6 +1857,209 @@ def rg_cache_free_phase() -> dict:
         raise AssertionError("rg cache-free: kernel path disagrees with "
                              "chunked")
     return dict(launches=launches, wall=wall, err=err, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the scenario CLI, and the card's sweep against the host
+# simulators
+# ---------------------------------------------------------------------------
+STAT_FIELDS = ("completed", "killed", "drops", "served_payload_bytes",
+               "first_arrival", "last_completion", "kernel_time_count",
+               "kernel_time_sum")
+
+
+def host_run(spec, datapath: str):
+    """``spec`` on the port's host simulator (``datapath`` "batched" or
+    "event"), the completion stream recorded; the wall time covers the
+    traces, the simulator's construction and its run."""
+    def run():
+        tenants = [ECTX(tenant_id=i, name=t.name, slo=t.slo(),
+                        kernel=t.workload.build())
+                   for i, t in enumerate(spec.tenants)]
+        sim = build_simulator(tenants, datapath=datapath,
+                              scheduler=spec.scheduler, frag=spec.frag(),
+                              arb=spec.arbiter,
+                              fifo_capacity=spec.fifo_capacity,
+                              record_completions=True)
+        trace = build_traces(spec, arrays=True)
+        if datapath == "event":
+            trace = trace.to_packets()
+        horizon = spec.horizon_us * 1e3 if spec.horizon_us else None
+        return sim.run(trace, horizon=horizon)
+    t0 = time.perf_counter()
+    res = run()
+    return res, time.perf_counter() - t0
+
+
+def eq_events(res) -> list:
+    return [(e.tenant, e.kind.value, e.time) for e in res.events]
+
+
+def check_card_against_host(name, spec, h, d) -> None:
+    """tests/test_torch_devicepath.py's exact-mode contract: time,
+    completion stream, EQ events, per-tenant stats and p99, final
+    scheduler state equal; Jain's time-average within 1e-9."""
+    bad = [k for k, a, b in (("time", d.time, h.time),
+                             ("completions", d.completions, h.completions),
+                             ("events", eq_events(d), eq_events(h))) if a != b]
+    for i in range(len(spec.tenants)):
+        bad += [f"tenant {i} {f}" for f in STAT_FIELDS
+                if getattr(d.stats[i], f) != getattr(h.stats[i], f)]
+        if (d.stats[i].kernel_time_percentile(99)
+                != h.stats[i].kernel_time_percentile(99)):
+            bad.append(f"tenant {i} p99")
+    bad += [k for k in ("prio", "total_occup", "bvt", "kv_pressure")
+            if not np.array_equal(np.asarray(d.sched_state[k]),
+                                  np.asarray(h.sched_state[k]))]
+    jain = abs(d.jain_pu_timeavg - h.jain_pu_timeavg)
+    counts = {f: [getattr(d.stats[i], f) for i in range(len(spec.tenants))]
+              for f in ("completed", "killed", "drops")}
+    log(f"check {name}: card sweep vs host BatchedSimulator: time "
+        f"{d.time!r}, {len(d.completions)} completions, {len(d.events)} EQ "
+        f"events, {counts}, jain {float(d.jain_pu_timeavg)!r} (host "
+        f"{float(h.jain_pu_timeavg)!r}, diff {jain:.3g}); mismatches: "
+        f"{bad or 'none'}")
+    if bad or jain > 1e-9:
+        raise AssertionError(f"{name}: the card's sweep disagrees with the "
+                             f"host BatchedSimulator on {bad}, jain diff "
+                             f"{jain}")
+
+
+def serve_shape(spec) -> tuple:
+    """What the serving schedule reads of a spec: the engine shape, the
+    request stream's lengths, the tenants' SLOs, the policies, the seed
+    (not the prompts' token values: no model output changes a step)."""
+    return (dataclasses.replace(spec.serve, vocab=0),
+            tuple((t.priority, t.kv_quota_tokens, t.arrival.requests,
+                   t.arrival.prompt_len, t.arrival.max_new_tokens)
+                  for t in spec.tenants),
+            spec.scheduler, spec.arbiter, spec.seed)
+
+
+def cli_phase(mamba: dict) -> dict:
+    """Phase 20: (a) the scenario CLI over the whole registry; (b)
+    Mamba2-370M served through the CLI on the card; (c) the card's sweep
+    against the port's host ``BatchedSimulator`` (and the event loop);
+    (d) the host simulators' and the card's times."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    # (a) every registered scenario on every backend it supports, at its
+    # published size
+    out = ROOT / "build" / "chip_smoke_scenarios"
+    shutil.rmtree(out, ignore_errors=True)
+    rc, wall = sync_time(lambda: scenario_cli.main(
+        ["--all", "--out-dir", str(out)]))
+    want = [f"{s['name']}.{b}.json" for s in list_scenarios()
+            for b in (["sim"] if s["analytic"] else s["backends"])]
+    files = sorted(p.name for p in out.glob("*.json"))
+    for f in files:
+        RunReport.from_json((out / f).read_text()).validate()
+    log(f"scenario CLI --all (published sizes): rc={rc} "
+        f"{len(files)} reports in {wall:.3f} s (host), every one valid")
+    if rc != 0 or files != sorted(want):
+        raise AssertionError(f"scenario CLI --all: rc {rc}, reports "
+                             f"{files}, want {sorted(want)}")
+
+    # (b) a real model through the CLI: the main path of ssd_scan
+    cfg = get_config("mamba2-370m")
+    ops.reset_launches()
+    rep, wall = sync_time(lambda: scenario_cli.run_one(
+        "serve_mixed_slo", "serve", {}, arch="mamba2-370m"))
+    serve_launches = dict(ops.LAUNCHES)
+    pc = rep.extras["prefill_chunks"]
+    n_ssd = cfg.pattern_for_layers().count(SSD)
+    spec = get_scenario("serve_mixed_slo")
+    requests = sum(t.arrival.requests for t in spec.tenants)
+    done = sum(t.completed for t in rep.tenants.values())
+    lost = sum(t.killed + t.rejected + t.drops for t in rep.tenants.values())
+    log(f"scenario CLI serve_mixed_slo --backend serve --arch mamba2-370m: "
+        f"wall {wall:.3f} s, prefill_chunks={pc} decode_steps="
+        f"{rep.extras['decode_steps']} done={done}/{requests} "
+        f"launches={serve_launches}")
+    log(rep.summary())
+    want_l = dict.fromkeys(serve_launches, 0)
+    want_l["ssd_scan"] = n_ssd * pc
+    if done != requests or lost or serve_launches != want_l:
+        raise AssertionError(f"CLI mamba2 serve: done {done}/{requests}, "
+                             f"lost {lost}, launches {serve_launches}, "
+                             f"want {want_l}")
+    if serve_shape(spec) == serve_shape(mamba["spec"]):
+        if rep.summary() != mamba["summary"]:
+            raise AssertionError("CLI mamba2 serve: per-tenant summary != "
+                                 "phase 17's:\n" + mamba["summary"])
+        log("check: the CLI's per-tenant summary equals phase 17's (same "
+            "engine shape, requests, SLOs and seed; the prompts' vocab "
+            f"differs, {spec.serve.vocab} against {mamba['spec'].serve.vocab},"
+            " which no schedule reads)")
+    else:
+        log("check: phase 17 served another engine shape; the summaries "
+            "are not compared")
+
+    # (c) the card's sweep against the port's own host simulator
+    wl9, rr9 = fig9_specs("wlbvt", 1)[0], fig9_specs("rr", 1)[0]
+    legs = [("fig9 wlbvt", wl9), ("fig9 rr", rr9),
+            ("fig9 fifo_capacity=8", dataclasses.replace(
+                wl9, fifo_capacity=8)),
+            ("fig9 budget kills", dataclasses.replace(wl9, tenants=tuple(
+                dataclasses.replace(t, kernel_cycle_limit=300,
+                                    total_cycle_limit=20000)
+                for t in wl9.tenants)))]
+    mix4 = mix_specs(4)
+    ops.reset_launches()
+    card = {}
+    for name, spec in legs:
+        card[name] = sync_time(lambda: DP.run_device(spec))
+    card_mix = DP.run_sweep_specs(mix4, record_completions=True)
+    sweep_launches = dict(ops.LAUNCHES)
+    host = {name: host_run(spec, "batched") for name, spec in legs}
+    for name, spec in legs:
+        check_card_against_host(name, spec, host[name][0], card[name][0])
+    for i, (spec, d) in enumerate(zip(mix4, card_mix)):
+        check_card_against_host(f"mix replica {i}", spec,
+                                host_run(spec, "batched")[0], d)
+    drops = sum(st.drops for st in host["fig9 fifo_capacity=8"][0]
+                .stats.values())
+    kills = sum(st.killed for st in host["fig9 budget kills"][0]
+                .stats.values())
+    log(f"check: fifo_capacity=8 drops {drops}, budget-kill leg kills "
+        f"{kills}; launches {sweep_launches}")
+    if (not drops or not kills or sweep_launches["sweep_scan"] != len(legs)
+            + 1 or sweep_launches["wlbvt_select"]):
+        raise AssertionError(f"phase 20 sweep: drops {drops}, kills "
+                             f"{kills}, launches {sweep_launches}")
+    event = {"wlbvt": host_run(wl9, "event"), "rr": host_run(rr9, "event")}
+    ev, bt = event["wlbvt"][0], host["fig9 wlbvt"][0]
+    for f in ("completed", "killed", "drops", "kernel_time_count"):
+        a = [getattr(ev.stats[i], f) for i in range(len(wl9.tenants))]
+        b = [getattr(bt.stats[i], f) for i in range(len(wl9.tenants))]
+        if a != b:
+            raise AssertionError(f"fig9 wlbvt: event loop {f} {a} != "
+                                 f"batched {b}")
+    log("check fig9 wlbvt: the event-loop Simulator's per-tenant counts "
+        "equal the BatchedSimulator's")
+
+    # (d) times: host simulators against the card's sweep
+    times = {}
+    for sched, spec in (("wlbvt", wl9), ("rr", rr9)):
+        pkts = len(build_traces(spec, arrays=True))
+        eight = fig9_specs(sched, 8)
+        pkts8 = sum(len(build_traces(s, arrays=True)) for s in eight)
+        _, card8 = sync_time(lambda: DP.run_sweep_specs(eight))
+        row = {"event_s": event[sched][1],
+               "batched_s": host[f"fig9 {sched}"][1],
+               "card_1_s": card[f"fig9 {sched}"][1], "card_8_s": card8}
+        for k in list(row):
+            n, p = (8, pkts8) if k == "card_8_s" else (1, pkts)
+            row[k.replace("_s", "_scen_per_s")] = n / row[k]
+            row[k.replace("_s", "_pkts_per_s")] = p / row[k]
+        times[sched] = row
+        log(f"time fig9 {sched} 300 us ({smi}): packets a replica {pkts}; "
+            "host clock, traces included: "
+            + " ".join(f"{k}={v!r}" for k, v in row.items()))
+    return dict(launches={"ssd_scan": serve_launches["ssd_scan"],
+                          "sweep_scan": sweep_launches["sweep_scan"]},
+                times=times)
 
 
 def main() -> int:
@@ -1933,6 +2163,7 @@ def main() -> int:
         "launch, median of 5; plain_s, old_step_s: host clock around the "
         "whole graph-replayed run of the plain step and of the step with "
         "the wlbvt_select kernel) " + fields(scan_t))
+    cli = cli_phase(mamba)
 
     flash_err = check_flash_attention()
     ft = time_flash_attention(20)
@@ -1968,7 +2199,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/sweep_scan.cu",
         "replaces": "src/repro/kernels/wlbvt_select.py:114 (inlined in "
                     "the scan of src/repro/sim/devicepath.py:285)",
-        "launches": scan_launches, "max_abs_err": scan_err,
+        "launches": scan_launches + cli["launches"]["sweep_scan"],
+        "max_abs_err": scan_err,
         "ms": scan_t["ms"], "plain_ms": scan_t["plain_ms"],
         "bound_ms": scan_t["bound_ms"], "bound_by": scan_t["bound_by"],
         "library_ms": None}, {
@@ -1991,7 +2223,8 @@ def main() -> int:
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:22",
-        "launches": mamba["launches"]["ssd_scan"], "max_abs_err": ssd_err,
+        "launches": mamba["launches"]["ssd_scan"]
+        + cli["launches"]["ssd_scan"], "max_abs_err": ssd_err,
         "ms": ssd_t["ms"], "plain_ms": ssd_t["plain_ms"],
         "bound_ms": ssd_t["bound_ms"], "bound_by": ssd_t["bound_by"],
         "library_ms": None}, {

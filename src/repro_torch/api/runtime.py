@@ -1,18 +1,27 @@
-"""The serving runtime adapter (``ServeRuntime``), the request
-synthesis (``build_requests``) and the packet-trace synthesis
-(``build_traces``) of the OSMOSIS runtime API.
+"""The unified OSMOSIS runtime protocol + backend adapters (DESIGN.md §7).
 
-``ServeRuntime`` drives the multi-tenant serving ``Engine`` through the
-tenant-facing lifecycle: ``create_tenant``/``destroy_tenant`` (ECTX +
-SLOPolicy), ``inject`` (workload), ``run_until`` (clock), ``poll_events``
-(EQ), and ``report()`` — a JSON-portable ``RunReport``.  ``run(spec)``
-drives a whole declarative ``ScenarioSpec`` end to end.  The clock is
-engine steps; work items are ``Request``s.
+One tenant-facing control-plane surface over both execution substrates:
+
+  * ``SimRuntime``   — wraps the cycle-level PsPIN ``Simulator`` (or its
+    batched datapath); the clock is virtual nanoseconds, work items are
+    ``TracePacket``s.
+  * ``ServeRuntime`` — wraps the multi-tenant serving ``Engine``; the
+    clock is engine steps, work items are ``Request``s.
+
+Both expose the same lifecycle: ``create_tenant``/``destroy_tenant``
+(ECTX + SLOPolicy), ``inject`` (workload), ``attach_controller`` (QoS),
+``run_until`` (clock), ``poll_events`` (EQ), and ``report()`` — a
+schema-identical, JSON-portable ``RunReport`` (byte for byte the JAX
+package's on the same spec).  ``run(spec)`` drives a whole declarative
+``ScenarioSpec`` end to end; ``run_scenario`` is the one-call entry point.
+The metrics bus and the trace plane are not ported yet (``attach_bus``
+and ``trace=True`` raise ``NotImplementedError``), nor is the fleet
+plane, so ``run_scenario`` takes single-NIC specs only.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Protocol, Sequence, runtime_checkable
 
 import numpy as np
 
@@ -23,9 +32,59 @@ from repro_torch.core.slo import ECTX, SLOPolicy
 
 MAX_REPORT_EVENTS = 512   # EQ events embedded per report; rest summarized
 
-# the serving time domain, from the report schema's single whitelist
+# per-backend time domains, from the report schema's single whitelist
 # (api/report.py TIME_UNITS) — never restate these as string literals
 NS_UNIT, STEPS_UNIT = TIME_UNITS
+
+
+@runtime_checkable
+class Runtime(Protocol):
+    """The one control-plane surface both backends implement."""
+
+    backend: str                                   # "sim" | "serve"
+    time_unit: str                                 # "ns" | "steps"
+
+    def create_tenant(self, tenant_id: int, slo: SLOPolicy, *,
+                      name: str = "", workload=None) -> ECTX: ...
+    def destroy_tenant(self, tenant_id: int) -> List[Event]: ...
+    def inject(self, work: Sequence) -> None: ...
+    def attach_controller(self, controller) -> None: ...
+    def run_until(self, t: Optional[float] = None) -> float: ...
+    def now(self) -> float: ...
+    def poll_events(self, tenant_id: int) -> List[Event]: ...
+    def report(self, spec: Optional[ScenarioSpec] = None) -> RunReport: ...
+
+
+def _build_audit(spec: ScenarioSpec, backend: str, num_tenants: int,
+                 time_unit: str):
+    """Materialize the spec's ``SLOAudit`` (or None).
+
+    ``spec.audit is None`` means auto: attach exactly when a QoS
+    controller with at least one live p99 target is configured — the
+    audit then watches the same targets the controller acts on, so
+    every closed-loop run gets alert -> intervention attribution for
+    free.  An explicit ``AuditSpec`` works without a controller too
+    (targets fall back to the raw ``TenantSpec.p99_target`` values)."""
+    a = spec.audit
+    if a is not None and not a.enabled:
+        return None
+    if spec.controller is not None:
+        targets = spec.controller.p99_targets(spec.tenants, backend,
+                                              num_tenants)
+    else:
+        targets = [0.0] * num_tenants
+        for i, t in enumerate(spec.tenants):
+            targets[i] = t.p99_target
+    if not any(targets):
+        return None
+    if a is None and spec.controller is None:
+        return None
+    from repro_torch.telemetry.slo_audit import SLOAudit, SLOAuditConfig
+    cfg = SLOAuditConfig() if a is None else SLOAuditConfig(
+        objective=a.objective, fast_windows=a.fast_windows,
+        slow_windows=a.slow_windows, fast_burn=a.fast_burn,
+        slow_burn=a.slow_burn)
+    return SLOAudit(targets, config=cfg, time_unit=time_unit)
 
 
 def _events_block(events: List[Event], extras: dict) -> List[dict]:
@@ -36,12 +95,218 @@ def _events_block(events: List[Event], extras: dict) -> List[dict]:
          "detail": e.detail} for e in events[:MAX_REPORT_EVENTS]])
 
 
+# ---------------------------------------------------------------------------
+# simulator adapter
+# ---------------------------------------------------------------------------
+class SimRuntime:
+    """Runtime adapter over the cycle-level PsPIN simulator.
+
+    The underlying ``Simulator`` binds its tenant set at construction,
+    so the adapter stages ``create_tenant`` calls and builds the
+    simulator lazily on first ``inject``/``run_until`` (the "seal").
+    ``destroy_tenant`` is not supported on this backend — a sim tenant
+    lives for the whole scenario.
+    """
+
+    backend = "sim"
+    time_unit = NS_UNIT
+
+    def __init__(self, *, scheduler: str = "wlbvt", frag=None,
+                 arb: str = "dwrr", fifo_capacity: int = 4096,
+                 io_demand_weights=None, record_timeline: bool = False,
+                 control_interval_ns: float = 8000.0,
+                 datapath: str = "event", trace: bool = False):
+        self._kw = dict(scheduler=scheduler, frag=frag, arb=arb,
+                        fifo_capacity=fifo_capacity,
+                        io_demand_weights=io_demand_weights,
+                        record_timeline=record_timeline,
+                        control_interval_ns=control_interval_ns,
+                        trace=trace)
+        self._datapath = datapath
+        self._tenants: List[ECTX] = []
+        self._controller = None
+        self._audit = None
+        self._sim = None
+        self._events: List[Event] = []
+        self._pending: List = []      # injected, not yet run packets
+        self.result = None            # last SimResult (deprecated surface)
+
+    @classmethod
+    def from_spec(cls, spec: ScenarioSpec, **overrides) -> "SimRuntime":
+        weights = None
+        if spec.io_demand_weights == "demand":
+            weights = _io_demand(spec)
+        kw = dict(scheduler=spec.scheduler, frag=spec.frag(),
+                  arb=spec.arbiter, fifo_capacity=spec.fifo_capacity,
+                  io_demand_weights=weights,
+                  record_timeline=spec.record_timeline,
+                  control_interval_ns=(spec.controller.interval_ns
+                                       if spec.controller else 8000.0),
+                  datapath=spec.datapath or "event")
+        kw.update(overrides)
+        return cls(**kw)
+
+    # -- lifecycle ----------------------------------------------------------
+    def create_tenant(self, tenant_id: int, slo: SLOPolicy, *,
+                      name: str = "", workload=None) -> ECTX:
+        if self._sim is not None:
+            raise RuntimeError("sim backend binds tenants at seal time; "
+                               "create_tenant before the first inject/run")
+        if tenant_id != len(self._tenants):
+            raise ValueError(f"sim tenant ids are dense: expected "
+                             f"{len(self._tenants)}, got {tenant_id}")
+        e = ECTX(tenant_id=tenant_id, name=name or f"tenant{tenant_id}",
+                 slo=slo, kernel=workload)
+        self._tenants.append(e)
+        return e
+
+    def destroy_tenant(self, tenant_id: int) -> List[Event]:
+        raise NotImplementedError(
+            "the cycle simulator has no mid-run tenant teardown; "
+            "use the serve backend for lifecycle churn")
+
+    def attach_controller(self, controller) -> None:
+        if self._sim is not None:
+            raise RuntimeError("attach_controller before the first run")
+        self._controller = controller
+
+    def attach_bus(self, bus) -> None:
+        raise NotImplementedError(
+            "the metrics bus (telemetry/bus.py) is not ported yet")
+
+    def attach_slo_audit(self, audit) -> None:
+        """Attach an ``SLOAudit``: burn-rate alerts land in the EQ
+        stream and ``report().extras['slo_audit']``."""
+        self._audit = audit
+        if self._sim is not None:
+            self._sim.attach_slo_audit(audit)
+
+    def _seal(self):
+        if self._sim is None:
+            from repro_torch.sim.fastpath import build_simulator
+            if not self._tenants:
+                raise RuntimeError("no tenants created")
+            self._sim = build_simulator(
+                self._tenants, datapath=self._datapath,
+                controller=self._controller, **self._kw)
+            if self._audit is not None:
+                self._sim.attach_slo_audit(self._audit)
+        return self._sim
+
+    # -- clock + work -------------------------------------------------------
+    def inject(self, work: Sequence) -> None:
+        """Queue work: a ``TracePacket`` sequence, or a ``TraceArrays``
+        column bundle (the SoA twin — cheap at million-packet scale)."""
+        self._seal()                  # tenant set is bound from here on
+        from repro_torch.sim.traffic import TraceArrays
+        if isinstance(work, TraceArrays):
+            self._pending.append(work)
+        else:
+            self._pending.extend(work)
+
+    def run_until(self, t: Optional[float] = None) -> float:
+        from repro_torch.sim.traffic import (TraceArrays, TracePacket,
+                                       merge_trace_arrays)
+        sim = self._seal()
+        pending, self._pending = self._pending, []
+        if any(isinstance(p, TraceArrays) for p in pending):
+            # normalize mixed injections: lift loose packets into one
+            # column bundle, then merge chronologically
+            packets = [p for p in pending if isinstance(p, TracePacket)]
+            bundles = [p for p in pending if isinstance(p, TraceArrays)]
+            if packets:
+                bundles.append(TraceArrays.from_packets(packets))
+            pending = merge_trace_arrays(*bundles)
+            if self._datapath == "event":    # event loop wants packets
+                pending = pending.to_packets()
+        self.result = sim.run(pending, horizon=t)
+        self._events.extend(self.result.events)
+        return sim.now
+
+    def now(self) -> float:
+        return self._seal().now
+
+    def poll_events(self, tenant_id: int) -> List[Event]:
+        out = [e for e in self._events if e.tenant == tenant_id]
+        self._events = [e for e in self._events if e.tenant != tenant_id]
+        return out
+
+    # -- scenario runner ----------------------------------------------------
+    def run(self, spec: ScenarioSpec) -> RunReport:
+        for i, t in enumerate(spec.tenants):
+            self.create_tenant(i, t.slo(), name=t.name,
+                               workload=t.workload.build())
+        if spec.controller is not None and self._controller is None:
+            from repro_torch.telemetry import QoSController
+            T = len(spec.tenants)
+            self.attach_controller(QoSController(
+                base_weights=np.ones(T),
+                p99_targets=spec.controller.p99_targets(
+                    spec.tenants, "sim", T)))
+        if self._audit is None:
+            audit = _build_audit(spec, "sim", len(spec.tenants), NS_UNIT)
+            if audit is not None:
+                self.attach_slo_audit(audit)
+        self.inject(build_traces(spec, arrays=spec.datapath == "batched"))
+        # horizon_us > 0: fixed measurement window (queued work is cut
+        # off); default drains every queued event
+        self.run_until(spec.horizon_us * 1e3 if spec.horizon_us else None)
+        return self.report(spec)
+
+    # -- report -------------------------------------------------------------
+    def report(self, spec: Optional[ScenarioSpec] = None) -> RunReport:
+        if self.result is None:
+            self.run_until(None)
+        res = self.result
+        from repro_torch.telemetry import tenant_report
+        from repro_torch.telemetry.metrics import C_IDX
+        snap = res.telemetry.snapshot()
+        tenants: Dict[int, TenantReport] = {}
+        for i, e in enumerate(self._tenants):
+            st = res.stats[i]
+            counts = snap["counts"][i]
+            tenants[i] = TenantReport(
+                tenant_id=i, name=e.name,
+                arrivals=int(counts[C_IDX["arrivals"]]),
+                completed=int(st.completed), killed=int(st.killed),
+                drops=int(st.drops),
+                rejected=int(counts[C_IDX["rejected"]]),
+                ecn_marks=int(counts[C_IDX["ecn_marks"]]),
+                bytes_in=float(counts[C_IDX["bytes_in"]]),
+                bytes_out=float(counts[C_IDX["bytes_out"]]),
+                throughput=float(res.throughput_gbps(i)),
+                p50_latency=float(res.p50(i)),
+                p99_latency=float(res.p99(i)),
+                latency_samples=len(st.kernel_times),
+                extra=_jsonify({
+                    "fct": float(st.fct),
+                    "io_bytes_done": float(st.io_bytes_done),
+                    "served_payload_bytes": float(st.served_payload_bytes),
+                }))
+        extras: dict = {}
+        if self._audit is not None:
+            extras["slo_audit"] = self._audit.summary()
+        events = _events_block(self._events, extras)
+        names = {i: e.name for i, e in enumerate(self._tenants)}
+        return RunReport(
+            scenario=spec.name if spec else "",
+            backend="sim", time_unit=NS_UNIT, duration=float(res.time),
+            scheduler=self._kw["scheduler"], arbiter=self._kw["arb"],
+            seed=int(spec.seed) if spec else 0,
+            jain_pu=float(res.jain_pu_timeavg),
+            jain_io=float(res.jain_io_timeavg),
+            tenants=tenants, events=events,
+            telemetry=_jsonify(tenant_report(res.telemetry, names=names)),
+            spec=_jsonify(spec.to_dict()) if spec else None,
+            extras=_jsonify(extras))
+
+
 def build_traces(spec: ScenarioSpec, *, arrays: bool = False):
     """Materialize the per-tenant packet traces a spec describes.
 
     ``arrays=True`` returns the ``TraceArrays`` column bundle instead of
     ``TracePacket`` objects — identical packet sequence, no per-packet
-    Python objects (the sweep datapath consumes it directly)."""
+    Python objects (the batched and sweep datapaths consume it directly)."""
     from repro_torch.sim.traffic import make_trace_arrays, merge_trace_arrays
     traces = []
     for i, t in enumerate(spec.tenants):
@@ -53,6 +318,23 @@ def build_traces(spec: ScenarioSpec, *, arrays: bool = False):
     return merged if arrays else merged.to_packets()
 
 
+def _io_demand(spec: ScenarioSpec) -> List[float]:
+    """Per-tenant IO byte demand (bytes/ns) — the denominator weights of
+    windowed IO fairness under heterogeneous DMA amplification."""
+    from repro_torch.configs.osmosis_pspin import PSPIN
+    link_bns = PSPIN.ingress_gbps / 8.0
+    out = []
+    for t in spec.tenants:
+        wl = t.workload.build()
+        payload = max(1, t.arrival.size - PSPIN.header_bytes)
+        out.append(t.arrival.share * link_bns * wl.io_bytes(payload)
+                   / t.arrival.size)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# serving adapter
+# ---------------------------------------------------------------------------
 class ServeRuntime:
     """Runtime adapter over the multi-tenant serving engine."""
 
@@ -137,10 +419,6 @@ class ServeRuntime:
 
     # -- scenario runner ----------------------------------------------------
     def run(self, spec: ScenarioSpec) -> RunReport:
-        if spec.controller is not None:
-            self.attach_controller(spec.controller)    # not ported: raises
-        if spec.audit is not None and spec.audit.enabled:
-            self.attach_slo_audit(spec.audit)          # not ported: raises
         quota_default = spec.serve.max_len * max(
             1, spec.serve.max_slots // max(len(spec.tenants), 1))
         for i, t in enumerate(spec.tenants):
@@ -148,6 +426,18 @@ class ServeRuntime:
             if slo.kv_quota_tokens == 0:
                 slo = dataclasses.replace(slo, kv_quota_tokens=quota_default)
             self.create_tenant(i, slo, name=t.name)
+        if spec.controller is not None:
+            from repro_torch.telemetry import QoSController
+            T = self.ecfg.max_tenants
+            self.attach_controller(QoSController(
+                base_weights=np.ones(T),
+                p99_targets=spec.controller.p99_targets(
+                    spec.tenants, "serve", T)))
+        if self.engine.slo_audit is None:
+            audit = _build_audit(spec, "serve", self.ecfg.max_tenants,
+                                 STEPS_UNIT)
+            if audit is not None:
+                self.attach_slo_audit(audit)
         self.inject(build_requests(spec))
         if spec.serve.steps > 0:
             self.run_until(spec.serve.steps)
@@ -167,8 +457,8 @@ class ServeRuntime:
             from repro_torch.telemetry.metrics import C_IDX, hist_quantile
             p50 = hist_quantile(snap["hist"], 0.50, np)
             p99 = hist_quantile(snap["hist"], 0.99, np)
-        # non-destructive: poll_events still delivers these to the tenant
-        # afterwards
+        # non-destructive (matching SimRuntime.report): poll_events still
+        # delivers these to the tenant afterwards
         pending = list(self._events)
         for t in sorted(eng.eq):
             pending.extend(eng.eq[t].snapshot())
@@ -204,6 +494,8 @@ class ServeRuntime:
                 **row)
         extras = {"decode_steps": m["decode_steps"],
                   "prefill_chunks": m["prefill_chunks"]}
+        if eng.slo_audit is not None:
+            extras["slo_audit"] = eng.slo_audit.summary()
         events = _events_block(pending, extras)
         return RunReport(
             scenario=spec.name if spec else "",
@@ -236,3 +528,46 @@ def build_requests(spec: ScenarioSpec):
                 i, rng.randint(1, vocab, size=a.prompt_len).astype(np.int32),
                 max_new_tokens=a.max_new_tokens))
     return out
+
+
+# ---------------------------------------------------------------------------
+# one-call entry point
+# ---------------------------------------------------------------------------
+def make_runtime(spec: ScenarioSpec, backend: str, *, executor=None,
+                 **overrides) -> Runtime:
+    if backend == "sim":
+        return SimRuntime.from_spec(spec, **overrides)
+    if backend == "serve":
+        return ServeRuntime.from_spec(spec, executor=executor, **overrides)
+    raise ValueError(f"unknown backend {backend!r} (want 'sim' or 'serve')")
+
+
+def run_scenario(spec: ScenarioSpec, backend: str = "sim", *,
+                 executor=None, validate: bool = True) -> RunReport:
+    """Run a declarative scenario on either backend -> ``RunReport``."""
+    if spec.analytic:
+        return _run_analytic(spec)
+    rt = make_runtime(spec, backend, executor=executor)
+    rep = rt.run(spec)
+    return rep.validate() if validate else rep
+
+
+def _run_analytic(spec: ScenarioSpec) -> RunReport:
+    """Closed-form scenarios (no event loop): currently ``ppb`` — the
+    paper's Fig. 3 service-time-vs-budget classification."""
+    if spec.analytic != "ppb":
+        raise ValueError(f"unknown analytic scenario {spec.analytic!r}")
+    from repro_torch.sim.scenarios import service_time_vs_ppb
+    sizes = [64, 128, 256, 512, 1024, 2048, 4096]
+    table = service_time_vs_ppb(sizes)
+    rows = [[w, int(p), float(svc), float(budget), int(svc <= budget)]
+            for w, lst in table.items() for (p, svc, budget) in lst]
+    return RunReport(
+        scenario=spec.name, backend="sim", time_unit=NS_UNIT, duration=0.0,
+        scheduler=spec.scheduler, arbiter=spec.arbiter, seed=spec.seed,
+        jain_pu=1.0, jain_io=1.0, tenants={}, events=[],
+        telemetry=None, spec=_jsonify(spec.to_dict()),
+        extras=_jsonify({"analytic": "ppb",
+                         "columns": ["workload", "pkt_bytes", "service_ns",
+                                     "ppb_ns", "fits"],
+                         "table": rows})).validate()

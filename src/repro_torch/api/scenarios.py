@@ -9,7 +9,9 @@ The sweep datapath runs the simulator scenarios that fit its contract
         --axis scheduler='"wlbvt","rr"' --seeds 8 --device cpu
 
 Every other spec given to it raises ``DevicePathError`` with the reason.
-The fleet scenarios wait for the fleet plane's port.
+Every scenario runs on the host simulators and the serving engine
+through ``launch/scenario.py`` (``run_scenario``).  The fleet plane's
+multi-NIC scenarios wait for that plane's port.
 """
 from __future__ import annotations
 
@@ -203,6 +205,59 @@ def qos_closed_loop(controller: bool = True, *,
         duration_us=duration_us, seed=seed,
         serve=ServeSpec(max_slots=8, max_len=512, prefill_chunk=32,
                         kv_overcommit=2.0))
+
+
+@register_scenario("fleet_sweep")
+def fleet_sweep(*, tenants: int = 128, duration_us: float = 10240.0,
+                pkt_size: int = 512, fifo_capacity: int = 256,
+                congestor_every: int = 4, watchdog_cycles: int = 20000,
+                seed: int = 0) -> ScenarioSpec:
+    """Tenant-*count* scale sweep on ONE simulated NIC (DESIGN.md §8):
+    ``tenants`` flows share a single fully-utilized 400G link against
+    32 PUs — a deliberately overloaded consolidation point
+    (SuperNIC/Meili-style) where drops, ECN marks and watchdog kills
+    all fire at volume.  Despite the name this is NOT the multi-NIC
+    fabric family: no switch is modeled and nothing crosses a
+    crossbar.  N NICs exchanging traffic through a modeled VOQ/crossbar
+    switch are the fleet plane's scenarios (DESIGN.md §12), which this
+    package does not have yet.
+
+    Four service classes cycle across the fleet: light RPC handlers,
+    histogram analytics, heavy ML preprocessing, and watchdog-bounded
+    batch congestors (every ``congestor_every``-th tenant).  At the
+    128-tenant default the trace is ~10^6 packets — built as
+    ``TraceArrays`` and meant for the batched datapath (the event loop
+    makes identical decisions, ~10x slower).  ``horizon_us`` pins the
+    measurement window, fig9-style, instead of draining the backlog.
+    """
+    classes = (
+        ("rpc", _spin("rpc", 3.0)),
+        ("analytics", _spin("analytics", 5.0)),
+        ("mlprep", _spin("mlprep", 9.0)),
+        ("batch", WorkloadSpec(name="batch", compute_base=40.0,
+                               compute_per_byte=4.0, spin_factor=4.0)),
+    )
+    rows = []
+    for i in range(tenants):
+        if congestor_every and i % congestor_every == congestor_every - 1:
+            cname, wl = classes[3]
+            limit = watchdog_cycles
+        else:
+            cname, wl = classes[i % 3]
+            limit = 0
+        rows.append(TenantSpec(
+            f"{cname}{i}", workload=wl,
+            kernel_cycle_limit=limit,
+            arrival=ArrivalSpec(size=pkt_size, share=1.0 / tenants,
+                                seed_offset=i)))
+    return ScenarioSpec(
+        name="fleet_sweep",
+        description=f"{tenants}-tenant fleet flood on 32 PUs: mixed "
+                    "service classes, watchdogged congestors, batched "
+                    "datapath (DESIGN.md §8)",
+        tenants=tuple(rows),
+        duration_us=duration_us, horizon_us=duration_us,
+        fifo_capacity=fifo_capacity, datapath="batched", seed=seed)
 
 
 @register_scenario("ppb_service_time")

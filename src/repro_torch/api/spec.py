@@ -3,12 +3,14 @@ unified OSMOSIS runtime API (DESIGN.md §7).
 
 A ``ScenarioSpec`` is pure data: who the tenants are (SLO knobs, cost
 model, arrival process), which mechanisms are enabled (scheduler,
-arbiter, fragmentation, QoS controller), and how long to run.  The
-serving engine materializes a request stream from each tenant's serving
-projection fields (``ServeRuntime`` in ``api/runtime.py``); the sweep
-datapath (``sim/devicepath.py``) materializes a packet trace from each
-tenant's ``ArrivalSpec`` (``build_traces``) and a cost model from its
-``WorkloadSpec``.  A spec serializes exactly as the JAX package's does.
+arbiter, fragmentation, QoS controller), and how long to run.  The same
+spec drives every execution surface: the simulators (``SimRuntime`` in
+``api/runtime.py``, and the sweep datapath ``sim/devicepath.py``)
+materialize a packet trace from each tenant's ``ArrivalSpec``
+(``build_traces``) and a cost model from its ``WorkloadSpec``; the
+serving engine (``ServeRuntime``) materializes a request stream from its
+serving projection fields.  A spec serializes exactly as the JAX
+package's does.
 
 Specs are frozen dataclasses of plain scalars/tuples, so they are
 hashable, JSON round-trippable (``to_dict``/``from_dict``) and cheap to
@@ -19,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
+from repro_torch.core.fragmentation import FragmentationPolicy
 from repro_torch.core.slo import SLOPolicy
 
 
@@ -167,6 +170,12 @@ class ScenarioSpec:
 
     def replace(self, **kw) -> "ScenarioSpec":
         return dataclasses.replace(self, **kw)
+
+    def frag(self) -> FragmentationPolicy:
+        if self.frag_mode == "off":
+            return FragmentationPolicy(mode="off")
+        return FragmentationPolicy(mode=self.frag_mode,
+                                   fragment_bytes=self.frag_bytes)
 
     # -- serde --------------------------------------------------------------
     def to_dict(self) -> Dict:

@@ -1,21 +1,27 @@
-"""Shared engine-core layer: the tenant/budget/EQ/telemetry plumbing the
-serving engine runs on.
+"""Shared engine-core layer: one tenant/budget/EQ/telemetry plumbing
+stack for every execution engine — the cycle simulator
+(``sim/engine.py``), its batched datapath (``sim/fastpath.py``) and the
+serving engine (``serving/engine.py``).
 
-  * ``BudgetLedger``    — per-tenant lifetime spend (tokens on the
-    serving engine) plus the watchdog clamp semantics of §5.2/§5.3: a
-    kernel is truncated at its per-kernel cycle budget, and at the
-    tenant's remaining *total* allowance (the permanent form of the same
-    mechanism).
-  * ``EQHub``           — per-ECTX event-queue delivery: one shared
-    chronological queue, or one ``EventQueue`` per tenant (the serving
+  * ``BudgetLedger``    — per-tenant lifetime spend (PU cycles on the
+    simulator, tokens on the serving engine) plus the watchdog clamp
+    semantics of §5.2/§5.3: a kernel is truncated at its per-kernel
+    cycle budget, and at the tenant's remaining *total* allowance (the
+    permanent form of the same mechanism).
+  * ``EQHub``           — per-ECTX event-queue delivery in both layouts
+    the engines use: one shared chronological queue (the simulator's
+    ``SimResult.events``) or one ``EventQueue`` per tenant (the serving
     engine's ``poll_events`` surface, with retire-on-destroy).
   * ``EngineBase``      — ECTX registry (dense tenant table + installed
-    mask), the telemetry plane (staging wrapper + window commits) and the
-    admission gate.
+    mask), the telemetry plane (staging wrapper + window commits), the
+    admission gate, the QoS controller tick (signal read → AIMD update →
+    weight actuation → admit mask) and the SLO burn-rate audit.
 
-The QoS controller, the metrics bus, the SLO audit and the trace
-recorder are not part of this package yet: attaching one raises
-``NotImplementedError``.
+Backends remain free in *when* they invoke these mechanisms (the
+simulator at virtual-time window boundaries, the serving engine once per
+step); the mechanisms themselves exist once.  The metrics bus and the
+trace recorder are not part of this package yet: ``attach_bus`` and
+``trace=True`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -136,10 +142,12 @@ class EngineBase:
     """Backend-agnostic tenant machinery shared by every engine.
 
     Owns the ECTX registry (dense table + installed mask), the budget
-    ledger, the EQ hub, the telemetry plane and the admission gate.
-    Subclasses (``serving.engine.Engine``) keep only their execution
-    semantics: *when* these mechanisms fire and what the data plane in
-    between looks like.
+    ledger, the EQ hub, the telemetry plane, the admission gate, the QoS
+    controller tick and the SLO audit.  Subclasses
+    (``sim.engine.Simulator``, ``sim.fastpath.BatchedSimulator``,
+    ``serving.engine.Engine``) keep only their execution semantics:
+    *when* these mechanisms fire and what the data plane in between
+    looks like.
     """
 
     def __init__(self, max_tenants: int, *, shared_eq: bool,
@@ -148,7 +156,8 @@ class EngineBase:
         from repro_torch.telemetry import Telemetry
         if trace:
             raise NotImplementedError(
-                "the trace plane (flight recorder) is not ported yet")
+                "the trace plane (flight recorder, telemetry/trace.py) is "
+                "not ported yet")
         T = max_tenants
         self.max_tenants = T
         self.ectxs: Dict[int, ECTX] = {}
@@ -159,9 +168,15 @@ class EngineBase:
                     if telemetry else None)
         self.trace = None
         self.controller = None
+        self._ctrl_baseline = None
+        self._admit = np.ones(T, bool)       # controller backpressure gate
+        # SLO burn-rate audit attached via attach_slo_audit; observe_tick
+        # feeds it one frame per backend observation interval against its
+        # own baseline (the controller's interval differencing is
+        # untouched)
         self.bus = None
         self.slo_audit = None
-        self._admit = np.ones(T, bool)       # controller backpressure gate
+        self._obs_baseline = None
 
     # -- ECTX registry -------------------------------------------------------
     def register_tenant(self, e: ECTX, *, fmq_index: Optional[int] = None,
@@ -180,15 +195,23 @@ class EngineBase:
 
     def deregister_tenant(self, tenant: int) -> Optional[EventQueue]:
         """Uninstall one ECTX: registry row, installed bit, admission
-        gate, budget and telemetry (a reused tenant id must not inherit
-        any of them).  Returns the retired EventQueue (per-tenant layout)
-        so the caller can flush final events."""
+        gate, budget, telemetry + controller history (a reused tenant id
+        must not inherit any of them).  Returns the retired EventQueue
+        (per-tenant layout) so the caller can flush final events."""
         self.ectxs.pop(tenant, None)
         self._installed[tenant] = False
         self._admit[tenant] = True
         self.budget.reset(tenant)
+        if self.controller is not None:
+            self.controller.reset_tenant(tenant, base_weight=1.0)
         if self.tel is not None:
             self.tel.reset_tenant(tenant)
+            if self._ctrl_baseline is not None:
+                self._ctrl_baseline["counts"][tenant] = 0
+                self._ctrl_baseline["hist"][tenant] = 0
+            if self._obs_baseline is not None:
+                self._obs_baseline["counts"][tenant] = 0
+                self._obs_baseline["hist"][tenant] = 0
         return self.eqhub.retire(tenant)
 
     @property
@@ -199,15 +222,66 @@ class EngineBase:
         """Controller backpressure gate (False = source-throttled)."""
         return bool(self._admit[tenant])
 
-    # -- observability hooks (not ported yet) --------------------------------
+    # -- QoS control loop ----------------------------------------------------
+    def qos_tick(self, *, prio, total_occup, bvt, kv_pressure,
+                 knobs, installed: Optional[np.ndarray] = None,
+                 t: float = 0.0) -> None:
+        """One closed-loop controller interval (DESIGN.md §6): read the
+        committed telemetry into a ``SignalFrame``, run the AIMD update,
+        actuate the scheduler-weight ``knobs`` (``(live, base)`` pairs),
+        and refresh the admission gate.  Call only when a controller is
+        attached and the backend's interval elapsed.  ``t`` is the
+        interval end in the backend's time unit; an attached SLO audit
+        uses it to attribute alerts to the interventions this tick
+        applies."""
+        from repro_torch.telemetry import apply_to_scheduler, compute_signals
+        snap = self.tel.snapshot()
+        sig = compute_signals(
+            self.tel, prio=prio, total_occup=total_occup, bvt=bvt,
+            kv_pressure=kv_pressure, baseline=self._ctrl_baseline,
+            snap=snap)
+        self._ctrl_baseline = snap
+        act = self.controller.update(sig)
+        if self.slo_audit is not None:
+            self.slo_audit.note_intervention(t, act, installed)
+        apply_to_scheduler(act, *knobs, installed=installed)
+        self._admit = act.admit
+
+    # -- streaming observability (DESIGN.md §11) -----------------------------
     def attach_bus(self, bus) -> None:
-        raise NotImplementedError("the metrics bus is not ported yet")
+        raise NotImplementedError(
+            "the metrics bus (telemetry/bus.py) is not ported yet")
 
     def attach_slo_audit(self, audit) -> None:
-        raise NotImplementedError("the SLO burn-rate audit is not ported yet")
+        """Attach a ``telemetry.slo_audit.SLOAudit``; ``observe_tick``
+        feeds it and pushes its alerts as ``SLO_ALERT`` EQ events."""
+        self.slo_audit = audit
 
     def observe_tick(self, *, t: float, prio, total_occup, bvt,
                      kv_pressure) -> None:
-        """One observation interval.  With no metrics bus and no SLO audit
-        attached (the only state this package has) it does nothing."""
-        return None
+        """One observation interval: difference the committed telemetry
+        against the observer baseline and run the SLO audit (alerts land
+        in the EQ stream).  No-op (one attribute check) with nothing
+        attached; reads only committed host state.  Backends call this
+        *before* any same-boundary ``qos_tick`` so an alert raised at
+        the boundary precedes the controller's intervention."""
+        if self.slo_audit is None:
+            return
+        from repro_torch.telemetry import compute_signals
+        snap = self.tel.snapshot()
+        sig = compute_signals(
+            self.tel, prio=prio, total_occup=total_occup, bvt=bvt,
+            kv_pressure=kv_pressure, baseline=self._obs_baseline,
+            snap=snap)
+        counts = snap["counts"]
+        interval_counts = (counts - self._obs_baseline["counts"]
+                           if self._obs_baseline is not None
+                           else counts.copy())
+        self._obs_baseline = snap
+        alerts = self.slo_audit.observe(
+            t=t, sig=sig, interval_counts=interval_counts)
+        for a in alerts:
+            self.eqhub.push(Event(
+                a.tenant, EventKind.SLO_ALERT, t,
+                detail=f"{a.window} burn={a.burn_rate:.3g} "
+                       f"p99={a.p99:.6g} target={a.target:.6g}"))

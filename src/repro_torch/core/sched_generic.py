@@ -5,10 +5,12 @@ function here is written once against an array namespace ``xp``, is
 purely functional (returns new arrays, never mutates), and is
 branch-free in array values.  The serving engine calls it on fp64 numpy
 arrays through the stateful wrappers in ``core/wlbvt.py``
-(``WLBVTState``/``DWRRState``); the sweep datapath calls the lane
-functions (``tput``, ``pu_limit_lanes``, ``select_lanes``,
-``select_rr``) on ``[R, T]`` torch tensors through ``torch_namespace``,
-so each formula exists once.
+(``WLBVTState``/``DWRRState``); the tensor twins in the same module
+(``select_torch``, ``dwrr_select_torch``, ...) call the scalar functions
+on torch tensors, and the sweep datapath calls the lane functions
+(``tput``, ``pu_limit_lanes``, ``select_lanes``, ``select_rr``) on
+``[R, T]`` torch tensors, both through ``torch_namespace``, so each
+formula exists once.
 
 The only Python-level branches are on *static* configuration (``cap is
 None``/``mask is None``).
@@ -257,6 +259,16 @@ class _TorchNamespace:
         elif not isinstance(b, torch.Tensor):
             b = self._const(b, a.dtype)
         return torch.where(cond, a, b)
+
+    @staticmethod
+    def minimum(a, b):
+        if isinstance(b, torch.Tensor):
+            return torch.minimum(a, b)
+        return torch.clamp(a, max=b)
+
+    @staticmethod
+    def min(x):
+        return x.min()
 
     @staticmethod
     def ceil(x):

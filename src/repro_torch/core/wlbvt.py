@@ -3,8 +3,11 @@
 The stateful numpy surface of the backend-generic core
 (``core/sched_generic.py``): ``WLBVTState``/``DWRRState`` +
 ``select``/``select_k``/``advance``/``pu_limit``/``dwrr_select``, as the
-serving engine's host control plane calls them (event-driven, so
-per-cycle ``update_tput`` is folded into ``advance(dt)``).
+simulators' and the serving engine's host control planes call them
+(event-driven, so per-cycle ``update_tput`` is folded into
+``advance(dt)``).  The ``*_torch`` functions are the same formulas on
+float32/int32 tensors of one device (the JAX package's ``*_jnp``
+surface): functional, a dict of tensors for the state.
 
 ``select_k(st, num_pus, k)`` is the batch API: the k winners of one
 scheduling round in a single call.
@@ -21,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core import sched_generic as G
 from repro_torch.core.sched_generic import BIG, CEIL_EPS, GRANT_EPS  # noqa: F401
@@ -124,6 +128,69 @@ def select_rr(rr_ptr: int, queue_len: np.ndarray, mask=None) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# tensor surface (float32/int32 state on the caller's device)
+# ---------------------------------------------------------------------------
+def init_state_torch(priorities, device="cuda") -> dict:
+    p = torch.as_tensor(priorities, dtype=torch.float32, device=device)
+    T = p.shape[0]
+    return {
+        "prio": p,
+        "total_occup": torch.zeros(T, dtype=torch.float32, device=device),
+        "bvt": torch.zeros(T, dtype=torch.float32, device=device),
+        "cur_occup": torch.zeros(T, dtype=torch.int32, device=device),
+        "queue_len": torch.zeros(T, dtype=torch.int32, device=device),
+    }
+
+
+def _xp(st: dict):
+    return G.torch_namespace(st["prio"].device)
+
+
+def advance_torch(st: dict, dt) -> dict:
+    xp = _xp(st)
+    total_occup, bvt = G.advance(
+        st["queue_len"], st["cur_occup"], st["total_occup"], st["bvt"],
+        torch.as_tensor(dt, dtype=torch.float32, device=xp.device), xp)
+    return dict(st, total_occup=total_occup, bvt=bvt)
+
+
+def pu_limit_torch(st: dict, num_pus: int) -> torch.Tensor:
+    return G.pu_limit(st["prio"], st["queue_len"], num_pus,
+                      _xp(st)).to(torch.int32)
+
+
+def select_torch(st: dict, num_pus: int) -> torch.Tensor:
+    """Returns idx (int32, -1 if none eligible)."""
+    return G.select(st["prio"], st["queue_len"], st["cur_occup"],
+                    st["total_occup"], st["bvt"], num_pus,
+                    _xp(st)).to(torch.int32)
+
+
+def select_k_torch(st: dict, num_pus: int, k: int, cap=None):
+    """The k winners of one round: ``select_round``'s transition k times
+    (the winner's queue drained by one and its occupancy charged).
+
+    Returns ``(picks, new_state)`` — picks is a (k,) int32 tensor,
+    -1-padded; the new state carries the drained queue lengths and
+    charged occupancies.
+    """
+    xp = _xp(st)
+    ql, co = st["queue_len"], st["cur_occup"]
+    if cap is not None:
+        cap = torch.as_tensor(cap, device=xp.device)
+    picks = []
+    for _ in range(k):
+        idx = G.select(st["prio"], ql, co, st["total_occup"], st["bvt"],
+                       num_pus, xp, cap=cap)
+        hot = xp.arange(ql.shape[0]) == idx      # idx -1 matches nothing
+        ql = ql - hot.to(ql.dtype)
+        co = co + hot.to(co.dtype)
+        picks.append(idx)
+    return (torch.stack(picks).to(torch.int32),
+            dict(st, queue_len=ql, cur_occup=co))
+
+
+# ---------------------------------------------------------------------------
 # Deficit Weighted Round Robin (IO arbitration — paper §5.1 step 5, §6.2)
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass
@@ -171,3 +238,22 @@ def dwrr_select_k(st: DWRRState, head_size: np.ndarray, counts: np.ndarray,
         counts[i] -= 1
         picks[j] = i
     return picks
+
+
+def dwrr_state_torch(weights, device="cuda") -> dict:
+    w = torch.as_tensor(weights, dtype=torch.float32, device=device)
+    return {"weights": w, "deficit": torch.zeros_like(w),
+            "ptr": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def dwrr_select_torch(st: dict, head_size, pending, quantum):
+    """One DWRR grant on tensors.  Returns ``(idx, new_state)``."""
+    dev = st["weights"].device
+    idx, deficit, ptr = G.dwrr_select(
+        st["weights"], st["deficit"], st["ptr"],
+        torch.as_tensor(head_size, dtype=torch.float32, device=dev),
+        torch.as_tensor(pending, dtype=torch.bool, device=dev),
+        torch.as_tensor(quantum, dtype=torch.float32, device=dev),
+        G.torch_namespace(dev))
+    return idx.to(torch.int32), dict(st, deficit=deficit,
+                                     ptr=ptr.to(torch.int32))

@@ -29,20 +29,6 @@ import sys
 import time
 
 
-def _parse_sets(pairs):
-    """``--set key=value`` pairs -> dict; values JSON-parsed if valid."""
-    out = {}
-    for p in pairs:
-        if "=" not in p:
-            raise SystemExit(f"--set expects key=value, got {p!r}")
-        k, v = p.split("=", 1)
-        try:
-            out[k] = json.loads(v)
-        except json.JSONDecodeError:
-            out[k] = v
-    return out
-
-
 def _parse_axis(arg: str):
     """``path=v1,v2,...`` -> SweepAxis; each value JSON-parsed if valid."""
     from repro_torch.api import SweepAxis
@@ -138,6 +124,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from repro_torch.api import SweepSpec
+    from repro_torch.launch.scenario import _parse_sets
 
     if args.spec:
         with open(args.spec) as f:

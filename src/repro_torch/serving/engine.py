@@ -211,8 +211,13 @@ class Engine(EngineBase):
         return []
 
     def attach_controller(self, controller) -> None:
-        raise NotImplementedError(
-            "the closed-loop QoS controller is not ported yet")
+        """Install a ``QoSController``; it runs every ``qos_interval``
+        steps, adapting WLBVT/DWRR weights and the admission gate."""
+        if self.tel is None or self.cfg.qos_interval <= 0:
+            raise ValueError(
+                "attach_controller requires EngineConfig.telemetry=True "
+                "and qos_interval > 0 — the control loop would never run")
+        self.controller = controller
 
     def submit(self, req: Request) -> Request:
         if req.tenant_id not in self.ectx:
@@ -450,6 +455,16 @@ class Engine(EngineBase):
                 t=float(self.step_count), prio=self.st.prio,
                 total_occup=self.st.total_occup, bvt=self.st.bvt,
                 kv_pressure=gauges[G_IDX["kv_pressure"]])
+        if (self.controller is not None and self.cfg.qos_interval
+                and self.step_count > 0
+                and self.step_count % self.cfg.qos_interval == 0):
+            self.qos_tick(
+                prio=self.st.prio, total_occup=self.st.total_occup,
+                bvt=self.st.bvt, kv_pressure=gauges[G_IDX["kv_pressure"]],
+                knobs=((self.st.prio, self._prio_base),
+                       (self.dwrr.weights, self._dwrr_base)),
+                installed=self._installed,
+                t=float(self.step_count))
 
     def step(self) -> None:
         # R5: control traffic first

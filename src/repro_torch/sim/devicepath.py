@@ -36,11 +36,11 @@ the host path: compute-only workloads (``io_kind == "none"``; the
 DWRR/AXI/egress machinery never engages), no QoS controller (windows
 then carry no decisions, only telemetry flushes), wlbvt/rr scheduling,
 no timeline/trace capture.  Inside the contract the device path is
-decision/EQ/telemetry **bit-identical** to the JAX package's host
-``BatchedSimulator`` under ``precision="exact"`` (float64, which the
-H100 has natively); the only documented drift is the Jain time-average,
-whose host fold compresses the active set before summing (DESIGN.md
-§8).  Every sum over tenants takes ``core.sched_generic.lane_sum``'s
+decision/EQ/telemetry **bit-identical** to the host ``BatchedSimulator``
+(``sim/fastpath.py``, itself equal to the JAX package's) under
+``precision="exact"`` (float64, which the H100 has natively); the only
+documented drift is the Jain time-average, whose host fold compresses
+the active set before summing (DESIGN.md §8).  Every sum over tenants takes ``core.sched_generic.lane_sum``'s
 fixed order, so a card run and a CPU run of this module agree field for
 field.  ``precision="fast"`` trades float64 for float32 lanes and
 downgrades the parity claim to statistical.

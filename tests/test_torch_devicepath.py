@@ -9,8 +9,12 @@ fold sums the active set in another order (1e-9, as in
 tests/test_devicepath.py).  The JAX package's own device path cannot run
 its exact mode on the installed jax, so its host simulator is the
 oracle here, under ``tests/test_devicepath.py``'s ``_host_run`` /
-``_assert_parity`` contract.  Everything runs on the CPU
-(``device="cpu"``): the plain select version stands in for the kernel.
+``_assert_parity`` contract.  The port's own ``BatchedSimulator`` is a
+second oracle under the same contract (``_port_host_run``), the one the
+card's machine, which has no JAX, holds the card's sweep against
+(``tests/test_torch_sweep_card.py``, ``chip_smoke.py`` phase 20).
+Everything runs on the CPU (``device="cpu"``): the plain step stands in
+for the kernel.
 """
 import dataclasses
 
@@ -61,6 +65,23 @@ def _host_run(spec):
     return sim.run(ta, horizon=horizon)
 
 
+def _port_host_run(spec):
+    """The same spec on the port's own host batched datapath."""
+    from repro_torch.api import build_traces
+    from repro_torch.core.slo import ECTX
+    from repro_torch.sim.fastpath import build_simulator
+    tenants = [ECTX(tenant_id=i, name=t.name, slo=t.slo(),
+                    kernel=t.workload.build())
+               for i, t in enumerate(spec.tenants)]
+    sim = build_simulator(tenants, datapath="batched",
+                          scheduler=spec.scheduler, frag=spec.frag(),
+                          arb=spec.arbiter,
+                          fifo_capacity=spec.fifo_capacity,
+                          record_completions=True)
+    horizon = spec.horizon_us * 1e3 if spec.horizon_us else None
+    return sim.run(build_traces(spec, arrays=True), horizon=horizon)
+
+
 def _events(res):
     return [(e.tenant, e.kind.value, e.time) for e in res.events]
 
@@ -106,6 +127,36 @@ def test_fig9_parity(leg, impl, kw):
     _assert_parity(spec, _host_run(spec), d)
     if leg == "fifo8":
         assert sum(s.drops for s in d.stats.values()) > 0  # drops exercised
+
+
+def _budget_kill(spec):
+    return dataclasses.replace(spec, tenants=tuple(
+        dataclasses.replace(t, kernel_cycle_limit=300,
+                            total_cycle_limit=20000) for t in spec.tenants))
+
+
+@pytest.mark.parametrize("leg", ["wlbvt", "rr", "fifo8", "budget_kill",
+                                 "mix"])
+def test_parity_against_port_host_simulator(leg):
+    """The port's device path against the port's own host batched
+    datapath: no JAX anywhere in the leg."""
+    if leg == "mix":
+        specs = _mix([1.0, 2.0, 3.0], [0.3, 0.35, 0.4], [0, 900, 0],
+                     "wlbvt", seeds=(0, 1, 2, 3))
+    elif leg == "budget_kill":
+        specs = [_budget_kill(_fig9(duration_us=15.0))]
+    else:
+        specs = [_fig9(duration_us=20.0, **{
+            "wlbvt": {}, "rr": {"scheduler": "rr"},
+            "fifo8": {"fifo_capacity": 8}}[leg])]
+    device = run_sweep_specs(specs, record_completions=True, device="cpu")
+    for spec, d in zip(specs, device):
+        h = _port_host_run(spec)
+        _assert_parity(spec, h, d)
+        if leg == "fifo8":
+            assert sum(s.drops for s in h.stats.values()) > 0
+        if leg == "budget_kill":
+            assert sum(s.killed for s in h.stats.values()) > 0
 
 
 def test_budget_kill_parity():
