@@ -166,6 +166,30 @@ prints no result.  Phases, each of which raises on failure:
      batched host path and the card's sweep (1 and 8 seeds) for fig9
      under wlbvt and rr, with scenarios/s and packets/s, beside the
      card's name and power limit.
+ 21. (run after phase 20) the observability planes: (a) full-width,
+     full-depth Qwen3-8B serves phase 5's ``serve_mixed_slo`` again
+     (weights rebuilt from the same seed) with ``trace=True``, the
+     ``"torch"`` telemetry backend on the card, and a metrics bus with
+     the JSONL and OpenMetrics exporters and a headless dashboard: every
+     request done, decode_attention 36 launches a decode step, the
+     RunReport equal to phase 5's but for ``extras["trace_summary"]``
+     (and the telemetry block's backend label), the OpenMetrics schema
+     equal to ``tests/data/openmetrics_schema.serve.golden``, the
+     device state's counts and histogram equal to phase 5's numpy
+     backend and its ring within 1e-6, every ``commit`` /
+     ``commit_window`` run under ``torch.cuda.set_sync_debug_mode(
+     "error")``, and the commits' device time (CUDA events behind a
+     spin kernel) under 3 % of phase 7's decode-step device time; then
+     the planes off on the same weights; (b) the trace CLI's path on
+     ``fig9_congestor_victim`` at 300 us on both datapaths (identical
+     decision and span rows), ``launch.scenario qos_closed_loop
+     --export`` against the sim golden and ``launch.telemetry_report
+     --surface sim --controller``; (c) the planes-on wall and tokens/s
+     beside the planes-off run's and phase 5's, the commits' device and
+     host time and share, the trace's
+     host time a step, spans and decisions retained, bus frames
+     published and dropped, the Perfetto file's events and bytes and
+     (b)'s walls, beside the card's name and power limit.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -541,14 +565,15 @@ def check_full_width(module, cfg) -> None:
         raise AssertionError("full-width decode: kernel path disagrees")
 
 
-def profile_decode(ex) -> None:
+def profile_decode(ex) -> float:
+    """Phase 7; returns the decode step's device time (ms)."""
     B = 8
     tokens = np.ones(B, np.int32)
     lengths = np.full(B, 128, np.int32)
     active = np.ones(B, bool)
-    profile_step("qwen3-8b full-width decode step",
-                 lambda: ex.decode(tokens, lengths, active),
-                 kernel="decode_attention")
+    return profile_step("qwen3-8b full-width decode step",
+                        lambda: ex.decode(tokens, lengths, active),
+                        kernel="decode_attention")
 
 
 # ---------------------------------------------------------------------------
@@ -1747,6 +1772,7 @@ def profile_step(label: str, step, kernel: str = "") -> None:
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"profile:   {e.self_device_time_total / 2 / 1e3:9.3f} ms  "
             f"{e.count // 2:5d}x  {e.key[:90]}")
+    return total
 
 
 def serve_recurrent(arch: str) -> dict:
@@ -2062,6 +2088,273 @@ def cli_phase(mamba: dict) -> dict:
                 times=times)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the observability planes
+# ---------------------------------------------------------------------------
+GOLDEN_SIM = ROOT / "tests" / "data" / "openmetrics_schema.sim.golden"
+GOLDEN_SERVE = ROOT / "tests" / "data" / "openmetrics_schema.serve.golden"
+BUDGET_PCT = 3.0     # recording's budget, in % of a step's time
+
+
+class CommitProbe:
+    """Wraps a ``"torch"`` ``Telemetry``'s ``commit`` and
+    ``commit_window``: each call runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync inside it
+    raises) and only it, on the host clock, and between two CUDA events
+    behind a spin kernel (``SPIN_CYCLES``, ~2 ms, over the ~1 ms a call
+    can take the host to launch): the card is busy while the host
+    launches the call's kernels, so the events bracket the kernels
+    alone, their device time.  The spin hides behind the decode step
+    that follows, whose launches take the host far longer than the card
+    takes to run them."""
+
+    SPIN_CYCLES = 4_000_000
+
+    def __init__(self, tel):
+        self.events = []
+        self.host_s = []
+        for name in ("commit", "commit_window"):
+            setattr(tel, name, self._wrap(getattr(tel, name)))
+
+    def _wrap(self, fn):
+        def call(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(self.SPIN_CYCLES)
+            start.record()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            self.host_s.append(time.perf_counter() - t0)
+            end.record()
+            self.events.append((start, end))
+        return call
+
+    def device_ms(self) -> np.ndarray:
+        torch.cuda.synchronize()
+        return np.array([s.elapsed_time(e) for s, e in self.events])
+
+
+def warm_telemetry(T: int) -> None:
+    """Load the ``"torch"`` backend's kernels and prime the pinned host
+    allocator on a scratch state, so the serve's commits show their
+    steady cost rather than the first launch's module load."""
+    from repro_torch.telemetry import GAUGES, Telemetry
+    tel = Telemetry(T, backend="torch")
+    for _ in range(3):
+        tel.inc("tokens", 0, 1.0)
+        tel.lat(0, 3.0)
+        tel.lat(0, 5.0)
+        tel.commit()
+        tel.commit_window(np.ones((len(GAUGES), T)))
+    tel.snapshot()
+
+
+def planes_phase(p5: dict, decode_device_ms: float, smi: str) -> dict:
+    """Phase 21: (a) full-width Qwen3-8B serves phase 5's scenario with
+    every plane on (the flight recorder, the bus with both exporters and
+    a headless dashboard, the ``"torch"`` telemetry backend on the card);
+    (b) the trace CLI's path, the scenario CLI's export and the telemetry
+    report on the host; (c) their costs and walls."""
+    import io
+    from repro_torch.launch import telemetry_report as report_cli
+    from repro_torch.launch import trace as trace_cli
+    from repro_torch.launch.dash import Dashboard
+    from repro_torch.telemetry import export as E
+    from repro_torch.telemetry.bus import MetricsBus
+    from repro_torch.telemetry.traceview import write_perfetto
+    out = ROOT / "build" / "chip_smoke_planes"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+
+    # (a) the serve with every plane on
+    cfg = dataclasses.replace(get_config("qwen3-8b"), attn_impl="pallas")
+    spec = serve_spec(cfg, SEED)
+    names = {i: t.name for i, t in enumerate(spec.tenants)}
+    warm_telemetry(max(len(spec.tenants), 2))
+    (rt, init_s) = sync_time(lambda: ServeRuntime.from_spec(
+        spec, executor=lambda e: ModelExecutor(cfg, e, rng_seed=SEED,
+                                               device="cuda"),
+        trace=True, telemetry_backend="torch"))
+    eng = rt.engine
+    tel = eng.tel
+    if tel.backend != "torch" or tel.state["hist"].device.type != "cuda":
+        raise AssertionError(f"telemetry backend {tel.backend} on "
+                             f"{tel.state['hist'].device}, want torch on "
+                             "cuda")
+    bus = MetricsBus()
+    om, jl = E.attach_exporters(bus, str(out / "serve_mixed_slo.serve"),
+                                names=names)
+    panel = io.StringIO()
+    dash = bus.add_sink(Dashboard(names=names, out=panel, color=False))
+    undrained = bus.subscribe(maxlen=2, name="undrained")
+    rt.attach_bus(bus)
+    probe = CommitProbe(tel)
+    trace_host = [0.0]
+    maybe_commit = eng.trace.maybe_commit
+
+    def timed_maybe_commit():
+        t0 = time.perf_counter()
+        maybe_commit()
+        trace_host[0] += time.perf_counter() - t0
+
+    eng.trace.maybe_commit = timed_maybe_commit
+    ops.reset_launches()
+    rep, wall = sync_time(lambda: rt.run(spec).validate())
+    launches = dict(ops.LAUNCHES)
+    bus.close()
+    rt.flush_trace()
+    dev = probe.device_ms()
+    host = np.array(probe.host_s) * 1e3
+    done = eng.done
+    steps = int(rep.duration)
+    decode_steps = rep.extras["decode_steps"]
+    generated = sum(len(r.generated) for r in done)
+    # the planes off again, right after, on the same weights
+    ex = eng.exe
+    rt_off = ServeRuntime.from_spec(spec, executor=ex)
+    ops.reset_launches()
+    _, wall_off = sync_time(lambda: rt_off.run(spec))
+    off_launches = ops.LAUNCHES["decode_attention"]
+    del rt_off
+    log(f"serve qwen3-8b, every plane on ({smi}): init_s={init_s:.2f} "
+        f"steps={steps} decode_steps={decode_steps} wall_s={wall:.3f} "
+        f"generated_tokens={generated} tokens_per_s={generated / wall:.2f}"
+        f"; planes off right after, same weights: wall_s={wall_off:.3f} "
+        f"tokens_per_s={generated / wall_off:.2f}; phase 5, planes off: "
+        f"wall_s={p5['wall']:.3f} tokens_per_s="
+        f"{p5['tokens'] / p5['wall']:.2f} (host clock, one run each)")
+    log(rep.summary())
+    if len(done) != 12 or any(r.status != RequestStatus.DONE for r in done):
+        raise AssertionError("planes on: not every request ended done: "
+                             + str([(r.rid, r.status.value) for r in done]))
+    if (launches["decode_attention"] != cfg.num_layers * decode_steps
+            or off_launches != launches["decode_attention"]):
+        raise AssertionError(f"planes on / off: decode_attention launches "
+                             f"{launches['decode_attention']} / "
+                             f"{off_launches} != {cfg.num_layers} x "
+                             f"{decode_steps}")
+    # the schedule reads no token and the planes only watch it: the
+    # report equals phase 5's but for the trace summary and the
+    # telemetry block's backend label
+    got = RunReport.from_json(rep.to_json())
+    summary = got.extras.pop("trace_summary")
+    if got.telemetry["backend"] != "torch":
+        raise AssertionError("planes on: the report's telemetry backend "
+                             f"is {got.telemetry['backend']}")
+    got.telemetry["backend"] = "numpy"
+    if got.to_json() != p5["json"]:
+        raise AssertionError("planes on: the RunReport differs from phase "
+                             "5's beyond trace_summary")
+    log("check: the planes-on RunReport equals phase 5's byte for byte "
+        "without extras['trace_summary'] and with the telemetry block's "
+        "backend label (torch) read as phase 5's (numpy)")
+    schema = E.schema_lines(Path(om.path).read_text())
+    want = [ln.strip() for ln in GOLDEN_SERVE.read_text().splitlines()
+            if ln.strip()]
+    if schema != want:
+        raise AssertionError(f"serve OpenMetrics schema != golden: {schema}")
+    snap = tel.snapshot()
+    for k in ("counts", "hist", "ptr"):
+        if not np.array_equal(snap[k], p5["snap"][k]):
+            raise AssertionError(f"torch telemetry {k} != numpy backend's")
+    ring_err = float(np.abs(snap["ring"] - p5["snap"]["ring"]).max())
+    if not np.allclose(snap["ring"], p5["snap"]["ring"], rtol=1e-6,
+                       atol=1e-6):
+        raise AssertionError(f"torch telemetry ring off by {ring_err}")
+    from repro_torch.telemetry import metrics as M
+    pow2 = 2.0 ** np.arange(34)
+    edges = M.bucket_index_torch(torch.tensor(pow2, device="cuda"), 32)
+    if not np.array_equal(edges.cpu().numpy(), M.bucket_index(pow2, 32, np)):
+        raise AssertionError("bucket_index_torch misplaces a power of two")
+    log(f"check: torch telemetry on the card: counts, histogram and ptr "
+        f"equal phase 5's numpy backend, ring max |diff| {ring_err:.3e} "
+        f"(tol 1e-6), the powers of two 2^0..2^33 in their buckets; "
+        f"{len(probe.events)} commit calls, none synced the host "
+        f"(sync debug mode error); OpenMetrics schema equals "
+        f"{GOLDEN_SERVE.name}")
+    dev_step = dev.sum() / steps
+    share = dev_step / decode_device_ms
+    log(f"time telemetry commits ({smi}): device time of a step's commit "
+        f"pair {dev_step:.4f} ms ({len(dev)} calls in {steps} steps, CUDA "
+        f"events behind a spin kernel; a call's median {np.median(dev):.4f}"
+        f" ms, max {dev.max():.4f} ms), {100 * share:.3f} % of a decode "
+        f"step's device time ({decode_device_ms:.3f} ms, phase 7's "
+        f"profile), budget {BUDGET_PCT} %; host {host.sum() / steps:.4f} "
+        f"ms a step (a call's median {np.median(host):.4f} ms, max "
+        f"{host.max():.4f} ms)")
+    if 100 * share >= BUDGET_PCT:
+        raise AssertionError(f"telemetry commits {100 * share:.3f} % of a "
+                             f"decode step >= {BUDGET_PCT} %")
+    perfetto = out / "serve_mixed_slo.perfetto.json"
+    doc = write_perfetto(eng.trace, str(perfetto), time_unit="steps",
+                         tenant_names=names)
+    log(f"trace ({smi}): maybe_commit host time "
+        f"{trace_host[0] / steps * 1e3:.4f} ms a step; spans recorded "
+        f"{summary['spans_recorded']} retained {summary['spans_retained']}"
+        f", decisions recorded {summary['decisions_recorded']} retained "
+        f"{summary['decisions_retained']}; bus frames published "
+        f"{bus.published}, dropped {bus.dropped} (a 2-deep subscription "
+        f"never drained: {undrained.dropped}), JSONL lines {jl.lines}, "
+        f"dashboard frames {dash.frames} ({len(panel.getvalue())} chars); "
+        f"Perfetto {len(doc['traceEvents'])} events, "
+        f"{perfetto.stat().st_size} bytes")
+    if not (summary["spans_recorded"] and summary["decisions_recorded"]
+            and bus.published and jl.lines == bus.published
+            and dash.frames == bus.published):
+        raise AssertionError("planes on: a plane recorded nothing")
+    del rt, eng, tel, ex
+    torch.cuda.empty_cache()
+
+    # (b) host legs: the trace CLI's path at fig9's published 300 us on
+    # both datapaths, the scenario CLI's export, the telemetry report
+    walls = {}
+    traced = {}
+    for dp in ("event", "batched"):
+        (r, tr, s9), walls[f"trace_fig9_{dp}_s"] = sync_time(
+            lambda: trace_cli.run_traced("fig9_congestor_victim", "sim", {},
+                                         datapath=dp))
+        traced[dp] = (r, tr)
+        doc = write_perfetto(tr, str(out / f"fig9.{dp}.json"),
+                             time_unit=r.time_unit)
+        log(f"trace CLI fig9_congestor_victim {s9.duration_us:g} us "
+            f"--datapath {dp}: {tr.span_count} spans, {tr.decision_count} "
+            f"decisions, Perfetto {len(doc['traceEvents'])} events")
+    (r_ev, t_ev), (r_ba, t_ba) = traced["event"], traced["batched"]
+    for what, a, b in (("decision", t_ev.decision_rows(),
+                        t_ba.decision_rows()),
+                       ("span", t_ev.rows(), t_ba.rows())):
+        bad = [k for k in a if not np.array_equal(a[k], b[k])]
+        if bad or not len(a[next(iter(a))]):
+            raise AssertionError(f"fig9 {what} rows differ across "
+                                 f"datapaths: {bad}")
+    if r_ev.to_json() != r_ba.to_json().replace('"datapath": "batched"',
+                                                 '"datapath": "event"'):
+        raise AssertionError("fig9 traced reports differ across datapaths")
+    log("check: fig9 at 300 us, event loop and batched datapath: decision "
+        "rows, span rows and RunReport (but for the spec's datapath) "
+        "identical")
+    rc, walls["scenario_qos_export_s"] = sync_time(lambda: scenario_cli.main(
+        ["qos_closed_loop", "--export", str(out)]))
+    gate = E.main(["--schema", str(out / "qos_closed_loop.sim.om.txt"),
+                   "--golden", str(GOLDEN_SIM)])
+    if rc or gate:
+        raise AssertionError(f"scenario --export: rc {rc}, golden gate "
+                             f"{gate}")
+    rc, walls["telemetry_report_sim_s"] = sync_time(lambda: report_cli.main(
+        ["--surface", "sim", "--controller"]))
+    if rc:
+        raise AssertionError(f"telemetry_report: rc {rc}")
+    log(f"time host legs ({smi}): "
+        + " ".join(f"{k}={v!r}" for k, v in walls.items()))
+    return dict(launches={"decode_attention": launches["decode_attention"]
+                          + off_launches},
+                wall=wall, share=share)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2121,9 +2414,11 @@ def main() -> int:
         raise AssertionError(f"decode_attention launches "
                              f"{launches['decode_attention']} != "
                              f"{cfg.num_layers} x {decode_steps}")
+    p5 = dict(json=rep.to_json(), snap=rt.engine.tel.snapshot(), wall=wall,
+              tokens=generated)
     ex = rt.engine.exe
     check_full_width(ex.params, cfg)
-    profile_decode(ex)
+    decode_device_ms = profile_decode(ex)
     del rt, ex
     torch.cuda.empty_cache()
 
@@ -2164,6 +2459,7 @@ def main() -> int:
         "whole graph-replayed run of the plain step and of the step with "
         "the wlbvt_select kernel) " + fields(scan_t))
     cli = cli_phase(mamba)
+    planes = planes_phase(p5, decode_device_ms, smi)
 
     flash_err = check_flash_attention()
     ft = time_flash_attention(20)
@@ -2185,7 +2481,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:23",
         "launches": launches["decode_attention"]
-        + rgemma["launches"]["decode_attention"], "max_abs_err": err,
+        + rgemma["launches"]["decode_attention"]
+        + planes["launches"]["decode_attention"], "max_abs_err": err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]}, {
         "name": "wlbvt_select", "route": "cuda",

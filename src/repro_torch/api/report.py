@@ -141,7 +141,37 @@ class RunReport:
         # the whole report must survive a JSON round-trip unchanged
         if RunReport.from_json(self.to_json()) != self:
             raise ValueError("report does not round-trip through JSON")
+        self._validate_extras()
         return self
+
+    def _validate_extras(self) -> None:
+        """Known ``extras`` blocks carry their declared schemas: the
+        key tuples live next to the producers (single source of truth)
+        so the check can never drift from what they emit.  (The fleet
+        plane's block waits for the fleet plane.)"""
+        sa = self.extras.get("slo_audit")
+        if sa is not None:
+            from repro_torch.telemetry.slo_audit import (SUMMARY_KEYS,
+                                                         TENANT_SUMMARY_KEYS)
+            missing = [k for k in SUMMARY_KEYS if k not in sa]
+            if missing:
+                raise ValueError(f"slo_audit missing keys {missing}")
+            if sa["interval_unit"] != self.time_unit:
+                raise ValueError(
+                    f"slo_audit interval_unit {sa['interval_unit']!r} != "
+                    f"report time_unit {self.time_unit!r}")
+            for t, row in sa["tenants"].items():
+                tmiss = [k for k in TENANT_SUMMARY_KEYS if k not in row]
+                if tmiss:
+                    raise ValueError(
+                        f"slo_audit tenant {t} missing keys {tmiss}")
+        ts = self.extras.get("trace_summary")
+        if ts is not None:
+            from repro_torch.telemetry.trace import TraceRecorder
+            missing = [k for k in TraceRecorder.TRACE_SUMMARY_KEYS
+                       if k not in ts]
+            if missing:
+                raise ValueError(f"trace_summary missing keys {missing}")
 
     # -- console ------------------------------------------------------------
     def summary(self) -> str:

@@ -14,9 +14,11 @@ Both expose the same lifecycle: ``create_tenant``/``destroy_tenant``
 schema-identical, JSON-portable ``RunReport`` (byte for byte the JAX
 package's on the same spec).  ``run(spec)`` drives a whole declarative
 ``ScenarioSpec`` end to end; ``run_scenario`` is the one-call entry point.
-The metrics bus and the trace plane are not ported yet (``attach_bus``
-and ``trace=True`` raise ``NotImplementedError``), nor is the fleet
-plane, so ``run_scenario`` takes single-NIC specs only.
+Both runtimes take the observability planes: ``attach_bus`` (one
+``BusFrame`` per observation interval), ``trace=True`` (the flight
+recorder; ``flush_trace`` and ``extras["trace_summary"]``) and the SLO
+audit.  The fleet plane is not ported yet, so ``run_scenario`` takes
+single-NIC specs only.
 """
 from __future__ import annotations
 
@@ -115,16 +117,20 @@ class SimRuntime:
                  arb: str = "dwrr", fifo_capacity: int = 4096,
                  io_demand_weights=None, record_timeline: bool = False,
                  control_interval_ns: float = 8000.0,
-                 datapath: str = "event", trace: bool = False):
+                 datapath: str = "event", trace: bool = False,
+                 trace_depth: int = 65536,
+                 trace_decision_depth: int = 8192):
         self._kw = dict(scheduler=scheduler, frag=frag, arb=arb,
                         fifo_capacity=fifo_capacity,
                         io_demand_weights=io_demand_weights,
                         record_timeline=record_timeline,
                         control_interval_ns=control_interval_ns,
-                        trace=trace)
+                        trace=trace, trace_depth=trace_depth,
+                        trace_decision_depth=trace_decision_depth)
         self._datapath = datapath
         self._tenants: List[ECTX] = []
         self._controller = None
+        self._bus = None
         self._audit = None
         self._sim = None
         self._events: List[Event] = []
@@ -171,12 +177,15 @@ class SimRuntime:
         self._controller = controller
 
     def attach_bus(self, bus) -> None:
-        raise NotImplementedError(
-            "the metrics bus (telemetry/bus.py) is not ported yet")
+        """Attach a ``MetricsBus``: the simulator publishes one
+        ``BusFrame`` per committed IO window (DESIGN.md §11.1)."""
+        self._bus = bus
+        if self._sim is not None:
+            self._sim.attach_bus(bus)
 
     def attach_slo_audit(self, audit) -> None:
         """Attach an ``SLOAudit``: burn-rate alerts land in the EQ
-        stream and ``report().extras['slo_audit']``."""
+        stream / trace plane and ``report().extras['slo_audit']``."""
         self._audit = audit
         if self._sim is not None:
             self._sim.attach_slo_audit(audit)
@@ -189,6 +198,8 @@ class SimRuntime:
             self._sim = build_simulator(
                 self._tenants, datapath=self._datapath,
                 controller=self._controller, **self._kw)
+            if self._bus is not None:
+                self._sim.attach_bus(self._bus)
             if self._audit is not None:
                 self._sim.attach_slo_audit(self._audit)
         return self._sim
@@ -225,6 +236,17 @@ class SimRuntime:
 
     def now(self) -> float:
         return self._seal().now
+
+    @property
+    def trace(self):
+        """The flight recorder, or None (tracing off / not sealed)."""
+        return self._sim.trace if self._sim is not None else None
+
+    def flush_trace(self) -> None:
+        """Flush in-flight trace state (open spans / queued packets)
+        into the recorder — call once after the run, before export."""
+        if self._sim is not None:
+            self._sim.trace_flush(self._sim.now)
 
     def poll_events(self, tenant_id: int) -> List[Event]:
         out = [e for e in self._events if e.tenant == tenant_id]
@@ -284,6 +306,8 @@ class SimRuntime:
                     "served_payload_bytes": float(st.served_payload_bytes),
                 }))
         extras: dict = {}
+        if self.trace is not None:
+            extras["trace_summary"] = self.trace.trace_summary()
         if self._audit is not None:
             extras["slo_audit"] = self._audit.summary()
         events = _events_block(self._events, extras)
@@ -389,6 +413,8 @@ class ServeRuntime:
         self.engine.attach_controller(controller)
 
     def attach_bus(self, bus) -> None:
+        """Attach a ``MetricsBus``: the engine publishes one
+        ``BusFrame`` per observation interval (steps)."""
         self.engine.attach_bus(bus)
 
     def attach_slo_audit(self, audit) -> None:
@@ -409,6 +435,16 @@ class ServeRuntime:
 
     def now(self) -> float:
         return float(self.engine.step_count)
+
+    @property
+    def trace(self):
+        """The flight recorder, or None (tracing off)."""
+        return self.engine.trace
+
+    def flush_trace(self) -> None:
+        """Flush in-flight trace state (open spans / queued requests)
+        into the recorder — call once after the run, before export."""
+        self.engine.trace_flush(float(self.engine.step_count))
 
     def poll_events(self, tenant_id: int) -> List[Event]:
         mine = [e for e in self._events if e.tenant == tenant_id]
@@ -494,6 +530,8 @@ class ServeRuntime:
                 **row)
         extras = {"decode_steps": m["decode_steps"],
                   "prefill_chunks": m["prefill_chunks"]}
+        if eng.trace is not None:
+            extras["trace_summary"] = eng.trace.trace_summary()
         if eng.slo_audit is not None:
             extras["slo_audit"] = eng.slo_audit.summary()
         events = _events_block(pending, extras)

@@ -15,13 +15,13 @@ serving engine (``serving/engine.py``).
   * ``EngineBase``      — ECTX registry (dense tenant table + installed
     mask), the telemetry plane (staging wrapper + window commits), the
     admission gate, the QoS controller tick (signal read → AIMD update →
-    weight actuation → admit mask) and the SLO burn-rate audit.
+    weight actuation → admit mask), the SLO burn-rate audit, the metrics
+    bus publish and the trace recorder (flight recorder + decision
+    provenance).
 
 Backends remain free in *when* they invoke these mechanisms (the
 simulator at virtual-time window boundaries, the serving engine once per
-step); the mechanisms themselves exist once.  The metrics bus and the
-trace recorder are not part of this package yet: ``attach_bus`` and
-``trace=True`` raise ``NotImplementedError``.
+step); the mechanisms themselves exist once.
 """
 from __future__ import annotations
 
@@ -141,42 +141,71 @@ class EQHub:
 class EngineBase:
     """Backend-agnostic tenant machinery shared by every engine.
 
+    ``OBS_BACKEND`` labels the frames this engine publishes on the
+    metrics bus ("sim" | "serve" — the serving engine overrides it).
+
     Owns the ECTX registry (dense table + installed mask), the budget
     ledger, the EQ hub, the telemetry plane, the admission gate, the QoS
-    controller tick and the SLO audit.  Subclasses
-    (``sim.engine.Simulator``, ``sim.fastpath.BatchedSimulator``,
-    ``serving.engine.Engine``) keep only their execution semantics:
+    controller tick, the SLO audit, the bus and the trace recorder.
+    Subclasses (``sim.engine.Simulator``,
+    ``sim.fastpath.BatchedSimulator``, ``serving.engine.Engine``) keep
+    only their execution semantics:
     *when* these mechanisms fire and what the data plane in between
-    looks like.
+    looks like.  ``telemetry_device`` is where a ``"torch"`` telemetry
+    backend keeps its state (the serving engine passes its executor's
+    device); the numpy backend ignores it.
     """
+
+    OBS_BACKEND = "sim"
 
     def __init__(self, max_tenants: int, *, shared_eq: bool,
                  eq_capacity: int = 4096, telemetry: bool = True,
-                 telemetry_backend: str = "numpy", trace: bool = False):
+                 telemetry_backend: str = "numpy", trace: bool = False,
+                 trace_depth: int = 65536,
+                 trace_decision_depth: int = 8192, trace_pus: int = 0,
+                 telemetry_device=None):
         from repro_torch.telemetry import Telemetry
-        if trace:
-            raise NotImplementedError(
-                "the trace plane (flight recorder, telemetry/trace.py) is "
-                "not ported yet")
         T = max_tenants
         self.max_tenants = T
         self.ectxs: Dict[int, ECTX] = {}
         self._installed = np.zeros(T, bool)
         self.budget = BudgetLedger(T)
         self.eqhub = EQHub(shared=shared_eq, capacity=eq_capacity)
-        self.tel = (Telemetry(T, backend=telemetry_backend)
+        self.tel = (Telemetry(T, backend=telemetry_backend,
+                              device=telemetry_device)
                     if telemetry else None)
-        self.trace = None
+        if trace:
+            from repro_torch.telemetry.trace import TraceRecorder
+            self.trace: Optional["TraceRecorder"] = TraceRecorder(
+                T, num_pus=trace_pus, depth=trace_depth,
+                decision_depth=trace_decision_depth)
+        else:
+            self.trace = None
         self.controller = None
         self._ctrl_baseline = None
         self._admit = np.ones(T, bool)       # controller backpressure gate
-        # SLO burn-rate audit attached via attach_slo_audit; observe_tick
-        # feeds it one frame per backend observation interval against its
-        # own baseline (the controller's interval differencing is
-        # untouched)
+        # streaming observability plane: a MetricsBus
+        # and/or SLO burn-rate audit attached via attach_bus /
+        # attach_slo_audit; observe_tick publishes one frame per
+        # backend observation interval against its own baseline (the
+        # controller's interval differencing is untouched)
         self.bus = None
         self.slo_audit = None
         self._obs_baseline = None
+        self._obs_seq = 0
+        self.obs_nic = ""   # fleet runs tag shared-bus frames "nic<k>"
+
+    # -- trace plane ---------------------------------------------------------
+    def trace_flush(self, t: float) -> None:
+        """Flush in-flight trace state at end of run: write every
+        still-open span with disposition OPEN and commit.  Engines
+        whose hot paths skip the open-span dict (the simulators record
+        whole lifecycles at completion) override this to walk their
+        queues and in-flight slots instead."""
+        if self.trace is None:
+            return
+        self.trace.flush_open(t)
+        self.trace.commit()
 
     # -- ECTX registry -------------------------------------------------------
     def register_tenant(self, e: ECTX, *, fmq_index: Optional[int] = None,
@@ -233,7 +262,7 @@ class EngineBase:
         attached and the backend's interval elapsed.  ``t`` is the
         interval end in the backend's time unit; an attached SLO audit
         uses it to attribute alerts to the interventions this tick
-        applies."""
+        applies (which the trace plane also records)."""
         from repro_torch.telemetry import apply_to_scheduler, compute_signals
         snap = self.tel.snapshot()
         sig = compute_signals(
@@ -243,14 +272,21 @@ class EngineBase:
         self._ctrl_baseline = snap
         act = self.controller.update(sig)
         if self.slo_audit is not None:
-            self.slo_audit.note_intervention(t, act, installed)
+            new_ivs = self.slo_audit.note_intervention(t, act, installed)
+            if self.trace is not None and new_ivs:
+                from repro_torch.telemetry.trace import (
+                    record_qos_intervention)
+                for iv in new_ivs:
+                    record_qos_intervention(self.trace, t, iv["tenant"],
+                                            iv["kind"], iv["value"])
         apply_to_scheduler(act, *knobs, installed=installed)
         self._admit = act.admit
 
     # -- streaming observability (DESIGN.md §11) -----------------------------
     def attach_bus(self, bus) -> None:
-        raise NotImplementedError(
-            "the metrics bus (telemetry/bus.py) is not ported yet")
+        """Attach a ``telemetry.bus.MetricsBus``; ``observe_tick``
+        publishes one ``BusFrame`` per observation interval."""
+        self.bus = bus
 
     def attach_slo_audit(self, audit) -> None:
         """Attach a ``telemetry.slo_audit.SLOAudit``; ``observe_tick``
@@ -260,12 +296,14 @@ class EngineBase:
     def observe_tick(self, *, t: float, prio, total_occup, bvt,
                      kv_pressure) -> None:
         """One observation interval: difference the committed telemetry
-        against the observer baseline and run the SLO audit (alerts land
-        in the EQ stream).  No-op (one attribute check) with nothing
-        attached; reads only committed host state.  Backends call this
-        *before* any same-boundary ``qos_tick`` so an alert raised at
-        the boundary precedes the controller's intervention."""
-        if self.slo_audit is None:
+        against the observer baseline, run the SLO audit (alerts land
+        in the EQ stream and, when tracing, the decision ring), and
+        publish a ``BusFrame``.  No-op (one attribute check) with
+        nothing attached; reads only host-side committed state (the
+        telemetry snapshot), so the commit path is untouched.  Backends call this *before*
+        any same-boundary ``qos_tick`` so an alert raised at the
+        boundary precedes the controller's intervention."""
+        if self.bus is None and self.slo_audit is None:
             return
         from repro_torch.telemetry import compute_signals
         snap = self.tel.snapshot()
@@ -278,10 +316,32 @@ class EngineBase:
                            if self._obs_baseline is not None
                            else counts.copy())
         self._obs_baseline = snap
-        alerts = self.slo_audit.observe(
-            t=t, sig=sig, interval_counts=interval_counts)
-        for a in alerts:
-            self.eqhub.push(Event(
-                a.tenant, EventKind.SLO_ALERT, t,
-                detail=f"{a.window} burn={a.burn_rate:.3g} "
-                       f"p99={a.p99:.6g} target={a.target:.6g}"))
+        alerts = ()
+        if self.slo_audit is not None:
+            alerts = self.slo_audit.observe(
+                t=t, sig=sig, interval_counts=interval_counts)
+            for a in alerts:
+                self.eqhub.push(Event(
+                    a.tenant, EventKind.SLO_ALERT, t,
+                    detail=f"{a.window} burn={a.burn_rate:.3g} "
+                           f"p99={a.p99:.6g} target={a.target:.6g}"))
+            if self.trace is not None and alerts:
+                from repro_torch.telemetry.trace import record_slo_alert
+                for a in alerts:
+                    record_slo_alert(self.trace, t, a.tenant, a.window,
+                                     a.burn_rate)
+        if self.bus is not None:
+            from repro_torch.api.report import TIME_UNITS
+            from repro_torch.telemetry.bus import BusFrame
+            sim_unit, step_unit = TIME_UNITS
+            self.bus.publish(BusFrame(
+                t=float(t), seq=self._obs_seq,
+                time_unit=(step_unit if self.OBS_BACKEND == "serve"
+                           else sim_unit),
+                backend=self.OBS_BACKEND,
+                signals=sig, counts=counts,
+                interval_counts=interval_counts,
+                weights=np.array(prio, float),
+                admit=self._admit.copy(), alerts=alerts,
+                nic=self.obs_nic))
+        self._obs_seq += 1

@@ -10,6 +10,8 @@ the portable RunReport (DESIGN.md §7).
         --out-dir /tmp/run_reports
     PYTHONPATH=src python -m repro_torch.launch.scenario serve_mixed_slo \
         --backend serve --arch qwen3-8b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.scenario qos_closed_loop \
+        --export /tmp/obs --dash
 
 Scenario parameters are overridable with ``--set key=value`` (repeat as
 needed); values parse as JSON where possible (``--set scheduler=rr``,
@@ -55,8 +57,10 @@ def run_one(name: str, backend: str, params, *, arch: str = "",
     the model's hand-written kernels run (on the CPU, their plain
     versions).
 
-    ``export_dir`` and ``dash`` need the metrics bus, which is not
-    ported yet: either raises ``NotImplementedError``.
+    ``export_dir`` attaches the metrics bus with the OpenMetrics +
+    JSONL exporters (files ``<dir>/<name>.<backend>.om.txt`` and
+    ``.jsonl``); ``dash`` attaches the live terminal dashboard.  With
+    ``arch`` the bus rides the real model's serve.
     """
     from repro_torch.api import get_scenario, run_scenario
     from repro_torch.api.registry import scenario_params
@@ -77,10 +81,21 @@ def run_one(name: str, backend: str, params, *, arch: str = "",
         raise SystemExit(
             f"scenario {name!r} does not support backend {backend!r} "
             f"(supported: {', '.join(spec.backends)})")
+
+    bus = None
     if (export_dir or dash) and not spec.analytic:
-        raise NotImplementedError(
-            "--export and --dash need the metrics bus (telemetry/bus.py), "
-            "which is not ported yet")
+        from repro_torch.telemetry.bus import MetricsBus
+        bus = MetricsBus()
+        names = {i: t.name for i, t in enumerate(spec.tenants)}
+        if export_dir:
+            os.makedirs(export_dir, exist_ok=True)
+            from repro_torch.telemetry.export import attach_exporters
+            attach_exporters(
+                bus, os.path.join(export_dir, f"{name}.{backend}"),
+                names=names)
+        if dash:
+            from repro_torch.launch.dash import Dashboard
+            bus.add_sink(Dashboard(names=names))
 
     if backend == "serve" and arch and not spec.analytic:
         from repro_torch.api import ServeRuntime
@@ -92,8 +107,18 @@ def run_one(name: str, backend: str, params, *, arch: str = "",
         rt = ServeRuntime.from_spec(
             spec, executor=lambda ecfg: ModelExecutor(
                 cfg, ecfg, rng_seed=spec.seed, device=device))
+    elif bus is not None:
+        from repro_torch.api.runtime import make_runtime
+        rt = make_runtime(spec, backend)
+    else:
+        return run_scenario(spec, backend)
+    if bus is not None:
+        rt.attach_bus(bus)
+    try:
         return rt.run(spec).validate()
-    return run_scenario(spec, backend)
+    finally:
+        if bus is not None:
+            bus.close()
 
 
 def main(argv=None) -> int:
@@ -114,11 +139,12 @@ def main(argv=None) -> int:
     ap.add_argument("--json", default="",
                     help="dump the RunReport JSON to this path")
     ap.add_argument("--export", default="", metavar="DIR",
-                    help="OpenMetrics + JSONL exports (needs the metrics "
-                         "bus: not ported yet, raises)")
+                    help="attach the metrics bus and write OpenMetrics "
+                         "(<scenario>.<backend>.om.txt) + JSONL exports "
+                         "into DIR")
     ap.add_argument("--dash", action="store_true",
-                    help="live terminal dashboard (needs the metrics bus: "
-                         "not ported yet, raises)")
+                    help="live terminal dashboard during the run "
+                         "(plain ANSI; see repro_torch.launch.dash)")
     ap.add_argument("--out-dir", default="",
                     help="with --all: write one RunReport JSON per run")
     ap.add_argument("--arch", default="",

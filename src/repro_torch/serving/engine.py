@@ -38,6 +38,7 @@ from repro_torch.serving.kv_cache import SlotManager
 from repro_torch.serving.request import Request, RequestStatus
 from repro_torch.serving.serve_step import build_serve_fns
 from repro_torch.telemetry import G_IDX, GAUGES, tenant_report
+from repro_torch.telemetry import trace as TR
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,18 +53,25 @@ class EngineConfig:
     #                                   vectorized so headroom is cheap
     kv_overcommit: float = 1.0        # R3: 1.0 = strict static reservation
     telemetry: bool = True            # per-tenant metric plane (DESIGN.md §6)
-    telemetry_backend: str = "numpy"  # only "numpy" in this package
+    telemetry_backend: str = "numpy"  # "numpy" | "torch" (state on the
+    #                                   executor's device, commits with no
+    #                                   host sync)
     qos_interval: int = 0             # steps between QoS control updates;
     #                                   0 = static weights (no control loop)
     observe_interval: int = 0         # steps between metrics-bus frames;
     #                                   0 = follow qos_interval (or 16
     #                                   without a controller).  Only paid
     #                                   when a bus/SLO audit is attached.
-    trace: bool = False               # flight recorder: not ported, raises
+    trace: bool = False               # packet-lifecycle flight recorder
+    trace_depth: int = 65536          # span ring depth (DESIGN.md §10)
+    trace_decision_depth: int = 8192  # decision-provenance ring depth
 
 
 class NullExecutor:
-    """Scheduling-only backend (no model): deterministic fake tokens."""
+    """Scheduling-only backend (no model): deterministic fake tokens.
+
+    It has no device, so a ``"torch"`` telemetry backend keeps its state
+    on the card by default."""
 
     def __init__(self, cfg: EngineConfig):
         self.B = cfg.max_slots
@@ -124,11 +132,14 @@ class Engine(EngineBase):
         # tenant/budget/EQ/telemetry plumbing is the shared engine-core
         # layer (core/engine_base.py)
         T = ecfg.max_tenants
+        self.exe = executor or NullExecutor(ecfg)
         super().__init__(T, shared_eq=False, telemetry=ecfg.telemetry,
                          telemetry_backend=ecfg.telemetry_backend,
-                         trace=ecfg.trace)
+                         trace=ecfg.trace, trace_depth=ecfg.trace_depth,
+                         trace_decision_depth=ecfg.trace_decision_depth,
+                         trace_pus=ecfg.max_slots,
+                         telemetry_device=getattr(self.exe, "device", None))
         self.cfg = ecfg
-        self.exe = executor or NullExecutor(ecfg)
         self.ectx = self.ectxs          # legacy aliases for the public
         self.eq = self.eqhub.queues     # surface (dict views, shared state)
         self.tokens_used = self.budget.spent
@@ -154,6 +165,10 @@ class Engine(EngineBase):
         # create/destroy); the controller scales these, never overwrites
         self._prio_base = np.ones(T)
         self._dwrr_base = np.ones(T)
+        # flight-recorder bookkeeping (DESIGN.md §10): packet uid =
+        # submission order; rid -> uid survives until EQ_COMPLETE
+        self._tr_uid = 0
+        self._tr_uid_by_rid: Dict[int, int] = {}
 
     # ------------------------------------------------------------------
     # control plane (R5: processed before data-path work each step)
@@ -190,6 +205,11 @@ class Engine(EngineBase):
         for req in self.queues.pop(tenant_id, ()):
             req.status = RequestStatus.REJECTED
             req.finish_step = self.step_count
+            if self.trace is not None:
+                uid = self._tr_uid_by_rid.pop(req.rid, -1)
+                self.trace.span_abandon(TR.ST_FMQ, uid,
+                                        float(self.step_count),
+                                        TR.D_REJECT)
             self.done.append(req)
             if eq is not None:
                 eq.push(Event(tenant_id, EventKind.EVICTED, self.step_count,
@@ -226,10 +246,17 @@ class Engine(EngineBase):
         if self.tel is not None:
             self.tel.inc("arrivals", req.tenant_id)
             self.tel.inc("bytes_in", req.tenant_id, req.prompt_len)
+        tr = self.trace
+        uid = -1
+        if tr is not None:
+            uid = self._tr_uid
+            self._tr_uid += 1
         if not self._admit[req.tenant_id]:
             # QoS controller backpressure (hysteresis on congestion)
             req.status = RequestStatus.REJECTED
             self._reject_count(req.tenant_id)
+            if tr is not None:
+                self._trace_reject(uid, req.tenant_id)
             self.eq[req.tenant_id].push(Event(
                 req.tenant_id, EventKind.BACKPRESSURE, self.step_count))
             return req
@@ -239,6 +266,8 @@ class Engine(EngineBase):
         if self.budget.exhausted(req.tenant_id, tlimit):
             req.status = RequestStatus.REJECTED
             self._reject_count(req.tenant_id)
+            if tr is not None:
+                self._trace_reject(uid, req.tenant_id)
             self.eq[req.tenant_id].push(Event(
                 req.tenant_id, EventKind.TOTAL_BUDGET_EXCEEDED,
                 self.step_count,
@@ -247,6 +276,8 @@ class Engine(EngineBase):
         if req.prompt_len + req.max_new_tokens > self.cfg.max_len:
             req.status = RequestStatus.REJECTED
             self._reject_count(req.tenant_id)
+            if tr is not None:
+                self._trace_reject(uid, req.tenant_id)
             self.eq[req.tenant_id].push(Event(
                 req.tenant_id, EventKind.MEMORY_FAULT, self.step_count,
                 "request exceeds slot KV capacity"))
@@ -258,6 +289,8 @@ class Engine(EngineBase):
         if limit and req.prompt_len + 1 > limit:
             req.status = RequestStatus.REJECTED
             self._reject_count(req.tenant_id)
+            if tr is not None:
+                self._trace_reject(uid, req.tenant_id)
             self.eq[req.tenant_id].push(Event(
                 req.tenant_id, EventKind.CYCLE_BUDGET_EXCEEDED,
                 self.step_count,
@@ -266,6 +299,11 @@ class Engine(EngineBase):
         req.rid = self._next_rid
         self._next_rid += 1
         req.arrival_step = self.step_count
+        if tr is not None:
+            now = float(self.step_count)
+            tr.span(TR.ST_ARRIVE, uid, req.tenant_id, now, now, TR.D_OK)
+            tr.span_begin(TR.ST_FMQ, uid, req.tenant_id, now)
+            self._tr_uid_by_rid[req.rid] = uid
         self.queues[req.tenant_id].append(req)
         self.st.queue_len[req.tenant_id] += 1
         return req
@@ -273,6 +311,11 @@ class Engine(EngineBase):
     def _reject_count(self, tenant_id: int) -> None:
         if self.tel is not None:
             self.tel.inc("rejected", tenant_id)
+
+    def _trace_reject(self, uid: int, tenant_id: int) -> None:
+        now = float(self.step_count)
+        self.trace.span(TR.ST_ARRIVE, uid, tenant_id, now, now, TR.D_REJECT)
+        TR.record_admission_reject(self.trace, now, tenant_id)
 
     def poll_events(self, tenant_id: int) -> List[Event]:
         return self.eqhub.poll(tenant_id)
@@ -285,6 +328,8 @@ class Engine(EngineBase):
         KV-quota caps folded into eligibility vectorially (R1 + R3).
         ``st.queue_len``/``st.cur_occup`` are charged per pick."""
         caps = self.slots.quota_caps(self.cfg.max_tenants)
+        tr = self.trace
+        now = float(self.step_count)
         if self.cfg.scheduler == "rr":
             picks: List[int] = []
             for _ in range(k):
@@ -292,14 +337,30 @@ class Engine(EngineBase):
                                      mask=self.st.cur_occup < caps)
                 if i < 0:
                     break
+                if tr is not None:
+                    TR.record_rr_pick(
+                        tr, now, TR.K_PU_RR, i,
+                        np.where(self.st.cur_occup < caps,
+                                 self.st.queue_len, 0),
+                        self.st.bvt)
                 self.rr_ptr = ptr
                 self.st.queue_len[i] -= 1
                 self.st.cur_occup[i] += 1
                 picks.append(i)
             return picks
-        return [int(t) for t in
-                W.select_k(self.st, self.cfg.max_slots, k, cap=caps)
-                if t >= 0]
+        if tr is None:
+            return [int(t) for t in
+                    W.select_k(self.st, self.cfg.max_slots, k, cap=caps)
+                    if t >= 0]
+        # decision provenance (DESIGN.md §10): stage picks + post-round
+        # state; commit reconstructs the pre-round arrays — the
+        # scheduler itself stays untouched
+        picks = [int(t) for t in
+                 W.select_k(self.st, self.cfg.max_slots, k, cap=caps)
+                 if t >= 0]
+        TR.record_wlbvt_round(tr, now, self.st, picks, self.cfg.max_slots,
+                              TR.K_PU_WLBVT, cap=caps)
+        return picks
 
     def _assign_slots(self) -> None:
         k = int(self.slots.free_slots().size)
@@ -309,6 +370,7 @@ class Engine(EngineBase):
         if not picks:
             return
         keep = np.ones(self.cfg.max_slots, bool)
+        tr = self.trace
         for t in picks:
             req = self.queues[t].popleft()
             s = self.slots.take(t)
@@ -318,6 +380,11 @@ class Engine(EngineBase):
             self.slot_req[s] = req
             self.lengths[s] = 0
             keep[s] = False
+            if tr is not None:
+                uid = self._tr_uid_by_rid.get(req.rid, -1)
+                now = float(self.step_count)
+                tr.span_end(TR.ST_FMQ, uid, now, TR.D_OK, pu=s)
+                tr.span(TR.ST_GRANT, uid, t, now, now, TR.D_OK, pu=s)
         # invalidate stale cache rows for every slot assigned this step in
         # ONE batched call (R3 isolation)
         self.exe.reset(keep)
@@ -328,6 +395,15 @@ class Engine(EngineBase):
         req.status = status
         req.finish_step = self.step_count
         t = req.tenant_id
+        tr = self.trace
+        if tr is not None:
+            uid = self._tr_uid_by_rid.pop(req.rid, -1)
+            now = float(self.step_count)
+            killed = status == RequestStatus.KILLED
+            disp = TR.D_KILL if killed else TR.D_OK
+            tr.span(TR.ST_PU, uid, t, float(req.start_step), now, disp,
+                    pu=slot)
+            tr.span(TR.ST_EQ, uid, t, now, now, disp, pu=slot)
         self.st.cur_occup[t] -= 1
         self.slots.release(slot)
         self.slot_req[slot] = None
@@ -346,6 +422,7 @@ class Engine(EngineBase):
         """Chunked prefill with DWRR tenant arbitration (R2): at most
         ``prefill_slots_per_step`` slots advance one fragment per step."""
         C = self.cfg.prefill_chunk
+        tr = self.trace
         pending_slots: Dict[int, List[int]] = {}
         for s, r in enumerate(self.slot_req):
             if r is not None and r.status == RequestStatus.PREFILL:
@@ -365,9 +442,16 @@ class Engine(EngineBase):
             for i, ss in pending_slots.items():
                 counts[i] = len(ss)
             head = np.full(T, float(C))
+            d0 = self.dwrr.deficit.copy() if tr is not None else None
+            c0 = counts.copy() if tr is not None else None
             picks = W.dwrr_select_k(self.dwrr, head, counts,
                                     quantum=float(C),
                                     k=self.cfg.prefill_slots_per_step)
+            if tr is not None:
+                TR.record_dwrr_round(
+                    tr, float(self.step_count), TR.K_AXI_DWRR,
+                    [int(i) for i in picks if i >= 0], d0, c0,
+                    self.dwrr.weights)
             chosen = [pending_slots[int(i)].pop(0) for i in picks if i >= 0]
 
         if not chosen:
@@ -389,6 +473,14 @@ class Engine(EngineBase):
             self.lengths[s] += n
             self._charge_tokens(r.tenant_id, n)
             r.chunk_steps.append(self.step_count)
+            if tr is not None:
+                # chunked prefill is the DMA-fragmentation analog: one
+                # zero-width DMA marker per fragment (step clock has no
+                # intra-step duration, so PU+FMQ still reconcile exactly)
+                uid = self._tr_uid_by_rid.get(r.rid, -1)
+                now = float(self.step_count)
+                tr.span(TR.ST_DMA, uid, r.tenant_id, now, now, TR.D_OK,
+                        pu=s)
             if r.prefill_done >= r.prompt_len:
                 r.status = RequestStatus.DECODE
                 r.generated.append(int(nxt[s]))
@@ -439,7 +531,8 @@ class Engine(EngineBase):
 
     def _commit_telemetry(self) -> None:
         """Per-step telemetry flush + gauge window: one counter/latency
-        commit and one ring push."""
+        commit and one ring push — on the ``"torch"`` backend one upload
+        and a few launches each, so the data plane never syncs."""
         tel = self.tel
         gauges = np.zeros((len(GAUGES), self.cfg.max_tenants))
         gauges[G_IDX["occupancy"]] = self.st.cur_occup
@@ -482,6 +575,8 @@ class Engine(EngineBase):
                 weights=self.st.prio[act])
         if self.tel is not None:
             self._commit_telemetry()
+        if self.trace is not None:
+            self.trace.maybe_commit()
         self.step_count += 1
 
     def run(self, steps: int) -> None:

@@ -21,8 +21,10 @@ carry the same fields, the same kernel-time reservoir and the same
 ``default_rng(0xA11CE)`` replacement stream as these simulators:
 percentiles are bit-identical.  All of it is numpy on the host, as in the
 JAX package, whose ``RunReport`` JSON the port reproduces byte for byte.
-The trace plane (flight recorder) is not ported yet: ``trace=True``
-raises ``NotImplementedError``.
+With ``trace=True`` the flight recorder (``telemetry/trace.py``) records
+packet lifecycles and scheduler provenance under every
+``if self.trace is not None`` hook; with it off the hooks cost one
+attribute check.
 """
 from __future__ import annotations
 
@@ -44,9 +46,14 @@ from repro_torch.core import wlbvt as W
 from repro_torch.sim.traffic import TracePacket
 from repro_torch.sim.workloads import WorkloadModel
 from repro_torch.telemetry import G_IDX, GAUGES, Telemetry
+from repro_torch.telemetry import trace as TR
 
 KT_RESERVOIR_CAP = 4096   # kernel-time samples retained per tenant
 _KT_RNG_SEED = 0xA11CE    # reservoir replacement stream (deterministic)
+
+# module-local copies of the hot trace dispositions: one global load in
+# the per-completion path instead of a module-attribute lookup
+_D_OK, _D_MARK, _D_KILL = TR.D_OK, TR.D_MARK, TR.D_KILL
 
 
 @dataclasses.dataclass
@@ -189,9 +196,14 @@ class Simulator(EngineBase):
                  controller=None,
                  control_interval_ns: float = 8000.0,
                  record_completions: bool = False,
-                 trace: bool = False):
+                 trace: bool = False,
+                 trace_depth: int = 65536,
+                 trace_decision_depth: int = 8192):
         T = len(tenants)
-        super().__init__(T, shared_eq=True, trace=trace)
+        super().__init__(T, shared_eq=True, trace=trace,
+                         trace_depth=trace_depth,
+                         trace_decision_depth=trace_decision_depth,
+                         trace_pus=hw.num_pus)
         self.hw = hw
         self.sched_kind = scheduler
         self.frag = frag or FragmentationPolicy(mode="off")
@@ -260,6 +272,23 @@ class Simulator(EngineBase):
                                             / self.io_window_ns)))
         self._win_count = 0
         self._gauges_buf = np.zeros((len(GAUGES), T))
+        # trace plane (EngineBase seam; None unless trace=True): uids are
+        # assigned in arrival-processing order, and a tracing-only free-slot
+        # mirror attributes PU_EXEC spans to slots exactly like the batched
+        # datapath's slot table (list(range(P-1,-1,-1)), pop from the end)
+        self._tr_uid = 0
+        self._tr_free = (list(range(hw.num_pus - 1, -1, -1))
+                         if self.trace is not None else None)
+        # tracing-only slot columns (uid / grant / t_comp / packet), so
+        # the hot paths never allocate per-packet records: pkt.meta is
+        # the uid while queued, then the slot index once granted.  A
+        # finished slot's packet ref goes stale rather than being
+        # cleared — trace_flush walks only busy (non-free) slots
+        P = hw.num_pus
+        self._tr_s_uid = [0] * P
+        self._tr_s_grant = [0.0] * P
+        self._tr_s_tcomp = [0.0] * P
+        self._tr_s_pkt: List[Optional[PacketDescriptor]] = [None] * P
 
     # -- event machinery ---------------------------------------------------
     def _post(self, t: float, fn: Callable[[], None]) -> None:
@@ -326,6 +355,8 @@ class Simulator(EngineBase):
         every ``_ctrl_every`` windows (observe-before-control, so a
         boundary-coincident SLO alert precedes the intervention)."""
         self.tel.commit()
+        if self.trace is not None:
+            self.trace.maybe_commit()   # batched ring scatter (size-gated)
         gauges = self._gauges_buf    # all rows overwritten below
         gauges[G_IDX["occupancy"]] = occ
         gauges[G_IDX["queue_len"]] = self.st.queue_len
@@ -357,6 +388,10 @@ class Simulator(EngineBase):
         st.first_arrival = min(st.first_arrival, self.now)
         self.tel.inc("arrivals", i)
         self.tel.inc("bytes_in", i, pkt.size)
+        tr = self.trace
+        if tr is not None:
+            uid = self._tr_uid
+            self._tr_uid += 1
         if not self._admit[i]:
             # controller backpressure: source-throttled before the FMQ.
             # Telemetry counts this as "rejected", NOT "drops" — drop_rate
@@ -365,6 +400,10 @@ class Simulator(EngineBase):
             st.drops += 1
             self.tel.inc("rejected", i)
             self.eqhub.push(Event(i, EventKind.BACKPRESSURE, self.now))
+            if tr is not None:
+                tr.span(TR.ST_ARRIVE, uid, i, self.now, self.now,
+                        TR.D_REJECT)
+                TR.record_admission_reject(tr, self.now, i)
             return
         pd = PacketDescriptor(i, pkt.size, self.now)
         res = fmq.push(pd)
@@ -372,12 +411,19 @@ class Simulator(EngineBase):
             st.drops += 1
             self.tel.inc("drops", i)
             self.eqhub.push(Event(i, EventKind.QUEUE_OVERFLOW, self.now))
+            if tr is not None:
+                tr.span(TR.ST_ARRIVE, uid, i, self.now, self.now,
+                        TR.D_DROP)
             return
         if res == PushResult.MARKED:
             # paper's mark-before-drop path: congestion signal surfaced
             # through the tenant EQ and the telemetry plane before losses
             self.tel.inc("ecn_marks", i)
             self.eqhub.push(Event(i, EventKind.ECN_MARK, self.now))
+        if tr is not None:
+            # all rows (ARRIVE included) are staged whole at
+            # completion; the arrive disposition rides on pkt.ecn
+            pd.meta = uid
         self.st.queue_len[i] += 1
         self._dispatch()
 
@@ -386,15 +432,25 @@ class Simulator(EngineBase):
         pkt = self.fmqs[idx].pop()
         assert pkt is not None
         self.free_pus -= 1
+        if self.trace is not None:
+            slot = self._tr_free.pop()
+            self._tr_s_uid[slot] = pkt.meta
+            self._tr_s_grant[slot] = self.now
+            pkt.meta = slot
+            self._tr_s_pkt[slot] = pkt  # rows emitted whole at completion
         self._start_kernel(idx, pkt)
 
     def _dispatch(self) -> None:
+        tr = self.trace
         if self.sched_kind == "rr":
             while self.free_pus > 0:
                 idx, self.rr_ptr = W.select_rr(self.rr_ptr,
                                                self.st.queue_len)
                 if idx < 0:
                     return
+                if tr is not None:
+                    TR.record_rr_pick(tr, self.now, TR.K_PU_RR, idx,
+                                      self.st.queue_len, self.st.bvt)
                 self.st.queue_len[idx] -= 1
                 self.st.cur_occup[idx] += 1
                 self._pop_and_start(idx)
@@ -403,10 +459,35 @@ class Simulator(EngineBase):
             return
         # one batched WLBVT round fills every free PU (select_k charges
         # queue_len/cur_occup per pick, matching the scalar loop)
-        for idx in W.select_k(self.st, self.hw.num_pus, self.free_pus):
+        if tr is None:
+            for idx in W.select_k(self.st, self.hw.num_pus, self.free_pus):
+                if idx < 0:
+                    break
+                self._pop_and_start(int(idx))
+            return
+        # provenance: stage the picks + the post-round state; the
+        # pre-round arrays are reconstructed at commit (the picks are
+        # exactly the charge select_k applied).  The common round frees
+        # exactly one PU, so the single-pick case skips the list
+        npus = self.hw.num_pus
+        first = -1
+        picks = None
+        for idx in W.select_k(self.st, npus, self.free_pus):
             if idx < 0:
                 break
-            self._pop_and_start(int(idx))
+            i = int(idx)
+            if first < 0:
+                first = i
+            elif picks is None:
+                picks = [first, i]
+            else:
+                picks.append(i)
+            self._pop_and_start(i)
+        if first >= 0:
+            TR.record_wlbvt_round(
+                tr, self.now, self.st,
+                picks if picks is not None else (first,),
+                npus, TR.K_PU_WLBVT)
 
     def _start_kernel(self, idx: int, pkt: PacketDescriptor) -> None:
         fmq = self.fmqs[idx]
@@ -430,6 +511,8 @@ class Simulator(EngineBase):
             comp += self.frag.sw_overhead_cycles * nfrag
 
         t_comp = t0 + self.hw.cycles_ns(comp)
+        if self.trace is not None:
+            self._tr_s_tcomp[pkt.meta] = t_comp
 
         def fin(t_done: float, was_killed=killed, was_budget=budget_killed):
             self._finish_kernel(idx, pkt, t0, t_done, was_killed, payload,
@@ -465,6 +548,15 @@ class Simulator(EngineBase):
         # sojourn (arrival -> completion) latency: queueing included, so
         # the control plane sees congestion the service time alone hides
         self.tel.lat(idx, self.now - pkt.arrival)
+        tr = self.trace
+        if tr is not None:
+            slot = pkt.meta
+            tr.span_packet(self._tr_s_uid[slot], idx, slot,
+                           _D_KILL if killed else _D_OK,
+                           _D_MARK if pkt.ecn else _D_OK,
+                           pkt.arrival, self._tr_s_grant[slot],
+                           self._tr_s_tcomp[slot], self.now)
+            self._tr_free.append(slot)
         self.fmqs[idx].completed += 1
         self._dispatch()
 
@@ -509,10 +601,15 @@ class Simulator(EngineBase):
             return None
         head = np.array([q[0][0].nbytes if q else 0 for q in self.axi_q],
                         float)
+        tr = self.trace
+        d0 = self.dwrr.deficit.copy() if tr is not None else None
         i = W.dwrr_select(self.dwrr, head, pending,
                           quantum=float(self.frag.fragment_bytes))
         if i < 0:
             return None
+        if tr is not None:
+            TR.record_dwrr_grant(tr, self.now, TR.K_AXI_DWRR, i, d0,
+                                 pending, self.dwrr.weights)
         frag, kind, cb = self.axi_q[i].popleft()
         return i, frag, kind, cb
 
@@ -569,10 +666,15 @@ class Simulator(EngineBase):
             return None
         head = np.array([q[0][0].nbytes if q else 0 for q in self.egress_q],
                         float)
+        tr = self.trace
+        d0 = self.egress_dwrr.deficit.copy() if tr is not None else None
         i = W.dwrr_select(self.egress_dwrr, head, pending,
                           quantum=float(self.frag.fragment_bytes))
         if i < 0:
             return None
+        if tr is not None:
+            TR.record_dwrr_grant(tr, self.now, TR.K_EGRESS_DWRR, i, d0,
+                                 pending, self.egress_dwrr.weights)
         frag, cb = self.egress_q[i].popleft()
         return i, frag, cb
 
@@ -597,6 +699,46 @@ class Simulator(EngineBase):
 
         self._post(self.now + dur, done)
 
+    # -- trace plane ---------------------------------------------------------
+    def trace_flush(self, t: float) -> None:
+        """End-of-run flush: the hot paths record whole lifecycles only
+        at completion, so packets still queued or on a PU have no rows
+        yet.  Walk the FMQ FIFOs (open FMQ spans) and the in-flight
+        slot table (closed FMQ/GRANT plus an open PU or DMA span), in
+        uid order so both sim datapaths emit identical flush rows."""
+        tr = self.trace
+        if tr is None:
+            return
+        ents = []
+        for fmq in self.fmqs:
+            for pd in fmq.fifo:
+                ents.append((pd.meta, pd.tenant, pd.arrival,
+                             TR.D_MARK if pd.ecn else TR.D_OK, None))
+        free = set(self._tr_free)
+        for slot in range(self.hw.num_pus):
+            if slot in free:
+                continue
+            pd = self._tr_s_pkt[slot]
+            ents.append((self._tr_s_uid[slot], pd.tenant, pd.arrival,
+                         TR.D_MARK if pd.ecn else TR.D_OK,
+                         (slot, self._tr_s_grant[slot],
+                          self._tr_s_tcomp[slot])))
+        for uid, ten, arr, adisp, m in sorted(ents,
+                                              key=lambda e: e[0]):
+            tr.span(TR.ST_ARRIVE, uid, ten, arr, arr, adisp)
+            if m is None:
+                tr.span(TR.ST_FMQ, uid, ten, arr, t, TR.D_OPEN)
+                continue
+            slot, g, tc = m
+            tr.span(TR.ST_FMQ, uid, ten, arr, g, TR.D_OK, pu=slot)
+            tr.span(TR.ST_GRANT, uid, ten, g, g, TR.D_OK, pu=slot)
+            if t >= tc:
+                tr.span(TR.ST_PU, uid, ten, g, tc, TR.D_OK, pu=slot)
+                tr.span(TR.ST_DMA, uid, ten, tc, t, TR.D_OPEN, pu=slot)
+            else:
+                tr.span(TR.ST_PU, uid, ten, g, t, TR.D_OPEN, pu=slot)
+        tr.commit()
+
     # -- main loop -----------------------------------------------------------
     def run(self, trace: List[TracePacket],
             horizon: Optional[float] = None) -> SimResult:
@@ -614,6 +756,8 @@ class Simulator(EngineBase):
         if self.record_timeline:
             tl = {k: np.array(v) for k, v in self._tl.items()}
         self.tel.commit()        # flush any partial-window staged samples
+        if self.trace is not None:
+            self.trace.commit()
         return SimResult(
             time=self.now,
             stats=self.stats,

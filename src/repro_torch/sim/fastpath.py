@@ -55,6 +55,7 @@ from repro_torch.core.engine_base import BudgetLedger
 from repro_torch.core import wlbvt as W
 from repro_torch.sim.engine import KT_RESERVOIR_CAP, SimResult, Simulator
 from repro_torch.sim.traffic import TraceArrays
+from repro_torch.telemetry import trace as TR
 from repro_torch.telemetry.metrics import C_IDX
 
 MAX_BATCH = 8192        # arrival-batch cap (bounds the fold buffer)
@@ -211,6 +212,15 @@ class BatchedSimulator(Simulator):
         self._s_payload = [0] * P
         self._s_io = [0] * P
         self._free_slots = list(range(P - 1, -1, -1))
+        # tracing-only slot columns + packet-index -> uid lookup (uids
+        # are assigned in arrival-processing order, matching the event
+        # loop's per-_arrival counter)
+        if self.trace is not None:
+            self._s_uid = [0] * P
+            self._s_grant = [0.0] * P
+            self._s_tcomp = [0.0] * P
+            self._tr_uid_arr = np.empty(0, np.int64)
+            self._tr_adisp = np.empty(0, np.int8)  # ARRIVE disposition
         # append-only packet store (indices stay valid across injections);
         # columns read only scalar at dispatch time are plain lists
         self._p_t = np.empty(0)
@@ -345,6 +355,11 @@ class BatchedSimulator(Simulator):
         self._p_payload.extend(payload.tolist())
         self._p_comp.extend(comp.tolist())
         self._p_io.extend(io.tolist())
+        if self.trace is not None:
+            self._tr_uid_arr = np.concatenate(
+                [self._tr_uid_arr, np.full(n, -1, np.int64)])
+            self._tr_adisp = np.concatenate(
+                [self._tr_adisp, np.full(n, TR.D_OK, np.int8)])
         # merge the not-yet-arrived tail with the new packets, in the
         # exact heap order the event loop would pop: (time, seq)
         merged = np.concatenate([self._order[self._cursor:],
@@ -573,12 +588,16 @@ class BatchedSimulator(Simulator):
         return picks
 
     def _dispatch(self) -> None:
+        tr = self.trace
         if self.sched_kind == "rr":
             while self.free_pus > 0:
                 idx, self.rr_ptr = W.select_rr(self.rr_ptr,
                                                self.st.queue_len)
                 if idx < 0:
                     return
+                if tr is not None:
+                    TR.record_rr_pick(tr, self.now, TR.K_PU_RR, idx,
+                                      self.st.queue_len, self.st.bvt)
                 self.st.queue_len[idx] -= 1
                 self.st.cur_occup[idx] += 1
                 self._occF_act[idx] = self.st.cur_occup[idx]
@@ -588,7 +607,18 @@ class BatchedSimulator(Simulator):
             return
         if self.free_pus <= 0:
             return
-        for idx in self._wlbvt_round(self.free_pus):
+        if tr is None:
+            for idx in self._wlbvt_round(self.free_pus):
+                self._pop_and_start(idx)
+            return
+        # provenance: stage picks + post-round state (the round charges
+        # queue_len/cur_occup in place; commit reconstructs the pre-round
+        # arrays) — identical records to the event loop because the
+        # picks are pinned bit-identical
+        picks = self._wlbvt_round(self.free_pus)
+        TR.record_wlbvt_round(tr, self.now, self.st, picks,
+                              self._num_pus, TR.K_PU_WLBVT)
+        for idx in picks:
             self._pop_and_start(idx)
 
     def _commit_window(self, occ: np.ndarray) -> None:
@@ -661,6 +691,11 @@ class BatchedSimulator(Simulator):
         self._s_payload[slot] = self._p_payload[j]
         self._s_io[slot] = io_bytes
         t_fin = t0 + self.hw.cycles_ns(comp)
+        if self.trace is not None:
+            # rows emitted whole at completion (span_packet)
+            self._s_uid[slot] = int(self._tr_uid_arr[j])
+            self._s_grant[slot] = self.now
+            self._s_tcomp[slot] = t_fin
         heapq.heappush(self._events,
                        (t_fin, self._seq,
                         K_SUBMIT if io_bytes else K_FIN, slot))
@@ -711,6 +746,13 @@ class BatchedSimulator(Simulator):
             self._completions.append((idx, now))
         self._lat_append((idx, now - self._p_t[self._s_pkt[slot]]))
         self._c_fmqcomp[idx] += 1
+        tr = self.trace
+        if tr is not None:
+            j = self._s_pkt[slot]
+            tr.span_packet(self._s_uid[slot], idx, slot,
+                           TR.D_KILL if self._s_killed[slot] else TR.D_OK,
+                           self._tr_adisp[j], float(self._p_t[j]),
+                           self._s_grant[slot], self._s_tcomp[slot], now)
         self._free_slots.append(slot)
         self._dispatch()
 
@@ -833,16 +875,28 @@ class BatchedSimulator(Simulator):
         d = self._tc_dirty
         d["arrivals"] = d["bytes_in"] = True
         fmq = self.fmqs[i]
+        tr = self.trace
+        if tr is not None:
+            uid = self._tr_uid
+            self._tr_uid += 1
+            self._tr_uid_arr[j] = uid
         if not self._admit[i]:
             st.drops += 1
             self.tel.inc("rejected", i)
             self.eqhub.push_raw(i, EventKind.BACKPRESSURE, self.now)
+            if tr is not None:
+                tr.span(TR.ST_ARRIVE, uid, i, self.now, self.now,
+                        TR.D_REJECT)
+                TR.record_admission_reject(tr, self.now, i)
             return
         if self._fifo_len[i] >= self._fifo_cap[i]:
             st.drops += 1
             fmq.drops += 1
             self.tel.inc("drops", i)
             self.eqhub.push_raw(i, EventKind.QUEUE_OVERFLOW, self.now)
+            if tr is not None:
+                tr.span(TR.ST_ARRIVE, uid, i, self.now, self.now,
+                        TR.D_DROP)
             return
         self._fifo[i].append(j)
         self._fifo_len[i] += 1
@@ -852,6 +906,10 @@ class BatchedSimulator(Simulator):
             fmq.ecn_marks += 1
             self.tel.inc("ecn_marks", i)
             self.eqhub.push_raw(i, EventKind.ECN_MARK, self.now)
+            if tr is not None:
+                # accepted packets get their ARRIVE row at completion
+                # (span_packet); only the disposition is noted here
+                self._tr_adisp[j] = TR.D_MARK
         if self.st.queue_len[i] == 0:
             self._limit_dirty = True
             if self.st.cur_occup[i] == 0:      # joins the active set
@@ -919,6 +977,13 @@ class BatchedSimulator(Simulator):
         tn = self._p_tenant[batch]
         T = self._T
         st = self.st
+        tr = self.trace
+        if tr is not None:
+            # uids in arrival-processing order, assigned for the whole
+            # batch in one vectorized store
+            tr_uids = self._tr_uid + np.arange(m, dtype=np.int64)
+            self._tr_uid += m
+            self._tr_uid_arr[batch] = tr_uids
         # --- integration folds (exact: cumsum == sequential adds) -----
         dts = np.empty(m)
         d0 = otl[c] - self._last_adv
@@ -969,6 +1034,9 @@ class BatchedSimulator(Simulator):
             self._acc_fmq_drops += counts
             self._st_drops += counts
             self.eqhub.push_block(tn, self._kind2[:m], ord_t[c:e])
+            if tr is not None:
+                tr.span_block(TR.ST_ARRIVE, tr_uids, tn, ord_t[c:e],
+                              ord_t[c:e], TR.D_DROP)
             return
         open_pos = (~full_t[tn]).nonzero()[0]
         if open_pos.size <= 16:
@@ -1026,6 +1094,15 @@ class BatchedSimulator(Simulator):
                 if ev_pos.size:
                     self.eqhub.push_block(tn[ev_pos], kind[ev_pos],
                                           ord_t[c:e][ev_pos])
+            if tr is not None:
+                dsel = (kind == 2).nonzero()[0]
+                if dsel.size:
+                    tr.span_block(TR.ST_ARRIVE, tr_uids[dsel], tn[dsel],
+                                  ord_t[c:e][dsel], ord_t[c:e][dsel],
+                                  TR.D_DROP)
+                msel = (kind == 1).nonzero()[0]
+                if msel.size:
+                    self._tr_adisp[batch[msel]] = TR.D_MARK
             return
         fit_t = fl + counts < self._ecn_thresh
         kind = None
@@ -1085,6 +1162,15 @@ class BatchedSimulator(Simulator):
                 # EQ events stay per packet in chronological order; the
                 # block log materializes only the retained ring window
                 self.eqhub.push_block(ftn, fk, ord_t[c:e][flagged])
+        if tr is not None and kind is not None:
+            dsel = (kind == 2).nonzero()[0]
+            if dsel.size:
+                tr.span_block(TR.ST_ARRIVE, tr_uids[dsel], tn[dsel],
+                              ord_t[c:e][dsel], ord_t[c:e][dsel],
+                              TR.D_DROP)
+            msel = (kind == 1).nonzero()[0]
+            if msel.size:
+                self._tr_adisp[batch[msel]] = TR.D_MARK
 
     def _flush_accumulators(self) -> None:
         """Fold the batch-side vector counters and the scalar-hot-path
@@ -1134,6 +1220,44 @@ class BatchedSimulator(Simulator):
                         st.record_kernel_time(v)
                 self._kt_pend[i] = []
         self.budget.spent[:] = self._spent
+
+    # ------------------------------------------------------------------
+    # trace plane
+    # ------------------------------------------------------------------
+    def trace_flush(self, t: float) -> None:
+        """End-of-run flush mirroring the event loop's override row for
+        row: queued packets from the SoA FIFOs, in-flight ones from the
+        slot table, in uid order."""
+        tr = self.trace
+        if tr is None:
+            return
+        ents = []
+        for i, q in enumerate(self._fifo):
+            for j in q:
+                ents.append((int(self._tr_uid_arr[j]), i,
+                             float(self._p_t[j]),
+                             int(self._tr_adisp[j]), None))
+        busy = set(range(self.hw.num_pus)) - set(self._free_slots)
+        for slot in busy:
+            j = self._s_pkt[slot]
+            ents.append((self._s_uid[slot], self._s_tenant[slot],
+                         float(self._p_t[j]), int(self._tr_adisp[j]),
+                         (slot, self._s_grant[slot],
+                          self._s_tcomp[slot])))
+        for uid, ten, arr, adisp, m in sorted(ents, key=lambda e: e[0]):
+            tr.span(TR.ST_ARRIVE, uid, ten, arr, arr, adisp)
+            if m is None:
+                tr.span(TR.ST_FMQ, uid, ten, arr, t, TR.D_OPEN)
+                continue
+            slot, g, tc = m
+            tr.span(TR.ST_FMQ, uid, ten, arr, g, TR.D_OK, pu=slot)
+            tr.span(TR.ST_GRANT, uid, ten, g, g, TR.D_OK, pu=slot)
+            if t >= tc:
+                tr.span(TR.ST_PU, uid, ten, g, tc, TR.D_OK, pu=slot)
+                tr.span(TR.ST_DMA, uid, ten, tc, t, TR.D_OPEN, pu=slot)
+            else:
+                tr.span(TR.ST_PU, uid, ten, g, t, TR.D_OPEN, pu=slot)
+        tr.commit()
 
     # ------------------------------------------------------------------
     # main loop
@@ -1188,6 +1312,8 @@ class BatchedSimulator(Simulator):
         if self.record_timeline:
             tl = {k: np.array(v) for k, v in self._tl.items()}
         self.tel.commit()        # flush any partial-window staged samples
+        if self.trace is not None:
+            self.trace.commit()
         return SimResult(
             time=self.now,
             stats=self.stats,

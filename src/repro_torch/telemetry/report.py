@@ -8,11 +8,14 @@ from typing import Dict, Optional
 import numpy as np
 
 from repro_torch.telemetry import metrics as M
+from repro_torch.telemetry.signals import SignalFrame
 
 
 def tenant_report(tel, *, names: Optional[Dict[int, str]] = None,
+                  signals: Optional[SignalFrame] = None,
                   only_active: bool = True) -> dict:
-    """Fold a ``Telemetry`` plane into a JSON-able per-tenant report."""
+    """Fold a ``Telemetry`` plane (and optionally a ``SignalFrame``) into
+    a JSON-able per-tenant report."""
     snap = tel.snapshot()
     counts, hist = snap["counts"], snap["hist"]
     p50 = M.hist_quantile(hist, 0.50, np)
@@ -28,9 +31,15 @@ def tenant_report(tel, *, names: Optional[Dict[int, str]] = None,
         row["latency_samples"] = float(hist[t].sum())
         if names and t in names:
             row["name"] = names[t]
+        if signals is not None:
+            row["service_debt"] = float(signals.service_debt[t])
+            row["ecn_rate"] = float(signals.ecn_rate[t])
+            row["kv_pressure"] = float(signals.kv_pressure[t])
         tenants[t] = row
-    return {"num_tenants": tel.T, "backend": tel.backend,
-            "tenants": tenants}
+    out = {"num_tenants": tel.T, "backend": tel.backend, "tenants": tenants}
+    if signals is not None:
+        out["jain_weighted"] = signals.jain_weighted
+    return out
 
 
 # columns holding times in the report's declared latency unit
@@ -38,6 +47,7 @@ TIME_COLS = ("p50_latency", "p99_latency")
 
 
 def _latency_unit(report: dict, time_unit: Optional[str]) -> str:
+    # lazy import: api.report pulls telemetry for trace summaries
     from repro_torch.api.report import TIME_UNITS
     unit = time_unit or report.get("latency_unit") or TIME_UNITS[0]
     if unit not in TIME_UNITS:

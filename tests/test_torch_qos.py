@@ -177,8 +177,10 @@ def test_serve_controller_moves_weights_and_resets_on_destroy():
     assert ctl.weights[0] == 1.0 and not ctl.paused[0]
     with pytest.raises(ValueError, match="qos_interval"):
         Engine(EngineConfig(max_tenants=2)).attach_controller(ctl)
-    with pytest.raises(NotImplementedError, match="metrics bus"):
-        eng.attach_bus(object())
+    from repro_torch.telemetry.bus import MetricsBus
+    bus = MetricsBus()
+    eng.attach_bus(bus)              # the bus plane is ported: it attaches
+    assert eng.bus is bus
 
 
 # ---------------------------------------------------------------------------

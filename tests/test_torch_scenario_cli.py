@@ -80,15 +80,21 @@ def test_arch_smoke_serves_on_the_cpu(capsys):
     assert "scenario=serve_mixed_slo backend=serve" in out
 
 
-def test_arch_defaults_to_the_card_and_unported_planes_raise():
+def test_arch_defaults_to_the_card_and_unported_planes_raise(tmp_path,
+                                                              capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["serve_mixed_slo", "--backend", "serve", "--arch",
                       "qwen3-8b", "--smoke"])
-    with pytest.raises(NotImplementedError, match="metrics bus"):
-        cli.main(["fig9_congestor_victim", "--set", "duration_us=5",
-                  "--export", "unused_dir"])
-    with pytest.raises(NotImplementedError, match="metrics bus"):
-        cli.main(["fig9_congestor_victim", "--dash"])
+    # the planes that raised before they were ported now run: --export
+    # writes both exports, --dash draws its panel
+    out = tmp_path / "obs"
+    assert cli.main(["fig9_congestor_victim", "--set", "duration_us=5",
+                     "--export", str(out)]) == 0
+    assert (out / "fig9_congestor_victim.sim.om.txt").read_text()
+    assert (out / "fig9_congestor_victim.sim.jsonl").read_text()
+    assert cli.main(["fig9_congestor_victim", "--set", "duration_us=5",
+                     "--dash"]) == 0
+    assert "frame=" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         cli.main(["serve_mixed_slo", "--backend", "sim"])

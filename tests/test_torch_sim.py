@@ -187,9 +187,14 @@ def test_datapaths_and_factory():
 
 
 def test_trace_plane_raises():
+    # the flight recorder is ported: trace=True builds one on both
+    # datapaths instead of raising, and the default stays off
+    from repro_torch.telemetry.trace import TraceRecorder
     e = ECTX(0, "t", SLOPolicy())
-    with pytest.raises(NotImplementedError, match="trace"):
-        build_simulator([e], trace=True)
+    for dp in DATAPATHS:
+        assert isinstance(build_simulator([e], datapath=dp,
+                                          trace=True).trace, TraceRecorder)
+    assert build_simulator([e]).trace is None
 
 
 # ---------------------------------------------------------------------------
