@@ -23,8 +23,11 @@ prints no result.  Phases, each of which raises on failure:
      RecurrentGemma-2B's heads (10 on 1 KV head of 256, window 2048) by
      index and by stored positions, wrapped rings of 64 entries with
      stored positions, RecurrentGemma's full 2048-entry ring wrapped
-     (lengths 2049-4000) and Qwen3's heads over T 4096 (tolerances 2e-5
-     fp32, 2e-2 bf16; empty rows exactly 0);
+     (lengths 2049-4000), Qwen3's heads over T 4096, and phase 22's
+     serve shapes (``NEW_DECODE``, T 256): CodeQwen1.5-7B's 32 on 32,
+     Gemma-7B's 16 on 16 of 256, Gemma2-27B's 32 on 16 with cap 50,
+     window 4096, scale 144^-0.5 and stored positions, Qwen2-VL-72B's 64
+     on 8 (tolerances 2e-5 fp32, 2e-2 bf16; empty rows exactly 0);
   4. time the decode kernel and one PyTorch call that computes the same
      function (``scaled_dot_product_attention`` with an explicit mask,
      timed here only; the kernels it ran, from a profile, are logged) as
@@ -33,7 +36,9 @@ prints no result.  Phases, each of which raises on failure:
      more buffers than the 50 MB L2 holds (as the layers' caches are on
      the main path), beside its least time from bytes and its plain
      version: Qwen3's heads at T 256 and T 4096, RecurrentGemma's at T
-     256 and on its wrapped 2048-entry ring (stored positions);
+     256 and on its wrapped 2048-entry ring (stored positions), and the
+     four shapes of phase 22's serves at T 256 (SDPA has no soft-cap: at
+     Gemma2's shape it computes, and times, the uncapped function);
   5. the main path: full-width, full-depth Qwen3-8B with random weights
      from a seed serves ``serve_mixed_slo`` (3 tenants, 12 requests,
      8 slots, max_len 256, prefill chunk 32) through ``ServeRuntime`` +
@@ -191,6 +196,23 @@ prints no result.  Phases, each of which raises on failure:
      published and dropped, the Perfetto file's events and bytes and
      (b)'s walls, beside the card's name and power limit.
 
+ 22. (run after phase 21) the dense, vision-language and MoE/MLA
+     families at their published widths, random weights from a seed,
+     each serving phase 5's ``serve_mixed_slo``: CodeQwen1.5-7B (32
+     layers), Gemma-7B (28), Gemma2-27B (12 of 46: 6 local / global
+     pairs), Qwen2-VL-72B (6 of 80; text, so its three M-RoPE streams
+     are one) and DeepSeek-V2-Lite (27; MLA, 64 routed experts top-6 + 2
+     shared under ``gshard``); f32 parameters of one card, each model
+     freed before the next.  First its fp32 smoke config (kernel path
+     against ``chunked``, 1e-4, greedy tokens equal); then every request
+     done, the decode kernel exactly once a layer a decode step (0 for
+     DeepSeek: MLA's absorbed decode, K dim 576 and V dim 512, takes the
+     plain path), one decode step's logits against the ``chunked``
+     path's (5 % of the range) or, for DeepSeek, the absorbed prefill's
+     fp32 logits against the expanded cache-free forward's (5e-3); wall,
+     tokens/s, peak memory and a profiled decode step.  Llama-4
+     Maverick (1.6 TB of f32 parameters) fits no card and is not served.
+
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -255,6 +277,18 @@ SERVE = dict(B=8, T=256, Hq=32, Hkv=8, D=128)
 RG_DECODE = dict(B=8, T=256, Hq=10, Hkv=1, D=256)   # RecurrentGemma-2B
 # a wrapped 2048-entry ring: every row has seen 2049-4000 tokens
 RG_RING_LENGTHS = [2049, 4000, 2817, 3500, 2100, 3999, 2560, 3072]
+# the decode shapes of phase 22's serves (B 8, T 256): name, heads, window,
+# soft-cap, scale (None: 1/sqrt(D)), stored positions
+NEW_DECODE = [
+    ("codeqwen_g1", dict(B=8, T=256, Hq=32, Hkv=32, D=128), 0, 0.0, None,
+     False),
+    ("gemma7b_g1_d256", dict(B=8, T=256, Hq=16, Hkv=16, D=256), 0, 0.0,
+     None, False),
+    ("gemma2_g2_cap", dict(B=8, T=256, Hq=32, Hkv=16, D=128), 4096, 50.0,
+     144.0 ** -0.5, True),
+    ("qwen2vl_g8", dict(B=8, T=256, Hq=64, Hkv=8, D=128), 0, 0.0, None,
+     False),
+]
 SEED = 0
 
 
@@ -331,14 +365,18 @@ def check_decode_attention() -> float:
         ("qwen3_t4096", dict(S, T=4096),
          [4096, 1, 0, 3000, 2049, 4095, 17, 1024], 0, 0.0, False),
     ]
+    cases = [c + (None,) for c in cases] + [
+        (name, shp, ragged, win, cap, ring_pos, sc)
+        for name, shp, win, cap, sc, ring_pos in NEW_DECODE]
     serve_err = None
     for dtype in (torch.bfloat16, torch.float32):
-        for i, (name, shp, lengths, win, cap, ring_pos) in enumerate(cases):
+        for i, (name, shp, lengths, win, cap, ring_pos, sc) in \
+                enumerate(cases):
             q, k, v, lens = attn_inputs(**shp, lengths=lengths, dtype=dtype,
                                         seed=SEED + i)
             pos = (ring_positions(lengths, shp["T"], SEED + i) if ring_pos
                    else None)
-            scale = 1.0 / math.sqrt(shp["D"])
+            scale = sc or 1.0 / math.sqrt(shp["D"])
             got = decode_attention_cuda(q, k, v, lens, scale=scale,
                                         window=win, cap=cap, positions=pos)
             torch.cuda.synchronize()
@@ -348,7 +386,7 @@ def check_decode_attention() -> float:
             ok = torch.allclose(got.float(), want.float(), atol=TOL[dtype],
                                 rtol=TOL[dtype])
             empty_zero = bool(torch.all(got[lens <= 0] == 0))
-            log(f"check decode_attention {name:<10} {str(dtype):<15} "
+            log(f"check decode_attention {name:<15} {str(dtype):<15} "
                 f"max_abs_err={err:.3e} tol={TOL[dtype]:g} "
                 f"empty_rows_zero={empty_zero}")
             if not (ok and empty_zero and torch.isfinite(got).all()):
@@ -391,7 +429,8 @@ def library_kernels(fn) -> list:
 
 
 def time_decode_attention(T: int, calls: int, shape=None, window: int = 0,
-                          ring: bool = False, lengths=None) -> dict:
+                          ring: bool = False, lengths=None, cap: float = 0.0,
+                          scale=None) -> dict:
     """Device time per call of the kernel and of SDPA (CUDA-graph replays
     of ``calls`` calls, K/V rotated through more buffers than the 50 MB L2
     holds, as the layers' caches are on the main path), the same launched
@@ -399,7 +438,8 @@ def time_decode_attention(T: int, calls: int, shape=None, window: int = 0,
     plain version's eager time.  Full caches (length T in every row)
     unless ``lengths`` is given; ``ring``: the kernel masks by stored
     positions, as RecurrentGemma's local layers call it (a wrapped ring
-    when a length exceeds T)."""
+    when a length exceeds T).  SDPA has no soft-cap: with ``cap`` it is
+    held to, and times, the uncapped function (``library_uncapped``)."""
     S = dict(shape or SERVE, T=T)
     B, Hq, Hkv, D = S["B"], S["Hq"], S["Hkv"], S["D"]
     dtype, G = torch.bfloat16, S["Hq"] // S["Hkv"]
@@ -408,9 +448,9 @@ def time_decode_attention(T: int, calls: int, shape=None, window: int = 0,
     nbuf = max(2, math.ceil(4 * L2_BYTES / pair_bytes))
     sets = [attn_inputs(**S, lengths=lengths, dtype=dtype, seed=100 + i)
             for i in range(nbuf)]
-    scale = 1.0 / math.sqrt(D)
+    scale = scale or 1.0 / math.sqrt(D)
     pos = ring_positions(lengths, T, SEED) if ring else None
-    kw = dict(scale=scale, window=window, positions=pos)
+    kw = dict(scale=scale, window=window, positions=pos, cap=cap)
 
     def kernel(q, k, v, lens):
         return decode_attention_cuda(q, k, v, lens, **kw)
@@ -431,9 +471,10 @@ def time_decode_attention(T: int, calls: int, shape=None, window: int = 0,
         return F.scaled_dot_product_attention(q, k, v, attn_mask=m,
                                               scale=scale, enable_gqa=True)
 
-    # the yardstick computes the same function: check it once
+    # the yardstick computes the same function (but for a soft-cap, which
+    # SDPA lacks): check it once
     lib_out = library(*lib_sets[0]).transpose(1, 2)
-    ker_out = kernel(*sets[0])
+    ker_out = decode_attention_cuda(*sets[0], **dict(kw, cap=0.0))
     lib_err = (lib_out.float() - ker_out.float()).abs().max().item()
     if lib_err > TOL[dtype]:
         raise AssertionError(f"library yardstick disagrees: {lib_err}")
@@ -452,7 +493,8 @@ def time_decode_attention(T: int, calls: int, shape=None, window: int = 0,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return dict(B=B, T=T, Hq=Hq, Hkv=Hkv, D=D, window=window, ring=ring,
-                counted_keys=counted, ms=ms, library_ms=library_ms,
+                cap=cap, library_uncapped=bool(cap), counted_keys=counted,
+                ms=ms, library_ms=library_ms,
                 eager_ms=eager_ms, library_eager_ms=library_eager_ms,
                 plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -486,8 +528,9 @@ def prefill_decode_logits(cfg, module, max_len: int, prompts,
     """``module`` run as ``cfg`` (its dtype and attention implementation)
     on a fresh cache: one prefill of ``prompts`` (B, C), then one decode
     step per column of ``decode_tokens`` (B, n).  Returns [prefill last
-    logits, decode logits...]."""
-    model = build_model(cfg)
+    logits, decode logits...].  MoE layers dispatch as served
+    (``gshard``)."""
+    model = build_model(cfg, moe_impl="gshard")
     B, C = prompts.shape
     cache = model.init_cache(B, max_len, "cuda")
     lengths = torch.zeros(B, dtype=torch.int32, device="cuda")
@@ -510,10 +553,13 @@ def prefill_decode_logits(cfg, module, max_len: int, prompts,
     return out
 
 
-def check_small(arch: str, prompt_len: int, steps: int, **changes) -> None:
+def check_small(arch: str, prompt_len: int, steps: int,
+                kernels: bool = True, **changes) -> None:
     """fp32 smoke model on the card: the kernel path gives the plain
     (``chunked``) path's logits (1e-4) and greedy tokens over a prefill
-    of ``prompt_len`` tokens and ``steps`` decode steps."""
+    of ``prompt_len`` tokens and ``steps`` decode steps.  ``kernels``
+    False: the model runs no kernel (MLA's absorbed decode), and the
+    ``pallas`` path must launch none."""
     cfg = dataclasses.replace(smoke_config(arch), dtype="float32",
                               attn_impl="pallas", **changes)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -534,14 +580,15 @@ def check_small(arch: str, prompt_len: int, steps: int, **changes) -> None:
     log(f"check small fp32 {arch}: prefill of {prompt_len} + {steps} decode "
         f"steps, kernels {launched}, max_abs_err={err:.3e} tol=1e-4 "
         f"greedy_tokens_equal={same}")
-    if err > 1e-4 or not same or not launched:
+    if err > 1e-4 or not same or bool(launched) != kernels:
         raise AssertionError(f"small {arch}: kernel path disagrees")
 
 
 def check_full_width(module, cfg) -> None:
-    """Full-width Qwen3-8B: one decode step's logits through the kernel
-    against the plain path's (``chunked``: its decode is
-    ``naive_attention``), after the same prefill."""
+    """A full-width model (Qwen3-8B, phase 22's attention models): one
+    decode step's logits through the kernel against the plain path's
+    (``chunked``: its decode is ``naive_attention``), after the same
+    prefill."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     prompts = torch.randint(1, cfg.vocab_size, (8, 32), generator=g,
                             device="cuda", dtype=torch.int32)
@@ -558,7 +605,8 @@ def check_full_width(module, cfg) -> None:
     agree = (ker.argmax(-1) == plain.argmax(-1)).float().mean().item()
     # bf16 through 36 layers: the two paths round q*scale and the
     # probabilities at different points; hold them to 5% of the logit range
-    log(f"check full-width decode logits: shape={tuple(ker.shape)} finite "
+    log(f"check {cfg.name} ({cfg.num_layers} layers) full-width decode "
+        f"logits: shape={tuple(ker.shape)} finite "
         f"max_abs_err={err:.4g} max_abs_logit={scale:.4g} "
         f"greedy_agreement={agree:.3f}")
     if err > 0.05 * scale:
@@ -1839,7 +1887,7 @@ def rg_cache_free_phase() -> dict:
     B, S = 1, 4096
     tokens = torch.randint(1, cfg.vocab_size, (B, S), generator=gen,
                            device="cuda", dtype=torch.int32)
-    positions = transformer.make_positions(B, S, "cuda")
+    positions = transformer.make_positions(cfg, B, S, "cuda")
     kinds = cfg.pattern_for_layers()
     want = dict(ops.LAUNCHES, decode_attention=0, flash_attention_bwd=0,
                 wlbvt_select=0, ssd_scan=0, sweep_scan=0,
@@ -2355,6 +2403,95 @@ def planes_phase(p5: dict, decode_device_ms: float, smi: str) -> dict:
                 wall=wall, share=share)
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the dense, vision-language and MoE/MLA families
+# ---------------------------------------------------------------------------
+# published widths; depth as served here (full but for Gemma2-27B, 12 of
+# 46 layers, and Qwen2-VL-72B, 6 of 80: f32 parameters of one 80 GB card)
+NEW_FAMILIES = [("codeqwen1.5-7b", 32), ("gemma-7b", 28), ("gemma2-27b", 12),
+                ("qwen2-vl-72b", 6), ("deepseek-v2-lite-16b", 27)]
+MLA_TOL = 5e-3        # tests/test_models.py's absorbed-vs-expanded bound
+
+
+def check_mla_absorbed(module, cfg) -> None:
+    """Full-width DeepSeek-V2-Lite in fp32: the absorbed prefill's logits
+    (latent MQA, K dim rank + rope, V dim rank, against the cache) agree
+    with the expanded cache-free forward's over the same 2 x 16 tokens
+    (5e-3, as the reference's absorbed-vs-expanded test); both legs run
+    ``gshard`` on the same rows, so they route the same tokens."""
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    model = build_model(f32, moe_impl="gshard")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    toks = torch.randint(1, cfg.vocab_size, (2, 16), generator=g,
+                         device="cuda", dtype=torch.int32)
+    served = module.cfg
+    module.cfg = f32
+    try:
+        with torch.no_grad():
+            expanded, _ = model.forward(module, {"tokens": toks})
+            absorbed, _ = model.prefill(
+                module, toks, model.init_cache(2, 32, "cuda"),
+                torch.zeros(2, dtype=torch.int32, device="cuda"))
+    finally:
+        module.cfg = served
+    err = (absorbed - expanded).abs().max().item()
+    finite = bool(torch.isfinite(absorbed).all())
+    log(f"check {cfg.name} ({cfg.num_layers} layers) full-width fp32: "
+        f"absorbed prefill vs expanded forward max_abs_err={err:.4g} "
+        f"tol={MLA_TOL:g} max_abs_logit={expanded.abs().max().item():.4g} "
+        f"finite={finite}")
+    if err > MLA_TOL or not finite:
+        raise AssertionError(f"{cfg.name}: absorbed MLA disagrees with the "
+                             "expanded path")
+
+
+def serve_family(arch: str, depth: int, smi: str) -> dict:
+    """Phase 22 for one model: its fp32 smoke config on the card, then
+    its published widths at ``depth`` layers, random weights from SEED,
+    serving phase 5's ``serve_mixed_slo``; every request done, the decode
+    kernel exactly once a layer a decode step (never for MLA, whose
+    absorbed decode takes the plain path), the full-width logits check,
+    wall, tokens/s, peak memory and one profiled decode step.  Returns
+    the serve's kernel launches."""
+    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas",
+                              num_layers=depth)
+    mla = cfg.mla is not None
+    check_small(arch, 24, 16, kernels=not mla)
+    rt, rep, wall, init_s, launches = serve(cfg, SEED)
+    done = rt.engine.done
+    pc, ds = rep.extras["prefill_chunks"], rep.extras["decode_steps"]
+    generated = sum(len(r.generated) for r in done)
+    peak = torch.cuda.max_memory_allocated()
+    ex = rt.engine.exe
+    n_params = sum(p.numel() for p in ex.params.parameters())
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want["decode_attention"] = 0 if mla else cfg.num_layers * ds
+    log(f"serve {arch} ({smi}): layers={cfg.num_layers} of "
+        f"{get_config(arch).num_layers} d_model={cfg.d_model} "
+        f"heads={cfg.num_heads}/{cfg.num_kv_heads} head_dim={cfg.head_dim} "
+        f"params={n_params} init_s={init_s:.2f} steps={int(rep.duration)} "
+        f"prefill_chunks={pc} decode_steps={ds} wall_s={wall:.3f} "
+        f"generated_tokens={generated} tokens_per_s={generated / wall:.2f} "
+        f"max_memory_allocated={peak} launches={launches}")
+    log(rep.summary())
+    if len(done) != 12 or any(r.status != RequestStatus.DONE for r in done):
+        raise AssertionError(f"{arch}: not every request ended done: " + str(
+            [(r.rid, r.status.value) for r in done]))
+    if launches != want:
+        raise AssertionError(f"{arch}: launches {launches}, want {want}")
+    if mla:
+        check_mla_absorbed(ex.params, cfg)
+    else:
+        check_full_width(ex.params, cfg)
+    B = 8
+    profile_step(f"{arch} full-width decode step", lambda: ex.decode(
+        np.ones(B, np.int32), np.full(B, 128, np.int32), np.ones(B, bool)),
+        kernel="" if mla else "decode_attention")
+    del rt, ex
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2387,6 +2524,9 @@ def main() -> int:
                time_decode_attention(4096, 20),
                time_decode_attention(2048, 50, shape=RG_DECODE, window=2048,
                                      ring=True, lengths=RG_RING_LENGTHS)]
+    timings += [time_decode_attention(256, 100, shape=shp, window=win,
+                                      ring=ring, cap=cap, scale=sc)
+                for _, shp, win, cap, sc, ring in NEW_DECODE]
     for t in timings:
         log("time decode_attention bf16 (ms, library_ms: CUDA-graph "
             "replays; eager_ms, library_eager_ms, plain_ms: launched from "
@@ -2460,6 +2600,8 @@ def main() -> int:
         "the wlbvt_select kernel) " + fields(scan_t))
     cli = cli_phase(mamba)
     planes = planes_phase(p5, decode_device_ms, smi)
+    families = {arch: serve_family(arch, depth, smi)
+                for arch, depth in NEW_FAMILIES}
 
     flash_err = check_flash_attention()
     ft = time_flash_attention(20)
@@ -2482,7 +2624,9 @@ def main() -> int:
         "replaces": "src/repro/kernels/decode_attention.py:23",
         "launches": launches["decode_attention"]
         + rgemma["launches"]["decode_attention"]
-        + planes["launches"]["decode_attention"], "max_abs_err": err,
+        + planes["launches"]["decode_attention"]
+        + sum(f["decode_attention"] for f in families.values()),
+        "max_abs_err": err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]}, {
         "name": "wlbvt_select", "route": "cuda",

@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution + reduced smoke configs.
 
-Only architectures whose blocks the port has are registered; the other
-names of the JAX package's catalog raise ``NotImplementedError``.
+Every architecture of the JAX package's catalog is registered but the
+encoder-decoder one, whose name raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -16,19 +16,20 @@ from repro_torch.configs.base import (  # noqa: F401 re-export
 )
 
 _ARCH_MODULES: Dict[str, str] = {
+    "codeqwen1.5-7b": "codeqwen15_7b",
     "qwen3-8b": "qwen3_8b",
+    "gemma2-27b": "gemma2_27b",
+    "gemma-7b": "gemma_7b",
     "mamba2-370m": "mamba2_370m",
+    "llama4-maverick-400b-a17b": "llama4_maverick",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
 }
 
-# in the JAX package's catalog, waiting for blocks the port lacks (MoE,
-# MLA, untied heads, encoder-decoder, M-RoPE) or for a parity test of
-# the blocks it has (gemma-7b, gemma2-27b)
-_NOT_PORTED = (
-    "codeqwen1.5-7b", "gemma2-27b", "gemma-7b",
-    "llama4-maverick-400b-a17b", "deepseek-v2-lite-16b",
-    "qwen2-vl-72b", "whisper-large-v3",
-)
+# in the JAX package's catalog, waiting for the encoder-decoder stack
+# (cross-attention and its second cache layout)
+_NOT_PORTED = ("whisper-large-v3",)
 
 
 def list_archs() -> List[str]:
@@ -47,8 +48,8 @@ def get_config(name: str) -> ModelConfig:
 
 
 def smoke_config(name: str) -> ModelConfig:
-    """Reduced same-family config: small widths, few layers, tiny vocab —
-    runnable forward/serve step on the CPU."""
+    """Reduced same-family config: small widths, few layers/experts, tiny
+    vocab — runnable forward/serve step on the CPU."""
     cfg = get_config(name)
     pat = cfg.block_pattern
     n_layers = max(2, len(pat))            # at least one full pattern group
@@ -65,6 +66,16 @@ def smoke_config(name: str) -> ModelConfig:
         scan_layers=True,
         remat="none",
     )
+    if cfg.mla is not None:
+        repl["mla"] = MLAConfig(kv_lora_rank=32, q_lora_rank=0,
+                                qk_nope_head_dim=16, qk_rope_head_dim=8,
+                                v_head_dim=16)
+    if cfg.moe is not None:
+        repl["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=8,
+            top_k=min(cfg.moe.top_k, 2),
+            num_shared_experts=min(cfg.moe.num_shared_experts, 1),
+            expert_d_ff=64)
     if cfg.ssm is not None:
         repl["ssm"] = SSMConfig(state_dim=16, conv_dim=4, expand=2,
                                 head_dim=16, n_groups=1, chunk_size=16)

@@ -7,10 +7,15 @@ Runs a registered serving ScenarioSpec (default ``serve_mixed_slo``: a
 2x-priority tenant, a long-prompt congestor, interactive victims)
 through the runtime API over a real model executor, with random weights
 drawn from ``--seed``, and prints the portable RunReport.  ``--arch`` is
-one of ``qwen3-8b``, ``mamba2-370m`` and ``recurrentgemma-2b``.  Under
-``attn_impl="pallas"`` the hand-written CUDA kernels run: decode
-attention (Qwen3's layers, RecurrentGemma's local layers), the SSD scan
-of Mamba2's prefill and the RG-LRU scan of RecurrentGemma's prefill.
+any architecture of ``repro_torch.configs.list_archs()``: the dense
+(qwen3-8b, codeqwen1.5-7b, gemma-7b, gemma2-27b), vision-language
+(qwen2-vl-72b, text only), MoE/MLA (deepseek-v2-lite-16b,
+llama4-maverick-400b-a17b, whose 1.6 TB of f32 parameters fit no card:
+``--smoke`` only) and recurrent (mamba2-370m, recurrentgemma-2b) ones.
+Under ``attn_impl="pallas"`` the hand-written CUDA kernels run: decode
+attention (every attention layer's decode but MLA's, whose absorbed
+decode takes the plain path), the SSD scan of Mamba2's prefill and the
+RG-LRU scan of RecurrentGemma's prefill.
 
     --smoke                         # the reduced model
     --device cpu                    # plain versions on the CPU

@@ -1,4 +1,5 @@
-"""Attention: GQA/MQA/MHA, prefill and decode paths, plus the KV cache.
+"""Attention: GQA/MQA/MHA + DeepSeek MLA, prefill and decode paths, plus
+the KV cache.
 
 Three implementations selected by ``cfg.attn_impl``:
   * ``chunked`` — flash-style loop over KV blocks in plain torch, online
@@ -10,7 +11,9 @@ Three implementations selected by ``cfg.attn_impl``:
     ``chunked``, as in the JAX package.
   * ``naive``   — full S×T score matrix; the reference's decode path.
 
-MLA and cross-attention are not ported yet.
+MLA's absorbed path attends with K dim rank + rope != V dim rank, which
+no kernel takes: it runs the plain paths under every implementation, as
+in the JAX package.  Cross-attention is not ported yet.
 """
 from __future__ import annotations
 
@@ -191,18 +194,26 @@ def _run_attention(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, scale, causal,
 # ---------------------------------------------------------------------------
 def init_kv_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                   device) -> dict:
-    """Zeroed cache dict for one attention layer."""
-    if cfg.mla is not None:
-        raise NotImplementedError("MLA attention is not ported yet")
+    """Zeroed cache dict for one attention layer: k/v/pos, or for MLA the
+    latent ``ckv``, the shared rotary key ``krope`` and pos."""
     dt = L.dtype_of(cfg)
     size = (min(max_len, cfg.window_size)
             if (kind == LOCAL_ATTN and cfg.window_size) else max_len)
+    pos = torch.full((batch, size), -1, dtype=torch.int32, device=device)
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {
+            "ckv": torch.zeros((batch, size, m.kv_lora_rank), dtype=dt,
+                               device=device),
+            "krope": torch.zeros((batch, size, m.qk_rope_head_dim),
+                                 dtype=dt, device=device),
+            "pos": pos,
+        }
     shape = (batch, size, cfg.num_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
-        "pos": torch.full((batch, size), -1, dtype=torch.int32,
-                          device=device),
+        "pos": pos,
     }
 
 
@@ -244,11 +255,13 @@ def attention_layer(p, x: torch.Tensor, positions: torch.Tensor,
                     ) -> Tuple[torch.Tensor, Optional[dict]]:
     """x: (B,S,d); ``p`` holds the layer's weights (``models.transformer
     .Attention``).  Train/prefill: cache None or appended-to.  Decode: S
-    small (usually 1), cache required.  positions: (B,S)."""
+    small (usually 1), cache required.  positions: (B,S) or (3,B,S) for
+    M-RoPE."""
     if cfg.mla is not None:
-        raise NotImplementedError("MLA attention is not ported yet")
+        return _mla_layer(p, x, positions, cfg, cache, cache_offset)
     dt = x.dtype
     B, S, _ = x.shape
+    pos2d = positions if positions.dim() == 2 else positions[0]
     q = x @ p.wq.to(dt)
     k = x @ p.wk.to(dt)
     v = x @ p.wv.to(dt)
@@ -263,7 +276,8 @@ def attention_layer(p, x: torch.Tensor, positions: torch.Tensor,
         q = L.rms_norm(q, p.q_norm, cfg.norm_eps)
         k = L.rms_norm(k, p.k_norm, cfg.norm_eps)
     if cfg.use_rope:
-        angles = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+        angles = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta,
+                               cfg.mrope_sections)
         q = L.apply_rope(q, angles)
         k = L.apply_rope(k, angles)
 
@@ -271,15 +285,64 @@ def attention_layer(p, x: torch.Tensor, positions: torch.Tensor,
     window = cfg.window_size if kind == LOCAL_ATTN else 0
 
     if cache is None:
-        out = _run_attention(cfg, q, k, v, positions, positions, scale=scale,
+        out = _run_attention(cfg, q, k, v, pos2d, pos2d, scale=scale,
                              causal=causal, window=window,
                              cap=cfg.attn_softcap, seg_q=seg, seg_k=seg)
     else:
-        cache = update_cache(cache, {"k": k, "v": v}, cache_offset, positions)
+        cache = update_cache(cache, {"k": k, "v": v}, cache_offset, pos2d)
         k_valid = cache["pos"] >= 0
-        out = _run_attention(cfg, q, cache["k"], cache["v"], positions,
+        out = _run_attention(cfg, q, cache["k"], cache["v"], pos2d,
                              cache["pos"], scale=scale, causal=causal,
                              window=window, cap=cfg.attn_softcap,
                              k_valid=k_valid)
     out = out.reshape(B, S, cfg.q_dim) @ p.wo.to(dt)
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): expanded without a cache, absorbed-MQA with one
+# ---------------------------------------------------------------------------
+def _mla_layer(p, x, positions, cfg: ModelConfig, cache, cache_offset):
+    m = cfg.mla
+    B, S, _ = x.shape
+    H, dt = cfg.num_heads, x.dtype
+    pos2d = positions if positions.dim() == 2 else positions[0]
+    # the query/key head dim is nope + rope (192 for V2-Lite), not head_dim
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q = (x @ p.wq.to(dt)).reshape(B, S, H,
+                                  m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    angles = L.rope_angles(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    q_rope = L.apply_rope(q_rope, angles)
+    ckr = x @ p.w_dkv.to(dt)
+    ckv, k_rope = ckr[..., :m.kv_lora_rank], ckr[..., m.kv_lora_rank:]
+    ckv = L.rms_norm(ckv, p.kv_norm, cfg.norm_eps)
+    k_rope = L.apply_rope(k_rope[:, :, None, :], angles)[:, :, 0, :]
+
+    w_uk = p.w_uk.to(dt).reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    w_uv = p.w_uv.to(dt).reshape(m.kv_lora_rank, H, m.v_head_dim)
+
+    if cache is None:
+        # expanded path: per-head k/v materialized from the latent
+        k_nope = torch.einsum("btr,rhd->bthd", ckv, w_uk)
+        v = torch.einsum("btr,rhd->bthd", ckv, w_uv)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            B, S, H, m.qk_rope_head_dim)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = _run_attention(cfg, q, k, v, pos2d, pos2d, scale=scale,
+                             causal=True, window=0, cap=0.0)
+    else:
+        # absorbed path: attention in latent space == MQA with Dk = rank +
+        # rope, Dv = rank; the cache holds only (ckv, krope)
+        cache = update_cache(cache, {"ckv": ckv, "krope": k_rope},
+                             cache_offset, pos2d)
+        q_lat = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)
+        q_abs = torch.cat([q_lat, q_rope], dim=-1)
+        k_abs = torch.cat([cache["ckv"], cache["krope"]], dim=-1)[:, :, None]
+        v_abs = cache["ckv"][:, :, None]
+        ctx = _run_attention(cfg, q_abs, k_abs, v_abs, pos2d, cache["pos"],
+                             scale=scale, causal=True, window=0, cap=0.0,
+                             k_valid=cache["pos"] >= 0)
+        out = torch.einsum("bshr,rhd->bshd", ctx, w_uv)
+    out = out.reshape(B, S, H * m.v_head_dim)
+    return out @ p.wo.to(dt), cache

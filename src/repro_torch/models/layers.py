@@ -1,13 +1,16 @@
 """Shared model building blocks on torch tensors.
 
-Parameters live in ``nn.Module``s (see ``models/transformer.py``); the
-functions here are plain tensor code.  Norms, RoPE and softmax run in
-fp32; matmuls run in ``cfg.dtype`` with the weights (held in
-``cfg.param_dtype``) cast at the point of use, as in the JAX package.
+Parameters live in ``nn.Module``s (see ``models/transformer.py``; the
+gated ``MLP`` is here, shared by the dense layers and the MoE layers'
+shared experts); the functions here are plain tensor code.  Norms, RoPE
+and softmax run in fp32; matmuls run in ``cfg.dtype`` with the weights
+(held in ``cfg.param_dtype``) cast at the point of use, as in the JAX
+package.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -82,8 +85,23 @@ def apply_mlp(w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
     return (gate * up) @ w_down.to(dt)
 
 
+class MLP(torch.nn.Module):
+    """The gated MLP's weights: a dense layer's MLP (``d_ff``) or an MoE
+    layer's shared experts (``num_shared_experts * expert_d_ff``)."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, d_ff: int):
+        super().__init__()
+        pd, d = pdtype_of(cfg), cfg.d_model
+        self.w_gate = param(dense_init(gen, d, d_ff, pd))
+        self.w_up = param(dense_init(gen, d, d_ff, pd))
+        self.w_down = param(dense_init(gen, d_ff, d, pd))
+
+    def forward(self, x: torch.Tensor, act: str) -> torch.Tensor:
+        return apply_mlp(self.w_gate, self.w_up, self.w_down, x, act)
+
+
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # ---------------------------------------------------------------------------
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     half = head_dim // 2
@@ -91,10 +109,31 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def rope_angles(positions: torch.Tensor, head_dim: int,
-                theta: float) -> torch.Tensor:
-    """positions: (B, S) -> angles (B, S, half)."""
+def mrope_section_ids(sections: Tuple[int, ...], half: int,
+                      device) -> torch.Tensor:
+    """(half,) index of the position stream each frequency reads: section
+    i repeated ``sections[i]`` times, cut or padded with the last index
+    to ``half`` (``jnp.repeat``'s ``total_repeat_length``)."""
+    ids = torch.repeat_interleave(torch.arange(len(sections)),
+                                  torch.tensor(sections))[:half]
+    if ids.numel() < half:
+        ids = torch.cat([ids, ids[-1:].expand(half - ids.numel())])
+    return ids.to(device)     # built on the host: no device sync
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                mrope_sections: Tuple[int, ...] = ()) -> torch.Tensor:
+    """positions: (B, S) or (3, B, S) for M-RoPE -> angles (B, S, half)."""
     inv = rope_freqs(head_dim, theta, positions.device)
+    if positions.dim() == 3:                                # M-RoPE (t, h, w)
+        if not mrope_sections:
+            positions = positions[0]
+        else:
+            sec_id = mrope_section_ids(mrope_sections, head_dim // 2,
+                                       positions.device)
+            # per frequency index, the position stream of its section
+            pos_sel = positions.float()[sec_id]              # (half, B, S)
+            return torch.einsum("hbs,h->bsh", pos_sel, inv)
     return positions.float()[..., None] * inv
 
 
@@ -110,7 +149,7 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# embedding / logits (tied)
+# embedding / logits
 # ---------------------------------------------------------------------------
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
@@ -121,8 +160,11 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
 
 
 def lm_logits(x: torch.Tensor, embed_table: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
-    logits = (x @ embed_table.T.to(x.dtype)).float()
+              head: Optional[torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
+    """Tied (``head`` None: the embedding table, transposed) or untied
+    (``head`` (d, V)) LM head; fp32 logits, soft-capped if configured."""
+    table = embed_table.T if head is None else head
+    logits = (x @ table.to(x.dtype)).float()
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits

@@ -1,0 +1,169 @@
+"""Mixture-of-Experts FFN with the JAX package's two dispatch
+implementations.
+
+``gshard`` — capacity-based one-hot dispatch/combine products within
+fixed-size token groups; tokens past an expert's capacity are dropped.
+The serving and training steps run it, as in the JAX package.
+
+``ragged`` — sort tokens by expert, then one grouped product per expert.
+The reference computes these with ``jax.lax.ragged_dot``, outside any
+Pallas kernel; here they are plain ``torch.matmul`` calls.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+MOE_IMPL = ("gshard", "ragged")
+
+
+class MoE(nn.Module):
+    """Router (d, E), kept f32; stacked expert weights (E, d, f) /
+    (E, f, d); the shared experts as one gated MLP."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+        super().__init__()
+        m = cfg.moe
+        pd = L.pdtype_of(cfg)
+        d, f, E = cfg.d_model, m.expert_d_ff, m.num_experts
+
+        def normal(shape, scale, dtype):
+            w = torch.randn(shape, generator=gen, device=gen.device,
+                            dtype=torch.float32)
+            return L.param(w.mul_(scale).to(dtype))
+
+        self.router = normal((d, E), 0.02, torch.float32)
+        self.w_gate = normal((E, d, f), 1.0 / math.sqrt(d), pd)
+        self.w_up = normal((E, d, f), 1.0 / math.sqrt(d), pd)
+        self.w_down = normal((E, f, d), 1.0 / math.sqrt(f), pd)
+        if m.num_shared_experts:
+            self.shared = L.MLP(cfg, gen, m.num_shared_experts * f)
+
+
+def router_topk(p: MoE, x2d: torch.Tensor, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x2d: (T, d) -> (weights (T,k), experts (T,k) int64, aux_loss)."""
+    m = cfg.moe
+    logits = x2d.float() @ p.router                               # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    # ``jax.lax.top_k``'s order: descending, ties to the lower index;
+    # ``torch.topk`` does not promise that order, a stable sort does
+    w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, idx = w[:, :m.top_k], idx[:, :m.top_k]
+    w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+    # Switch-style load-balancing auxiliary loss, over every row
+    T = x2d.shape[0]
+    me = probs.mean(dim=0)                                        # (E,)
+    ce = F.one_hot(idx[:, 0], m.num_experts).float().sum(dim=0) / T
+    aux = m.num_experts * torch.sum(me * ce)
+    return w, idx, aux
+
+
+def _expert_ffn(w_gate, w_up, w_down, h, act: str):
+    """h: (g, E, C, d) grouped tokens vs stacked expert weights (E, d, f)."""
+    g = L.act_fn(act)(torch.einsum("gecd,edf->gecf", h, w_gate))
+    u = torch.einsum("gecd,edf->gecf", h, w_up)
+    return torch.einsum("gecf,efd->gecd", g * u, w_down)
+
+
+def apply_moe_gshard(p: MoE, x: torch.Tensor, cfg: ModelConfig,
+                     capacity_factor: float = 0.0, group_size: int = 2048):
+    """Grouped capacity-based dispatch (GShard).  x: (B,S,d) -> (B,S,d).
+
+    Tokens are dispatched within groups of ``group_size`` rows: the
+    position in an expert's queue (a cumsum over (token, choice), token
+    major) and the capacity C = max(1, int(Gsz * top_k * cf / E)) are
+    per group, so which tokens drop depends on the rows' order.  Every
+    row counts: inactive decode slots and chunk tails take capacity too.
+    The last group is padded with rows of expert -1, never kept."""
+    m = cfg.moe
+    B, S, d = x.shape
+    dt = x.dtype
+    T = B * S
+    k, E = m.top_k, m.num_experts
+    x2d = x.reshape(T, d)
+    w, idx, aux = router_topk(p, x2d, cfg)
+    cf = capacity_factor or m.capacity_factor
+
+    Gsz = min(group_size, T)
+    nG = -(-T // Gsz)
+    pad = nG * Gsz - T
+    if pad:
+        x2d = F.pad(x2d, (0, 0, 0, pad))
+        w = F.pad(w, (0, 0, 0, pad))
+        idx = F.pad(idx, (0, 0, 0, pad), value=-1)
+    C = max(1, int(Gsz * k * cf / E))
+
+    xg = x2d.reshape(nG, Gsz, d)
+    idxg = idx.reshape(nG, Gsz, k)
+    wg = w.reshape(nG, Gsz, k)
+
+    # position of each (token, choice) inside its expert queue, per group
+    onehot = idxg[..., None] == torch.arange(E, device=x.device)  # (g,t,k,E)
+    flat = onehot.reshape(nG, Gsz * k, E).to(torch.int32)
+    pos = torch.cumsum(flat, dim=1) * flat - 1                    # (g,tk,E)
+    pos_in_e = pos.reshape(nG, Gsz, k, E).amax(dim=-1)            # (g,t,k)
+    keep = (pos_in_e < C) & (idxg >= 0)
+    wk = wg * keep
+
+    e_oh = onehot.to(dt)
+    c_oh = F.one_hot(torch.clamp(pos_in_e, 0, C - 1).long(), C).to(dt)
+    # a token's k experts are distinct, so each (t, e) sums one choice
+    dispatch = torch.einsum("gtke,gtkc->gtec", e_oh * keep[..., None].to(dt),
+                            c_oh)
+    combine = torch.einsum("gtke,gtkc->gtec", e_oh * wk[..., None].to(dt),
+                           c_oh)
+
+    h = torch.einsum("gtec,gtd->gecd", dispatch, xg)              # (g,E,C,d)
+    out_e = _expert_ffn(p.w_gate.to(dt), p.w_up.to(dt), p.w_down.to(dt),
+                        h, cfg.mlp_act)
+    y = torch.einsum("gtec,gecd->gtd", combine, out_e)
+    y = y.reshape(nG * Gsz, d)[:T].reshape(B, S, d)
+    if m.num_shared_experts:
+        y = y + p.shared(x, cfg.mlp_act)
+    return y, aux
+
+
+def apply_moe_ragged(p: MoE, x: torch.Tensor, cfg: ModelConfig):
+    """Sort by expert + one grouped product per expert.  x: (B,S,d).
+    The group sizes are read on the host (one sync a call)."""
+    m = cfg.moe
+    B, S, d = x.shape
+    dt = x.dtype
+    T = B * S
+    x2d = x.reshape(T, d)
+    w, idx, aux = router_topk(p, x2d, cfg)
+
+    flat_e = idx.reshape(-1)                                      # (T*k,)
+    order = torch.argsort(flat_e, stable=True)
+    tok = torch.arange(T, device=x.device).repeat_interleave(m.top_k)[order]
+    xs = x2d[tok]                                                 # (T*k, d)
+    sizes = torch.bincount(flat_e, minlength=m.num_experts).tolist()
+
+    w_gate, w_up, w_down = p.w_gate.to(dt), p.w_up.to(dt), p.w_down.to(dt)
+    act = L.act_fn(cfg.mlp_act)
+    outs = [(act(xe @ w_gate[e]) * (xe @ w_up[e])) @ w_down[e]
+            for e, xe in enumerate(torch.split(xs, sizes))]
+    o = torch.cat(outs)
+
+    wsorted = w.reshape(-1)[order].to(dt)                         # (T*k,)
+    y = torch.zeros((T, d), dtype=dt, device=x.device).index_add_(
+        0, tok, o * wsorted[:, None])
+    y = y.reshape(B, S, d)
+    if m.num_shared_experts:
+        y = y + p.shared(x, cfg.mlp_act)
+    return y, aux
+
+
+def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig,
+              impl: str = "gshard"):
+    if impl == "ragged":
+        return apply_moe_ragged(p, x, cfg)
+    return apply_moe_gshard(p, x, cfg)

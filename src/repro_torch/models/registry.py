@@ -7,8 +7,10 @@
   prefill(module, tokens, cache, lengths, valid) -> (logits, cache)
   decode_step(module, tokens, cache, lengths, valid) -> (logits, cache)
 
-``batch`` is a dict holding ``tokens`` and optionally ``positions``.
-``aux`` is the MoE auxiliary loss, 0 for the dense decoder.
+``batch`` is a dict; see ``input_names(cfg, kind)`` for the contract.
+``aux`` is the MoE auxiliary loss summed over layers, 0 without MoE.
+``moe_impl`` picks the MoE dispatch (``ragged`` by default, as in the
+JAX package; the serving and training steps pass ``gshard``).
 Encoder-decoder models are not ported yet.
 """
 from __future__ import annotations
@@ -32,13 +34,27 @@ class Model:
     decode_step: Callable[..., Tuple[torch.Tensor, list]]
 
 
-def build_model(cfg: ModelConfig) -> Model:
+def input_names(cfg: ModelConfig, kind: str) -> Tuple[str, ...]:
+    if cfg.is_encoder_decoder:
+        if kind == "train":
+            return ("frames", "tokens", "labels")
+        return ("tokens",)
+    if cfg.frontend_stub:  # vlm
+        if kind == "train":
+            return ("tokens", "vis_embeds", "vis_mask", "labels")
+        return ("tokens",)
+    if kind == "train":
+        return ("tokens", "labels")
+    return ("tokens",)
+
+
+def build_model(cfg: ModelConfig, moe_impl: str = "ragged") -> Model:
     if cfg.is_encoder_decoder:
         raise NotImplementedError("encoder-decoder models are not ported yet")
-    return _build_decoder_only(cfg)
+    return _build_decoder_only(cfg, moe_impl)
 
 
-def _build_decoder_only(cfg: ModelConfig) -> Model:
+def _build_decoder_only(cfg: ModelConfig, moe_impl: str) -> Model:
     def init(gen):
         return transformer.init_model(cfg, gen)
 
@@ -47,25 +63,32 @@ def _build_decoder_only(cfg: ModelConfig) -> Model:
         B, S = tokens.shape
         positions = batch.get("positions")
         if positions is None:
-            positions = transformer.make_positions(B, S, tokens.device)
-        logits, _ = module(tokens, positions)
-        return logits, torch.zeros((), dtype=torch.float32,
-                                   device=logits.device)
+            positions = transformer.make_positions(cfg, B, S, tokens.device)
+        logits, aux, _ = module(tokens, positions,
+                                vis_embeds=batch.get("vis_embeds"),
+                                vis_mask=batch.get("vis_mask"),
+                                moe_impl=moe_impl)
+        return logits, aux
 
     def init_cache(batch, max_len, device):
         return transformer.init_cache(cfg, batch, max_len, device)
 
-    def prefill(module, tokens, cache, lengths, valid=None):
+    def prefill(module, tokens, cache, lengths, valid=None, **kw):
         """``valid`` (B,S) bool: ragged chunk tails / inactive decode slots.
         Pad entries are written with position -1 (never attended, ring-
         overwritten later)."""
         B, S = tokens.shape
-        positions = transformer.make_positions(B, S, tokens.device,
+        positions = transformer.make_positions(cfg, B, S, tokens.device,
                                                start=lengths)
         if valid is not None:
-            positions = torch.where(valid, positions, -1)
-        return module(tokens, positions, cache=cache, lengths=lengths,
-                      valid=valid)
+            vmask = valid if positions.dim() == 2 else valid[None]
+            positions = torch.where(vmask, positions, -1)
+        logits, _, cache = module(tokens, positions, cache=cache,
+                                  lengths=lengths, valid=valid,
+                                  vis_embeds=kw.get("vis_embeds"),
+                                  vis_mask=kw.get("vis_mask"),
+                                  moe_impl=moe_impl)
+        return logits, cache
 
     def decode_step(module, tokens, cache, lengths, valid=None):
         return prefill(module, tokens, cache, lengths, valid=valid)

@@ -1,11 +1,13 @@
-"""Decoder-only LM assembly: attention, SSD and RG-LRU blocks, caches.
+"""Decoder-only LM assembly: attention (GQA or MLA), SSD and RG-LRU
+blocks, dense or MoE feed-forwards, caches.
 
 The model is an ``nn.Module`` whose layers sit in a flat ``ModuleList``
-and run in a plain loop (the JAX package scans stacked layer groups;
-``layer_layout`` keeps its partition so ``weights.params_from_jax`` can
-unstack them).  Weights are random, drawn from an explicit
-``torch.Generator`` on the generator's device.  Each layer kind carries
-its own cache dict.  MoE blocks are not ported yet.
+and run in a plain loop (the JAX package scans stacked layer groups
+after its leading dense ``front`` layers; ``layer_layout`` keeps its
+partition so ``weights.params_from_jax`` can unstack them).  Weights are
+random, drawn from an explicit ``torch.Generator`` on the generator's
+device.  Each layer kind carries its own cache dict.  Encoder-decoder
+models are not ported yet.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from repro_torch.configs.base import (GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD,
                                       ModelConfig)
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as SM
 
@@ -46,13 +49,9 @@ def layer_layout(cfg: ModelConfig) -> Tuple[int, int, int, int]:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.moe is not None or any(cfg.moe_layer_mask()):
-        raise NotImplementedError("MoE blocks are not ported yet")
-    if cfg.mla is not None or cfg.is_encoder_decoder or cfg.mrope_sections:
+    if cfg.is_encoder_decoder:
         raise NotImplementedError(
-            "MLA, encoder-decoder and M-RoPE models are not ported yet")
-    if not cfg.tie_embeddings:
-        raise NotImplementedError("untied LM heads are not ported yet")
+            "encoder-decoder models are not ported yet")
 
 
 def _zeros(n: int, cfg: ModelConfig, device) -> nn.Parameter:
@@ -63,11 +62,25 @@ def _zeros(n: int, cfg: ModelConfig, device) -> nn.Parameter:
 # modules
 # ---------------------------------------------------------------------------
 class Attention(nn.Module):
-    """GQA projections (``x @ w`` layout, as the JAX package stores them)."""
+    """GQA or MLA projections (``x @ w`` layout, as the JAX package stores
+    them)."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
         super().__init__()
         pd, d, dev = L.pdtype_of(cfg), cfg.d_model, gen.device
+        if cfg.mla is not None:
+            m, H = cfg.mla, cfg.num_heads
+            qd = H * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+            self.wq = L.param(L.dense_init(gen, d, qd, pd))
+            self.w_dkv = L.param(L.dense_init(
+                gen, d, m.kv_lora_rank + m.qk_rope_head_dim, pd))
+            self.kv_norm = _zeros(m.kv_lora_rank, cfg, dev)
+            self.w_uk = L.param(L.dense_init(
+                gen, m.kv_lora_rank, H * m.qk_nope_head_dim, pd))
+            self.w_uv = L.param(L.dense_init(
+                gen, m.kv_lora_rank, H * m.v_head_dim, pd))
+            self.wo = L.param(L.dense_init(gen, H * m.v_head_dim, d, pd))
+            return
         self.wq = L.param(L.dense_init(gen, d, cfg.q_dim, pd))
         self.wk = L.param(L.dense_init(gen, d, cfg.kv_dim, pd))
         self.wv = L.param(L.dense_init(gen, d, cfg.kv_dim, pd))
@@ -81,26 +94,17 @@ class Attention(nn.Module):
             self.k_norm = _zeros(cfg.head_dim, cfg, dev)
 
 
-class MLP(nn.Module):
-    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
-        super().__init__()
-        pd, d = L.pdtype_of(cfg), cfg.d_model
-        self.w_gate = L.param(L.dense_init(gen, d, cfg.d_ff, pd))
-        self.w_up = L.param(L.dense_init(gen, d, cfg.d_ff, pd))
-        self.w_down = L.param(L.dense_init(gen, cfg.d_ff, d, pd))
-
-    def forward(self, x: torch.Tensor, act: str) -> torch.Tensor:
-        return L.apply_mlp(self.w_gate, self.w_up, self.w_down, x, act)
-
-
 class DecoderLayer(nn.Module):
     """Pre-norm residual layer: an attention, SSD or RG-LRU mixer, then
-    (except SSD, which has none) the gated MLP."""
+    (except SSD, which has none) the gated MLP, or on an MoE layer the
+    experts (``moe``, in place of ``mlp``)."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, gen: torch.Generator):
+    def __init__(self, cfg: ModelConfig, kind: str, is_moe: bool,
+                 gen: torch.Generator):
         super().__init__()
         dev = gen.device
         self.kind = kind
+        self.is_moe = is_moe
         self.norm1 = _zeros(cfg.d_model, cfg, dev)
         if kind in (GLOBAL_ATTN, LOCAL_ATTN):
             self.mixer = Attention(cfg, gen)
@@ -115,12 +119,16 @@ class DecoderLayer(nn.Module):
         if kind == SSD:
             return          # the SSD block has no separate MLP
         self.norm2 = _zeros(cfg.d_model, cfg, dev)
-        self.mlp = MLP(cfg, gen)
+        if is_moe:
+            self.moe = M.MoE(cfg, gen)
+        else:
+            self.mlp = L.MLP(cfg, gen, cfg.d_ff)
         if cfg.use_post_norms:
             self.post_norm2 = _zeros(cfg.d_model, cfg, dev)
 
     def forward(self, x, positions, cfg: ModelConfig, cache=None,
-                offsets=None, valid=None):
+                offsets=None, valid=None, moe_impl: str = "gshard"):
+        """Returns (x, cache, MoE aux loss or None)."""
         h = L.rms_norm(x, self.norm1, cfg.norm_eps)
         if self.kind == SSD:
             mix, cache = SM.ssd_block(self.mixer, h, cfg, cache, valid)
@@ -133,51 +141,75 @@ class DecoderLayer(nn.Module):
             mix = L.rms_norm(mix, self.post_norm1, cfg.norm_eps)
         x = x + mix
         if self.kind == SSD:
-            return x, cache
-        y = self.mlp(L.rms_norm(x, self.norm2, cfg.norm_eps), cfg.mlp_act)
+            return x, cache, None
+        h2 = L.rms_norm(x, self.norm2, cfg.norm_eps)
+        aux = None
+        if self.is_moe:
+            y, aux = M.apply_moe(self.moe, h2, cfg, moe_impl)
+        else:
+            y = self.mlp(h2, cfg.mlp_act)
         if cfg.use_post_norms:
             y = L.rms_norm(y, self.post_norm2, cfg.norm_eps)
-        return x + y, cache
+        return x + y, cache, aux
 
 
 class Transformer(nn.Module):
-    """Decoder-only LM with tied embeddings.  ``self.cfg`` (attention
-    implementation included) is read at every forward."""
+    """Decoder-only LM; the LM head is the embedding table (tied) or
+    ``lm_head`` (d, V).  ``self.cfg`` (attention implementation
+    included) is read at every forward."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
+        pd = L.pdtype_of(cfg)
         self.embed = L.param(L.embed_init(gen, cfg.vocab_size, cfg.d_model,
-                                          L.pdtype_of(cfg)))
+                                          pd))
+        if cfg.tie_embeddings:
+            self.register_parameter("lm_head", None)
+        else:
+            self.lm_head = L.param(L.dense_init(gen, cfg.d_model,
+                                                cfg.vocab_size, pd))
         self.final_norm = _zeros(cfg.d_model, cfg, gen.device)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, kind, gen) for kind in cfg.pattern_for_layers())
+            DecoderLayer(cfg, kind, is_moe, gen) for kind, is_moe in
+            zip(cfg.pattern_for_layers(), cfg.moe_layer_mask()))
 
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor, *,
                 cache: Optional[List[dict]] = None,
                 lengths: Optional[torch.Tensor] = None,
                 valid: Optional[torch.Tensor] = None,
-                ) -> Tuple[torch.Tensor, Optional[List[dict]]]:
-        """Returns (logits fp32, cache).
+                vis_embeds: Optional[torch.Tensor] = None,
+                vis_mask: Optional[torch.Tensor] = None,
+                moe_impl: str = "gshard",
+                ) -> Tuple[torch.Tensor, torch.Tensor,
+                           Optional[List[dict]]]:
+        """Returns (logits fp32, MoE aux loss summed over layers, cache).
 
         Train/prefill-from-zero: cache=None.  Serving: cache + lengths (B,)
-        = current fill; positions must be absolute; ``valid`` (B,S) marks
+        = current fill; positions must be absolute, (B,S) or (3,B,S) for
+        M-RoPE (the caches store the first stream); ``valid`` (B,S) marks
         the real tokens of a ragged chunk (the recurrent blocks keep their
-        state unchanged across the rest).  Attention caches are written
-        in place; a recurrent layer replaces the entries of its cache
-        dict."""
+        state unchanged across the rest).  VLM stub: ``vis_embeds``
+        (B,S,d) replace the token embeddings where ``vis_mask`` (B,S) is
+        set.  Attention caches are written in place; a recurrent layer
+        replaces the entries of its cache dict."""
         x = L.embed_lookup(self.embed, tokens, self.cfg)
+        if vis_embeds is not None:
+            x = torch.where(vis_mask[..., None], vis_embeds.to(x.dtype), x)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         remat = _remat(self.cfg) if cache is None \
             and torch.is_grad_enabled() else None
         for i, layer in enumerate(self.layers):
-            if remat is not None:
-                x, _ = remat(layer, x, positions, self.cfg)
-                continue
             c = cache[i] if cache is not None else None
-            x, _ = layer(x, positions, self.cfg, c, lengths, valid)
+            args = (x, positions, self.cfg, c, lengths, valid, moe_impl)
+            x, _, aux = (layer(*args) if remat is None
+                         else remat(layer, *args))
+            if aux is not None:
+                aux_total = aux_total + aux
         x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        return L.lm_logits(x, self.embed, self.cfg), cache
+        return (L.lm_logits(x, self.embed, self.lm_head, self.cfg),
+                aux_total, cache)
 
 
 # ---------------------------------------------------------------------------
@@ -241,11 +273,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             for kind in cfg.pattern_for_layers()]
 
 
-def make_positions(batch: int, seq: int, device,
+def make_positions(cfg: ModelConfig, batch: int, seq: int, device,
                    start: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(B,S) int32 positions ``start + arange(S)``."""
+    """(B,S) int32 positions ``start + arange(S)``, or (3,B,S) identical
+    streams for M-RoPE text."""
     pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :]
     pos = pos.expand(batch, seq)
     if start is not None:
         pos = pos + start.to(torch.int32)[:, None]
+    if cfg.mrope_sections:
+        pos = pos[None].expand(3, batch, seq)
     return pos

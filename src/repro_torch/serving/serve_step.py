@@ -75,7 +75,7 @@ def make_reset_slots(cfg: ModelConfig):
 def build_serve_fns(cfg: ModelConfig, *, batch: int, max_len: int,
                     temperature: float = 0.0, device="cuda") -> ServeFns:
     dev = require_device(device)
-    model = build_model(cfg)
+    model = build_model(cfg, moe_impl="gshard")
 
     @torch.no_grad()
     def _prefill(module, cache, tokens, lengths, valid_n):

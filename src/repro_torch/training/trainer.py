@@ -84,7 +84,7 @@ def build_trainer(cfg: ModelConfig, mesh=None, *, total_steps: int = 10_000,
                   device="cuda") -> Trainer:
     _no_mesh(mesh)
     dev = require_device(device)
-    model = build_model(cfg)
+    model = build_model(cfg, moe_impl="gshard")
     opt = OPT.make_optimizer(cfg, total_steps, warmup_steps)
     accum = grad_accum if grad_accum is not None else cfg.grad_accum
     loss_fn = make_loss_fn(model, cfg, mesh)

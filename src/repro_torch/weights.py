@@ -36,7 +36,12 @@ def named_arrays(np_tree: dict, cfg: ModelConfig) -> Dict[str, np.ndarray]:
     """A tree shaped like the reference's parameters (the parameters
     themselves, AdamW's ``m`` / ``v``, or Adafactor's slots, whose dicts
     add a last name part) -> {port parameter name: array}, the stacked
-    layer groups unstacked."""
+    layer groups unstacked.  The port's modules carry the reference's
+    leaf names, so a layer's dict flattens onto them as it is: the
+    untied ``lm_head``; an MoE layer's ``moe.router``, its stacked
+    ``moe.w_gate`` / ``w_up`` (E, d, f) and ``w_down`` (E, f, d) and
+    ``moe.shared.*``; an MLA layer's ``mixer.wq`` / ``w_dkv`` /
+    ``kv_norm`` / ``w_uk`` / ``w_uv`` / ``wo``."""
     front, p, n_groups, tail = layer_layout(cfg)
     layers = list(np_tree.get("front", []))
     for g in range(n_groups):
@@ -46,7 +51,8 @@ def named_arrays(np_tree: dict, cfg: ModelConfig) -> Dict[str, np.ndarray]:
         raise ValueError(f"parameter tree holds {len(layers)} layers, "
                          f"config wants {cfg.num_layers}")
     state: Dict[str, np.ndarray] = {}
-    _flatten("", {k: np_tree[k] for k in ("embed", "final_norm")}, state)
+    _flatten("", {k: np_tree[k] for k in ("embed", "lm_head", "final_norm")
+                  if k in np_tree}, state)
     for i, lp in enumerate(layers):
         _flatten(f"layers.{i}.", lp, state)
     return state

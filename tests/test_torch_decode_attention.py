@@ -292,6 +292,43 @@ def test_kernel_with_positions_matches_plain_on_card(case, dtype):
     assert torch.all(got[tl <= 0] == 0)
 
 
+# the decode shapes of the dense and vision-language serves (B 8, T 256):
+# Hq, Hkv, D, window, cap, scale (None: 1/sqrt(D)), stored positions
+SERVE_SHAPES = {
+    "codeqwen1.5-7b": (32, 32, 128, 0, 0.0, None, False),
+    "gemma-7b": (16, 16, 256, 0, 0.0, None, False),
+    "gemma2-27b": (32, 16, 128, 4096, 50.0, 144.0 ** -0.5, True),
+    "qwen2-vl-72b": (64, 8, 128, 0, 0.0, None, False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", list(SERVE_SHAPES))
+def test_kernel_at_the_new_serve_shapes_matches_plain_on_card(arch, dtype):
+    """One query head per KV head (CodeQwen, Gemma-7B at D 256), Gemma2's
+    soft-cap, window, query scale and ring positions, Qwen2-VL's 8 query
+    heads per KV head: ragged lengths, empty rows exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    Hq, Hkv, D, win, cap, scale, ring = SERVE_SHAPES[arch]
+    lens = [0, 1, 256, 7, 100, 129, 64, 255]
+    q, k, v, lengths, default_scale, _, _ = _inputs(
+        (8, 256, Hq, Hkv, D, win, cap, lens), dtype)
+    dev = torch.device("cuda")
+    tq, tk, tv = (_torch(x, dtype).to(dev) for x in (q, k, v))
+    tl = torch.from_numpy(lengths).to(dev)
+    kw = dict(scale=scale or default_scale, window=win, cap=cap,
+              positions=(torch.from_numpy(_ring_positions(lens, 256)).to(dev)
+                         if ring else None))
+    got = decode_attention_cuda(tq, tk, tv, tl, **kw)
+    torch.cuda.synchronize()
+    want = tref.decode_attention_ref(tq, tk, tv, tl, **kw)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.all(got[tl <= 0] == 0)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_replays_in_a_cuda_graph_with_new_lengths(dtype):

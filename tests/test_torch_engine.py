@@ -10,49 +10,21 @@ so slots are reassigned), the whole RunReport must be equal.  With the
 scheduling-only ``NullExecutor``: every serving scenario's
 ``RunReport.to_json()`` must be identical.
 """
-import dataclasses
-
-import numpy as np
 import pytest
 
 # the card's machine has no JAX: there these modules, which hold no
 # ``gpu`` test, skip as a whole
 jax = pytest.importorskip("jax")
 
+import _torch_parity as P
 from repro.api import ServeRuntime as JaxServeRuntime
 from repro.api import get_scenario as jax_get_scenario
-from repro.configs import smoke_config as jax_smoke_config
-from repro.models.registry import build_model as jax_build_model
-from repro.serving.engine import ModelExecutor as JaxModelExecutor
 from repro_torch.api import ServeRuntime, get_scenario
-from repro_torch.configs import smoke_config
-from repro_torch.serving.engine import ModelExecutor
-from repro_torch.weights import params_from_jax
-
-SCENARIO_KW = dict(tenants=3, requests=6, max_len=64, prefill_chunk=16)
-
-
-def _run_model_engines(arch="qwen3-8b", **scenario_kw):
-    jcfg = dataclasses.replace(jax_smoke_config(arch), dtype="float32")
-    tcfg = dataclasses.replace(smoke_config(arch), dtype="float32",
-                               attn_impl="pallas")
-    params = jax_build_model(jcfg).init(jax.random.PRNGKey(0))
-    module = params_from_jax(jax.tree.map(np.asarray, params), tcfg)
-    kw = dict(SCENARIO_KW, vocab=jcfg.vocab_size)
-    kw.update(scenario_kw)
-    jspec = jax_get_scenario("serve_mixed_slo", **kw)
-    tspec = get_scenario("serve_mixed_slo", **kw)
-    jrt = JaxServeRuntime.from_spec(
-        jspec, executor=lambda e: JaxModelExecutor(jcfg, e, params=params))
-    trt = ServeRuntime.from_spec(
-        tspec, executor=lambda e: ModelExecutor(tcfg, e, params=module,
-                                                device="cpu"))
-    return jrt, jrt.run(jspec), trt, trt.run(tspec)
 
 
 @pytest.fixture(scope="module")
 def model_runs():
-    return _run_model_engines()
+    return P.run_model_engines("qwen3-8b")
 
 
 def test_model_engine_tenant_results_match(model_runs):
@@ -85,7 +57,7 @@ def test_model_engine_generated_tokens_match(model_runs):
 def recurrent_runs(request):
     # 6 slots for 9 requests: slots are reassigned, so a slot's recurrent
     # state must be reset between requests for the tokens to agree
-    return _run_model_engines(request.param, max_slots=6, requests=9)
+    return P.run_model_engines(request.param, max_slots=6, requests=9)
 
 
 def test_recurrent_model_engine_reports_match(recurrent_runs):

@@ -305,9 +305,9 @@ def test_model_qkv_pass_the_kernels_checks(monkeypatch):
         return fa.flash_attention_cuda(q, k, v, **kw)
     monkeypatch.setattr(tops, "flash_attention_cuda", spy)
     tokens = torch.arange(2 * 40, device="cuda").reshape(2, 40) % 257
-    positions = transformer.make_positions(2, 40, "cuda")
+    positions = transformer.make_positions(cfg, 2, 40, "cuda")
     with torch.no_grad():
-        logits, _ = module(tokens, positions)
+        logits, _, _ = module(tokens, positions)
     assert torch.isfinite(logits.float()).all()
     assert len(seen) == cfg.num_layers
     assert all(dt == torch.bfloat16 for dt, _, _ in seen)
