@@ -27,7 +27,10 @@ prints no result.  Phases, each of which raises on failure:
      serve shapes (``NEW_DECODE``, T 256): CodeQwen1.5-7B's 32 on 32,
      Gemma-7B's 16 on 16 of 256, Gemma2-27B's 32 on 16 with cap 50,
      window 4096, scale 144^-0.5 and stored positions, Qwen2-VL-72B's 64
-     on 8 (tolerances 2e-5 fp32, 2e-2 bf16; empty rows exactly 0);
+     on 8, Whisper's decoder self-attention 20 on 20 of 64, and phase
+     23's cross-attention (B 8, T 1500, 20 on 20 of 64; every frame, and
+     ragged fills) (tolerances 2e-5 fp32, 2e-2 bf16; empty rows exactly
+     0);
   4. time the decode kernel and one PyTorch call that computes the same
      function (``scaled_dot_product_attention`` with an explicit mask,
      timed here only; the kernels it ran, from a profile, are logged) as
@@ -37,8 +40,9 @@ prints no result.  Phases, each of which raises on failure:
      the main path), beside its least time from bytes and its plain
      version: Qwen3's heads at T 256 and T 4096, RecurrentGemma's at T
      256 and on its wrapped 2048-entry ring (stored positions), and the
-     four shapes of phase 22's serves at T 256 (SDPA has no soft-cap: at
-     Gemma2's shape it computes, and times, the uncapped function);
+     four shapes of phase 22's serves and Whisper's self-attention at T
+     256 (SDPA has no soft-cap: at Gemma2's shape it computes, and times,
+     the uncapped function);
   5. the main path: full-width, full-depth Qwen3-8B with random weights
      from a seed serves ``serve_mixed_slo`` (3 tenants, 12 requests,
      8 slots, max_len 256, prefill chunk 32) through ``ServeRuntime`` +
@@ -80,7 +84,8 @@ prints no result.  Phases, each of which raises on failure:
      head dims 16 to 128, a window shorter than a tile, a cap with a
      window, non-causal T != S), head dim 256 with RecurrentGemma-2B's
      10 heads on 1 (ragged, a window, a cap with a window, and its
-     cache-free shape S 4096, window 2048), q/k/v as slices of one fused
+     cache-free shape S 4096, window 2048), Whisper's encoder (non-causal,
+     S = T 1500, 20 on 20 of 64), q/k/v as slices of one fused
      buffer, and Qwen3-8B's heads (32 on 8 KV heads of dim 128) at S
      1024, in bf16
      (the wgmma kernels) and fp32 (the scalar kernels) (forward 2e-5
@@ -212,6 +217,28 @@ prints no result.  Phases, each of which raises on failure:
      fp32 logits against the expanded cache-free forward's (5e-3); wall,
      tokens/s, peak memory and a profiled decode step.  Llama-4
      Maverick (1.6 TB of f32 parameters) fits no card and is not served.
+ 23. (run after phase 22) the encoder-decoder, whisper-large-v3: (a) its
+     fp32 smoke config with random frames, kernel path against
+     ``chunked`` (1e-4, greedy tokens equal) over prefills of 16 tokens
+     (as many as the frames: the cross-attention takes the flash kernel)
+     and 24; (b) its published widths at full depth (32 encoder + 32
+     decoder layers, 1.95 B f32 parameters), random weights from a seed,
+     serving phase 5's ``serve_mixed_slo`` over the zero cross K/V the
+     engine serves with (it passes no frames, as the JAX package's):
+     every request done, decode_attention exactly 2 x 32 a decode step
+     (self, then cross with fill 1500), no flash launch; wall, tokens/s,
+     peak memory, a profiled decode step with the cross launches' share;
+     (c) ``Model.prefill(frames=...)`` on 8 x 1500 random frames, then 4
+     decode steps: exactly 32 flash launches (the encoder, non-causal) in
+     the prefill and 64 decode launches a step, the decode logits within
+     5 % of the range of the ``chunked`` path's, the prefill's wall and
+     device time; (d) training at its widths with 2 encoder + 2 decoder
+     layers, AdamW, 2 x 448 tokens and 2 x 1500 frames: 2 steps under
+     the kernels against ``chunked`` (losses and grad norms 1e-2), the
+     flash forward and backward launches exact (the cross-attention, 448
+     queries over 1500 frames, takes the plain path); (e) the cross
+     decode (B 8, T 1500) and the encoder's flash forward and backward
+     (B 8, S = T 1500, non-causal) timed beside their bounds and SDPA.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -288,7 +315,13 @@ NEW_DECODE = [
      144.0 ** -0.5, True),
     ("qwen2vl_g8", dict(B=8, T=256, Hq=64, Hkv=8, D=128), 0, 0.0, None,
      False),
+    # phase 23's Whisper decoder self-attention: 20 on 20 of 64
+    ("whisper_self_g1_d64", dict(B=8, T=256, Hq=20, Hkv=20, D=64), 0, 0.0,
+     None, False),
 ]
+# phase 23's cross-attention: every decode step of a Whisper decoder layer
+# attends all 1500 encoder frames (fill 1500 in every row)
+WHISPER_CROSS = dict(B=8, T=1500, Hq=20, Hkv=20, D=64)
 SEED = 0
 
 
@@ -364,6 +397,11 @@ def check_decode_attention() -> float:
         # Qwen3-8B's heads over a 4096-entry cache, ragged
         ("qwen3_t4096", dict(S, T=4096),
          [4096, 1, 0, 3000, 2049, 4095, 17, 1024], 0, 0.0, False),
+        # Whisper's cross-attention: 1500 frames, 1500 = 23 x 64 + 28 keys
+        # (bf16 tiles), full as served, and ragged
+        ("whisper_cross", dict(WHISPER_CROSS), [1500] * 8, 0, 0.0, False),
+        ("whisper_cross_rag", dict(WHISPER_CROSS),
+         [1500, 1, 0, 1499, 1472, 64, 65, 1000], 0, 0.0, False),
     ]
     cases = [c + (None,) for c in cases] + [
         (name, shp, ragged, win, cap, ring_pos, sc)
@@ -524,28 +562,35 @@ def serve(cfg, seed: int):
 
 
 def prefill_decode_logits(cfg, module, max_len: int, prompts,
-                          decode_tokens):
+                          decode_tokens, frames=None, trace=None):
     """``module`` run as ``cfg`` (its dtype and attention implementation)
-    on a fresh cache: one prefill of ``prompts`` (B, C), then one decode
+    on a fresh cache: one prefill of ``prompts`` (B, C), with an
+    encoder-decoder's ``frames`` (B, T_enc, d) when given, then one decode
     step per column of ``decode_tokens`` (B, n).  Returns [prefill last
-    logits, decode logits...].  MoE layers dispatch as served
-    (``gshard``)."""
+    logits, decode logits...]; ``trace`` (a list) gets a copy of
+    ``ops.LAUNCHES`` after the prefill and after each step.  MoE layers
+    dispatch as served (``gshard``)."""
     model = build_model(cfg, moe_impl="gshard")
     B, C = prompts.shape
     cache = model.init_cache(B, max_len, "cuda")
     lengths = torch.zeros(B, dtype=torch.int32, device="cuda")
     active = torch.ones((B, 1), dtype=torch.bool, device="cuda")
+    kw = {} if frames is None else dict(frames=frames)
+    trace = [] if trace is None else trace
     served = module.cfg
     module.cfg = cfg
     try:
         with torch.no_grad():
-            logits, cache = model.prefill(module, prompts, cache, lengths)
+            logits, cache = model.prefill(module, prompts, cache, lengths,
+                                          **kw)
+            trace.append(dict(ops.LAUNCHES))
             out = [logits[:, -1]]
             lengths = lengths + C
             for i in range(decode_tokens.shape[1]):
                 logits, cache = model.decode_step(
                     module, decode_tokens[:, i:i + 1], cache, lengths,
                     valid=active)
+                trace.append(dict(ops.LAUNCHES))
                 out.append(logits[:, -1])
                 lengths = lengths + 1
     finally:
@@ -557,7 +602,8 @@ def check_small(arch: str, prompt_len: int, steps: int,
                 kernels: bool = True, **changes) -> None:
     """fp32 smoke model on the card: the kernel path gives the plain
     (``chunked``) path's logits (1e-4) and greedy tokens over a prefill
-    of ``prompt_len`` tokens and ``steps`` decode steps.  ``kernels``
+    of ``prompt_len`` tokens and ``steps`` decode steps; an
+    encoder-decoder gets random frames with its prefill.  ``kernels``
     False: the model runs no kernel (MLA's absorbed decode), and the
     ``pallas`` path must launch none."""
     cfg = dataclasses.replace(smoke_config(arch), dtype="float32",
@@ -568,12 +614,15 @@ def check_small(arch: str, prompt_len: int, steps: int,
                             device="cuda", dtype=torch.int32)
     toks = torch.randint(1, cfg.vocab_size, (4, steps), generator=gen,
                          device="cuda", dtype=torch.int32)
+    frames = (torch.randn((4, cfg.num_audio_frames, cfg.d_model),
+                          generator=gen, device="cuda")
+              if cfg.is_encoder_decoder else None)
     ops.reset_launches()
-    ker = prefill_decode_logits(cfg, module, 64, prompts, toks)
+    ker = prefill_decode_logits(cfg, module, 64, prompts, toks, frames)
     launched = {k: v for k, v in ops.LAUNCHES.items() if v}
     plain = prefill_decode_logits(
         dataclasses.replace(cfg, attn_impl="chunked"), module, 64, prompts,
-        toks)
+        toks, frames)
     err = max((a - b).abs().max().item() for a, b in zip(ker, plain))
     same = all(torch.equal(a.argmax(-1), b.argmax(-1))
                for a, b in zip(ker, plain))
@@ -653,11 +702,16 @@ FLASH_CASES = [
     ("g10_d256_win", (2, 300, 300, 10, 1, 256, 100, 0.0, True)),
     ("g10_d256_cap_win", (1, 260, 260, 10, 1, 256, 64, 30.0, True)),
     ("rg_cache_free", (1, 4096, 4096, 10, 1, 256, 2048, 0.0, True)),
+    # Whisper's encoder: non-causal, S = T = 1500 (the last 128-row tile
+    # holds 92 rows, the last 128-key tile 92 keys), 20 on 20 of 64
+    ("whisper_enc", (2, 1500, 1500, 20, 20, 64, 0, 0.0, False)),
     ("qwen3", (4, 1024, 1024, 32, 8, 128, 0, 0.0, True)),
 ]
 TRAIN = dict(B=4, S=1024, Hq=32, Hkv=8, D=128)
 # RecurrentGemma-2B's local attention, cache-free (B 1, S 4096)
 RG_FLASH = dict(B=1, S=4096, Hq=10, Hkv=1, D=256, window=2048)
+# Whisper's encoder attention at phase 23's batch: non-causal, B 8
+WHISPER_ENC = dict(B=8, S=1500, Hq=20, Hkv=20, D=64, causal=False)
 assert FLASH_CASES[-1][1] == (TRAIN["B"], TRAIN["S"], TRAIN["S"], TRAIN["Hq"],
                               TRAIN["Hkv"], TRAIN["D"], 0, 0.0, True)
 
@@ -750,14 +804,15 @@ def check_flash_attention():
 
 
 def time_flash_attention(iters: int, shape=None) -> dict:
-    """CUDA-event times at the training shape (or ``shape``, causal, with
-    its window).  At the training shape q, k, v and o together (84 MB)
-    exceed the 50 MB L2, so no buffers are rotated."""
+    """CUDA-event times at the training shape (or ``shape``: causal unless
+    it says otherwise, with its window).  At the training shape q, k, v
+    and o together (84 MB) exceed the 50 MB L2, so no buffers are
+    rotated (at Whisper's encoder shape they are 123 MB)."""
     T = shape or TRAIN
     B, S, Hq, Hkv, D = T["B"], T["S"], T["Hq"], T["Hkv"], T["D"]
-    win = T.get("window", 0)
+    win, causal = T.get("window", 0), T.get("causal", True)
     dtype = torch.bfloat16
-    case = (B, S, S, Hq, Hkv, D, win, 0.0, True)
+    case = (B, S, S, Hq, Hkv, D, win, 0.0, causal)
     q, k, v, do, kw = flash_inputs(case, dtype, 200)
     # SDPA takes a window only as an explicit mask
     qp = torch.arange(S, device="cuda")
@@ -770,7 +825,8 @@ def time_flash_attention(iters: int, shape=None) -> dict:
 
     def sdpa():
         return F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lib_mask,
-                                              is_causal=lib_mask is None,
+                                              is_causal=(causal and lib_mask
+                                                         is None),
                                               scale=kw["scale"],
                                               enable_gqa=True)
     # the yardstick computes the same function: check it once
@@ -811,8 +867,9 @@ def time_flash_attention(iters: int, shape=None) -> dict:
         library_bwd_ms=event_ms(lib_bwd, [()], iters),
         library_fwd_bwd_ms=event_ms(lib_fwd_bwd, [()], iters))
     # causal: every (query, key) pair with key <= query (and within the
-    # window), counted exactly
-    pairs = B * Hq * sum(min(s + 1, win or S) for s in range(S))
+    # window), counted exactly; non-causal: all S * S
+    pairs = B * Hq * (sum(min(s + 1, win or S) for s in range(S)) if causal
+                      else S * S)
     elt = 2
     fwd_bytes = (2 * B * S * Hq * D + 2 * B * S * Hkv * D) * elt \
         + B * Hq * S * 4                                # q, o, k, v, lse
@@ -2492,6 +2549,230 @@ def serve_family(arch: str, depth: int, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the encoder-decoder (whisper-large-v3)
+# ---------------------------------------------------------------------------
+WHISPER = "whisper-large-v3"
+WHISPER_TRAIN = dict(layers=2, B=2, S=448)   # S: Whisper's decoder context
+
+
+def profile_cross_share(label: str, step) -> None:
+    """One profiled decode step of Whisper: its device time and the decode
+    kernel's, split into the self-attention launches and the
+    cross-attention ones (each layer launches self, then cross, so the
+    kernel's launches alternate in time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step()                                      # warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    total = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    dec = sorted((e for e in kernels if "decode_attention" in e.name),
+                 key=lambda e: e.time_range.start)
+    self_ms = sum(e.time_range.elapsed_us() for e in dec[0::2]) / 1e3
+    cross_ms = sum(e.time_range.elapsed_us() for e in dec[1::2]) / 1e3
+    log(f"profile: {label}: device time {total:.3f} ms over {len(kernels)} "
+        f"kernels; decode_attention {len(dec)} launches, self "
+        f"{self_ms:.4f} ms ({self_ms / total:.4f} of device time, "
+        f"{self_ms / max(len(dec[0::2]), 1) * 1e3:.3f} us a launch), cross "
+        f"{cross_ms:.4f} ms ({cross_ms / total:.4f}, "
+        f"{cross_ms / max(len(dec[1::2]), 1) * 1e3:.3f} us a launch)")
+
+
+def whisper_encoder_leg(module, cfg) -> dict:
+    """Phase 23 (c): ``Model.prefill(frames=...)`` on 8 x 1500 random
+    frames (every encoder layer one non-causal flash launch, every
+    decoder layer's cross K/V filled), then 4 decode steps (self and
+    cross decode launches a layer); the kernel path's logits against the
+    ``chunked`` path's (5 % of the range); the prefill's wall and device
+    time.  Returns the launches."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    B, C, steps = 8, 32, 4
+    frames = torch.randn((B, cfg.num_audio_frames, cfg.d_model),
+                         generator=g, device="cuda")
+    prompts = torch.randint(1, cfg.vocab_size, (B, C), generator=g,
+                            device="cuda", dtype=torch.int32)
+    toks = torch.randint(1, cfg.vocab_size, (B, steps), generator=g,
+                         device="cuda", dtype=torch.int32)
+    trace = []
+    ops.reset_launches()
+    ker = prefill_decode_logits(cfg, module, 256, prompts, toks, frames,
+                                trace)
+    launches = dict(ops.LAUNCHES)
+    plain = prefill_decode_logits(dataclasses.replace(
+        cfg, attn_impl="chunked"), module, 256, prompts, toks, frames)
+    per_step = [b["decode_attention"] - a["decode_attention"]
+                for a, b in zip(trace, trace[1:])]
+    want_pre = dict.fromkeys(ops.LAUNCHES, 0)
+    want_pre["flash_attention"] = cfg.encoder_layers
+    errs = [(a - b).abs().max().item() for a, b in zip(ker, plain)]
+    scales = [b.abs().max().item() for b in plain]
+    agree = (ker[1].argmax(-1) == plain[1].argmax(-1)).float().mean().item()
+    finite = all(bool(torch.isfinite(x).all()) for x in ker)
+    log(f"check {cfg.name} encoder leg: frames {tuple(frames.shape)}, "
+        f"prefill of {C} tokens launches {trace[0]}, decode launches a "
+        f"step {per_step}; logits (prefill, decode 1-{steps}) max_abs_err "
+        f"{[f'{e:.4g}' for e in errs]} of max_abs_logit "
+        f"{[f'{x:.4g}' for x in scales]} (tol 5 % of it), decode 1 "
+        f"greedy_agreement={agree:.3f} finite={finite}")
+    if trace[0] != want_pre or per_step != [2 * cfg.num_layers] * steps:
+        raise AssertionError(f"{cfg.name} encoder leg: launches {trace}, "
+                             f"want {want_pre} in the prefill and "
+                             f"{2 * cfg.num_layers} decode launches a step")
+    if not finite or ker[1].shape != (B, cfg.vocab_size) \
+            or errs[1] > 0.05 * scales[1]:
+        raise AssertionError(f"{cfg.name} encoder leg: the kernel path's "
+                             "decode logits disagree with chunked")
+    model = build_model(cfg)
+    cache = model.init_cache(B, 256, "cuda")
+    zeros = torch.zeros(B, dtype=torch.int32, device="cuda")
+
+    def prefill():
+        with torch.no_grad():
+            model.prefill(module, prompts, cache, zeros, frames=frames)
+    profile_step(f"{cfg.name} encoder prefill (8 x 1500 frames, 8 x {C} "
+                 f"tokens)", prefill, kernel="flash_")
+    return launches
+
+
+def whisper_train_leg() -> dict:
+    """Phase 23 (d): Whisper's published widths at 2 encoder + 2 decoder
+    layers, AdamW, batches of 2 x 448 tokens with 2 x 1500 random frames,
+    2 steps under ``pallas`` and under ``chunked`` from the same seed:
+    losses and grad norms within 1e-2, the flash launches exact (under
+    full remat every layer's forward runs twice a step: the encoder's
+    non-causal and the decoder's causal self-attention; the
+    cross-attention, 448 queries over 1500 frames, takes the plain
+    path).  Returns the pallas leg's launches."""
+    from repro_torch.training.trainer import build_trainer
+    W = WHISPER_TRAIN
+    base = dataclasses.replace(get_config(WHISPER), num_layers=W["layers"],
+                               encoder_layers=W["layers"])
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    batch = {
+        "tokens": torch.randint(1, base.vocab_size, (W["B"], W["S"]),
+                                generator=g, device="cuda",
+                                dtype=torch.int32),
+        "labels": torch.randint(1, base.vocab_size, (W["B"], W["S"]),
+                                generator=g, device="cuda",
+                                dtype=torch.int32),
+        "frames": torch.randn((W["B"], base.num_audio_frames, base.d_model),
+                              generator=g, device="cuda")}
+    legs = {}
+    for impl in ("pallas", "chunked"):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        trainer = build_trainer(cfg, total_steps=10, device="cuda")
+        state = trainer.init_state(SEED)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        hist = []
+        for _ in range(2):
+            (state, m), wall = sync_time(
+                lambda: trainer.train_step(state, batch))
+            hist.append(dict(loss=m["loss"].item(),
+                             grad_norm=m["grad_norm"].item(), step_s=wall))
+        legs[impl] = dict(hist=hist, launches=dict(ops.LAUNCHES),
+                          peak=torch.cuda.max_memory_allocated(),
+                          params=sum(p.numel()
+                                     for p in state.params.parameters()))
+        del state, trainer
+        torch.cuda.empty_cache()
+    ker, plain = legs["pallas"], legs["chunked"]
+    n_attn = base.encoder_layers + base.num_layers
+    passes = 2 if base.remat != "none" else 1
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want.update(flash_attention=2 * passes * n_attn,
+                flash_attention_bwd=2 * n_attn)
+    diffs = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+             for a, b in zip(ker["hist"], plain["hist"])]
+    gdiffs = [abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+              for a, b in zip(ker["hist"], plain["hist"])]
+    log(f"train {WHISPER} widths: {base.encoder_layers} + {base.num_layers} "
+        f"layers (of 32 + 32), params={ker['params']}, remat={base.remat}, "
+        f"optimizer={base.optimizer}, batch {W['B']} x {W['S']} tokens, "
+        f"{W['B']} x {base.num_audio_frames} frames; pallas launches "
+        f"{ker['launches']} (want {want}); losses "
+        f"{[h['loss'] for h in ker['hist']]} vs chunked "
+        f"{[h['loss'] for h in plain['hist']]} rel diff "
+        f"{[f'{d:.2e}' for d in diffs]} (tol 1e-2); grad norms "
+        f"{[h['grad_norm'] for h in ker['hist']]} vs "
+        f"{[h['grad_norm'] for h in plain['hist']]} rel diff "
+        f"{[f'{d:.2e}' for d in gdiffs]} (tol 1e-2); step_s pallas "
+        f"{[round(h['step_s'], 4) for h in ker['hist']]} chunked "
+        f"{[round(h['step_s'], 4) for h in plain['hist']]}; "
+        f"max_memory_allocated pallas {ker['peak']} chunked {plain['peak']}")
+    if ker["launches"] != want or any(plain["launches"].values()):
+        raise AssertionError(f"{WHISPER} training: launches "
+                             f"{ker['launches']} / {plain['launches']}, "
+                             f"want {want} / none")
+    if not all(math.isfinite(h["loss"]) for h in ker["hist"]) \
+            or max(diffs + gdiffs) > 1e-2:
+        raise AssertionError(f"{WHISPER} training: the kernel path's losses "
+                             "or grad norms disagree with chunked")
+    return ker["launches"]
+
+
+def whisper_phase(smi: str) -> dict:
+    """Phase 23: (a) the fp32 smoke config with random frames, kernel path
+    against ``chunked`` (a prefill as long as the frames, whose
+    cross-attention takes the flash kernel, and a longer one); (b) the
+    published widths and full depth serve phase 5's scenario over the
+    zero cross K/V the engine serves with; (c) the encoder leg; (d)
+    training; (e) the times of the three new kernel shapes.  Returns the
+    main paths' launches and the times."""
+    check_small(WHISPER, 16, 4)
+    check_small(WHISPER, 24, 16)
+    cfg = dataclasses.replace(get_config(WHISPER), attn_impl="pallas")
+    rt, rep, wall, init_s, launches = serve(cfg, SEED)
+    done = rt.engine.done
+    pc, ds = rep.extras["prefill_chunks"], rep.extras["decode_steps"]
+    generated = sum(len(r.generated) for r in done)
+    peak = torch.cuda.max_memory_allocated()
+    ex = rt.engine.exe
+    n_params = sum(p.numel() for p in ex.params.parameters())
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want["decode_attention"] = 2 * cfg.num_layers * ds
+    log(f"serve {WHISPER} ({smi}): encoder {cfg.encoder_layers} + decoder "
+        f"{cfg.num_layers} layers, d_model={cfg.d_model} "
+        f"heads={cfg.num_heads}/{cfg.num_kv_heads} head_dim={cfg.head_dim} "
+        f"frames={cfg.num_audio_frames} params={n_params} "
+        f"init_s={init_s:.2f} steps={int(rep.duration)} prefill_chunks={pc} "
+        f"decode_steps={ds} wall_s={wall:.3f} generated_tokens={generated} "
+        f"tokens_per_s={generated / wall:.2f} max_memory_allocated={peak} "
+        f"launches={launches}")
+    log(rep.summary())
+    if len(done) != 12 or any(r.status != RequestStatus.DONE for r in done):
+        raise AssertionError(f"{WHISPER}: not every request ended done: "
+                             + str([(r.rid, r.status.value) for r in done]))
+    if launches != want:
+        raise AssertionError(f"{WHISPER}: launches {launches}, want {want}")
+    B = 8
+    tokens, full = np.ones(B, np.int32), np.full(B, 128, np.int32)
+    active = np.ones(B, bool)
+    profile_step(f"{WHISPER} full-width decode step",
+                 lambda: ex.decode(tokens, full, active),
+                 kernel="decode_attention")
+    profile_cross_share(f"{WHISPER} full-width decode step",
+                        lambda: ex.decode(tokens, full, active))
+    enc = whisper_encoder_leg(ex.params, cfg)
+    del rt, ex
+    torch.cuda.empty_cache()
+    train = whisper_train_leg()
+    cross_t = time_decode_attention(WHISPER_CROSS["T"], 50,
+                                    shape=WHISPER_CROSS)
+    log("time decode_attention bf16 whisper cross (ms, library_ms: "
+        "CUDA-graph replays; eager_ms, library_eager_ms, plain_ms: launched "
+        f"from Python; {smi}) " + fields(cross_t))
+    enc_t = time_flash_attention(10, WHISPER_ENC)
+    log(f"time flash_attention bf16 whisper encoder B=8 S=T=1500 Hq=Hkv=20 "
+        f"D=64 non-causal ({smi}) " + fields(enc_t))
+    return dict(serve=launches, encoder=enc, train=train, cross_t=cross_t,
+                enc_t=enc_t)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2602,6 +2883,9 @@ def main() -> int:
     planes = planes_phase(p5, decode_device_ms, smi)
     families = {arch: serve_family(arch, depth, smi)
                 for arch, depth in NEW_FAMILIES}
+    whisper = whisper_phase(smi)
+    w_launches = {k: whisper["serve"][k] + whisper["encoder"][k]
+                  + whisper["train"][k] for k in ops.LAUNCHES}
 
     flash_err = check_flash_attention()
     ft = time_flash_attention(20)
@@ -2625,7 +2909,8 @@ def main() -> int:
         "launches": launches["decode_attention"]
         + rgemma["launches"]["decode_attention"]
         + planes["launches"]["decode_attention"]
-        + sum(f["decode_attention"] for f in families.values()),
+        + sum(f["decode_attention"] for f in families.values())
+        + w_launches["decode_attention"],
         "max_abs_err": err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]}, {
@@ -2648,7 +2933,8 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:28",
-        "launches": tr["launches"]["flash_attention"],
+        "launches": tr["launches"]["flash_attention"]
+        + w_launches["flash_attention"],
         "max_abs_err": flash_err["fwd_err"], "ms": ft["fwd_ms"],
         "plain_ms": ft["plain_fwd_ms"], "bound_ms": ft["fwd_bound_ms"],
         "bound_by": ft["fwd_bound_by"], "library_ms": ft["library_fwd_ms"]}, {
@@ -2656,7 +2942,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:28 (its "
                     "gradient; no Pallas backward)",
-        "launches": tr["launches"]["flash_attention_bwd"],
+        "launches": tr["launches"]["flash_attention_bwd"]
+        + w_launches["flash_attention_bwd"],
         "max_abs_err": flash_err["bwd_err"], "ms": ft["bwd_ms"],
         "plain_ms": ft["plain_bwd_ms"], "bound_ms": ft["bwd_bound_ms"],
         "bound_by": ft["bwd_bound_by"],

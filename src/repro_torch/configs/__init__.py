@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution + reduced smoke configs.
 
-Every architecture of the JAX package's catalog is registered but the
-encoder-decoder one, whose name raises ``NotImplementedError``.
+Every architecture of the JAX package's catalog is registered, the
+encoder-decoder one (whisper-large-v3) included.
 """
 from __future__ import annotations
 
@@ -25,11 +25,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "deepseek-v2-lite-16b": "deepseek_v2_lite",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "qwen2-vl-72b": "qwen2_vl_72b",
+    "whisper-large-v3": "whisper_large_v3",
 }
-
-# in the JAX package's catalog, waiting for the encoder-decoder stack
-# (cross-attention and its second cache layout)
-_NOT_PORTED = ("whisper-large-v3",)
 
 
 def list_archs() -> List[str]:
@@ -37,9 +34,6 @@ def list_archs() -> List[str]:
 
 
 def get_config(name: str) -> ModelConfig:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet; available: {list_archs()}")
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; available: {list_archs()}")
     mod = importlib.import_module(
@@ -81,4 +75,7 @@ def smoke_config(name: str) -> ModelConfig:
                                 head_dim=16, n_groups=1, chunk_size=16)
     if cfg.lru_width:
         repl["lru_width"] = 64
+    if cfg.is_encoder_decoder:
+        repl["encoder_layers"] = 2
+        repl["num_audio_frames"] = 16
     return dataclasses.replace(cfg, **repl)

@@ -11,11 +11,14 @@ any architecture of ``repro_torch.configs.list_archs()``: the dense
 (qwen3-8b, codeqwen1.5-7b, gemma-7b, gemma2-27b), vision-language
 (qwen2-vl-72b, text only), MoE/MLA (deepseek-v2-lite-16b,
 llama4-maverick-400b-a17b, whose 1.6 TB of f32 parameters fit no card:
-``--smoke`` only) and recurrent (mamba2-370m, recurrentgemma-2b) ones.
-Under ``attn_impl="pallas"`` the hand-written CUDA kernels run: decode
-attention (every attention layer's decode but MLA's, whose absorbed
-decode takes the plain path), the SSD scan of Mamba2's prefill and the
-RG-LRU scan of RecurrentGemma's prefill.
+``--smoke`` only), recurrent (mamba2-370m, recurrentgemma-2b) and
+encoder-decoder (whisper-large-v3: the engine passes no frames, so its
+decoder attends the zero cross K/V of a fresh cache, as the JAX
+package's engine does) ones.  Under ``attn_impl="pallas"`` the
+hand-written CUDA kernels run: decode attention (every attention layer's
+decode but MLA's, whose absorbed decode takes the plain path; Whisper's
+cross-attention too, over every frame), the SSD scan of Mamba2's prefill
+and the RG-LRU scan of RecurrentGemma's prefill.
 
     --smoke                         # the reduced model
     --device cpu                    # plain versions on the CPU

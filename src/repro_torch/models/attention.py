@@ -13,7 +13,8 @@ Three implementations selected by ``cfg.attn_impl``:
 
 MLA's absorbed path attends with K dim rank + rope != V dim rank, which
 no kernel takes: it runs the plain paths under every implementation, as
-in the JAX package.  Cross-attention is not ported yet.
+in the JAX package.  Whisper's decoder cross-attention
+(``cross_attention_layer``) attends every encoder frame, non-causal.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ModelConfig, LOCAL_ATTN
 from repro_torch.models import layers as L
@@ -346,3 +348,61 @@ def _mla_layer(p, x, positions, cfg: ModelConfig, cache, cache_offset):
         out = torch.einsum("bshr,rhd->bshd", ctx, w_uv)
     out = out.reshape(B, S, H * m.v_head_dim)
     return out @ p.wo.to(dt), cache
+
+
+# ---------------------------------------------------------------------------
+# cross attention (whisper decoder)
+# ---------------------------------------------------------------------------
+class CrossAttention(nn.Module):
+    """Whisper decoder cross-attention weights (always dense MHA, no
+    rope): ``wq`` (d, q_dim), ``wk`` / ``wv`` (d, q_dim), ``wo``."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+        super().__init__()
+        pd, d = L.pdtype_of(cfg), cfg.d_model
+        self.wq = L.param(L.dense_init(gen, d, cfg.q_dim, pd))
+        self.wk = L.param(L.dense_init(gen, d, cfg.q_dim, pd))
+        self.wv = L.param(L.dense_init(gen, d, cfg.q_dim, pd))
+        self.wo = L.param(L.dense_init(gen, cfg.q_dim, d, pd))
+
+
+def cross_attention_layer(p, x: torch.Tensor, enc_kv, cfg: ModelConfig
+                          ) -> torch.Tensor:
+    """x: (B,S,d); enc_kv: (k, v) precomputed from the encoder output,
+    (B,T,H,D) each.  Every query sees every frame."""
+    dt = x.dtype
+    B, S, _ = x.shape
+    k, v = enc_kv
+    T = k.shape[1]
+    q = (x @ p.wq.to(dt)).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    if cfg.attn_impl == "pallas" and S == 1:
+        from repro_torch.kernels import ops as kops
+        # Every frame counts: the fill is T in every row, inactive slots
+        # included (their output is dropped, as under ``chunked``, which
+        # attends all frames).  The JAX package passes q_pos[:, 0] = 0
+        # here, so its kernel attends no frame and the cross term is 0;
+        # ``_run_attention``'s q_pos + 1 would attend frame 0 alone.
+        fill = torch.full((B,), T, dtype=torch.int32, device=x.device)
+        out = kops.decode_attention(q, k, v, fill, scale=scale)
+    else:
+        # a chunk of T queries is cache-free and takes the flash kernel
+        # (non-causal) under ``pallas``; other lengths the plain paths
+        pos_q = torch.zeros((B, S), dtype=torch.int32, device=x.device)
+        pos_k = torch.zeros((B, T), dtype=torch.int32, device=x.device)
+        out = _run_attention(cfg, q, k, v, pos_q, pos_k, scale=scale,
+                             causal=False, window=0, cap=0.0)
+    return out.reshape(B, S, cfg.q_dim) @ p.wo.to(dt)
+
+
+def encode_cross_kv(p, enc_out: torch.Tensor, cfg: ModelConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer's cross K/V from the encoder output: (B,T,H,D)
+    each, contiguous (the decode kernel reads them through their
+    strides)."""
+    dt = enc_out.dtype
+    B, T, _ = enc_out.shape
+    shape = (B, T, cfg.num_heads, cfg.head_dim)
+    k = (enc_out @ p.wk.to(dt)).reshape(shape)
+    v = (enc_out @ p.wv.to(dt)).reshape(shape)
+    return k, v

@@ -149,6 +149,33 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# sinusoidal absolute positions (whisper backbone)
+# ---------------------------------------------------------------------------
+SINUSOID_ROWS = 1 << 16       # the decoder's table: positions clip into it
+
+
+def sinusoidal_at(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Rows ``positions`` (any shape, int) of the parameter-free table
+    ``sinusoidal_positions(SINUSOID_ROWS, d_model)``, fp32 (..., d_model):
+    sin at the even columns, cos at the odd ones.  Positions clip to
+    [0, SINUSOID_ROWS - 1] (a pad position -1 reads row 0), and each row
+    is computed as the table computes it, so no table is built."""
+    pos = positions.clamp(0, SINUSOID_ROWS - 1).float()[..., None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32,
+                       device=positions.device)
+    angle = pos / torch.pow(10_000.0, dim / d_model)
+    return torch.stack([torch.sin(angle), torch.cos(angle)],
+                       dim=-1).reshape(*positions.shape, d_model)
+
+
+def sinusoidal_positions(seq_len: int, d_model: int,
+                         device="cpu") -> torch.Tensor:
+    """(seq_len, d_model) fp32 table of parameter-free absolute
+    positions."""
+    return sinusoidal_at(torch.arange(seq_len, device=device), d_model)
+
+
+# ---------------------------------------------------------------------------
 # embedding / logits
 # ---------------------------------------------------------------------------
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,

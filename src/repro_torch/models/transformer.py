@@ -6,8 +6,8 @@ and run in a plain loop (the JAX package scans stacked layer groups
 after its leading dense ``front`` layers; ``layer_layout`` keeps its
 partition so ``weights.params_from_jax`` can unstack them).  Weights are
 random, drawn from an explicit ``torch.Generator`` on the generator's
-device.  Each layer kind carries its own cache dict.  Encoder-decoder
-models are not ported yet.
+device.  Each layer kind carries its own cache dict.  The encoder-decoder
+stack (whisper) is ``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -46,12 +46,6 @@ def layer_layout(cfg: ModelConfig) -> Tuple[int, int, int, int]:
     n_groups = rest // p if cfg.scan_layers else 0
     tail = rest - n_groups * p
     return front, p, n_groups, tail
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            "encoder-decoder models are not ported yet")
 
 
 def _zeros(n: int, cfg: ModelConfig, device) -> nn.Parameter:
@@ -160,7 +154,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         pd = L.pdtype_of(cfg)
         self.embed = L.param(L.embed_init(gen, cfg.vocab_size, cfg.d_model,

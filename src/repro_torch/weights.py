@@ -3,8 +3,10 @@
 The reference keeps its repeated layer groups stacked for ``lax.scan``
 (``params["groups"]``: a tuple of per-position layer dicts whose leaves
 carry a leading ``n_groups`` axis) beside unstacked ``front``/``tail``
-lists.  ``params_from_jax`` unstacks them into the port's flat layer
-list, so both packages compute the same function from the same weights;
+lists; its encoder-decoder tree stacks all of ``enc_layers`` and
+``dec_layers`` on a leading layer axis.  ``params_from_jax`` unstacks
+them into the port's flat layer lists, so both packages compute the same
+function from the same weights;
 ``train_state_from_reference`` does the same for a whole training state.
 The tree arrives as numpy arrays: this module never imports JAX.
 """
@@ -16,7 +18,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import Transformer, layer_layout
+from repro_torch.models.registry import build_model
+from repro_torch.models.transformer import layer_layout
 
 
 def _flatten(prefix: str, tree: dict, out: Dict[str, np.ndarray]) -> None:
@@ -41,7 +44,11 @@ def named_arrays(np_tree: dict, cfg: ModelConfig) -> Dict[str, np.ndarray]:
     untied ``lm_head``; an MoE layer's ``moe.router``, its stacked
     ``moe.w_gate`` / ``w_up`` (E, d, f) and ``w_down`` (E, f, d) and
     ``moe.shared.*``; an MLA layer's ``mixer.wq`` / ``w_dkv`` /
-    ``kv_norm`` / ``w_uk`` / ``w_uv`` / ``wo``."""
+    ``kv_norm`` / ``w_uk`` / ``w_uv`` / ``wo``; an encoder-decoder's
+    ``enc_layers.i.*`` and ``dec_layers.i.*`` (``norm_x``, ``cross.*``),
+    both stacked whatever ``scan_layers`` says."""
+    if cfg.is_encoder_decoder:
+        return _encdec_arrays(np_tree, cfg)
     front, p, n_groups, tail = layer_layout(cfg)
     layers = list(np_tree.get("front", []))
     for g in range(n_groups):
@@ -58,20 +65,34 @@ def named_arrays(np_tree: dict, cfg: ModelConfig) -> Dict[str, np.ndarray]:
     return state
 
 
+def _encdec_arrays(np_tree: dict, cfg: ModelConfig
+                   ) -> Dict[str, np.ndarray]:
+    state: Dict[str, np.ndarray] = {}
+    _flatten("", {k: np_tree[k] for k in ("embed", "lm_head", "enc_norm",
+                                          "final_norm") if k in np_tree},
+             state)
+    for name, n in (("enc_layers", cfg.encoder_layers),
+                    ("dec_layers", cfg.num_layers)):
+        for i in range(n):
+            _flatten(f"{name}.{i}.", _take(np_tree[name], i), state)
+    return state
+
+
 def params_from_jax(np_tree: dict, cfg: ModelConfig,
-                    device="cpu") -> Transformer:
-    """Reference parameter tree (numpy leaves) -> ``Transformer`` on
-    ``device`` holding exactly those weights."""
+                    device="cpu") -> torch.nn.Module:
+    """Reference parameter tree (numpy leaves) -> the port's model
+    (``Transformer`` or ``EncDec``) on ``device`` holding exactly those
+    weights."""
     state = named_arrays(np_tree, cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)          # placeholder weights, overwritten below
-    module = Transformer(cfg, gen)
+    module = build_model(cfg).init(gen)
     module.load_state_dict({k: torch.tensor(v)
                             for k, v in state.items()}, strict=True)
     return module
 
 
-def _adafactor_slots(slots: dict, module: Transformer, cfg: ModelConfig,
+def _adafactor_slots(slots: dict, module: torch.nn.Module, cfg: ModelConfig,
                      device) -> Dict[str, Dict[str, torch.Tensor]]:
     """The reference's Adafactor slot tree -> {parameter name: slot dict},
     where the slots mean what the port's per-layer Adafactor keeps."""

@@ -73,11 +73,13 @@ def forward_pair(arch, jparams, np_tree, port_impl, batch, **changes):
 
 
 def prefill_then_decode(arch, jparams, np_tree, port_impl, prompts, C,
-                        steps, **changes):
+                        steps, frames=None, **changes):
     """Ragged chunked prefill (C tokens a call; each row's real tokens
     end where its prompt does) and ``steps`` greedy decode steps, through
-    both packages' ``Model.prefill`` / ``decode_step``.  Yields (what,
-    reference, port) pairs; returns the port's cache at the end."""
+    both packages' ``Model.prefill`` / ``decode_step``; ``frames`` (an
+    encoder-decoder's numpy (B, T_enc, d)) go with the first prefill
+    call.  Yields (what, reference, port) pairs; returns the port's cache
+    at the end."""
     jcfg, tcfg = cfgs(arch, port_impl, **changes)
     jm, tm = jax_build_model(jcfg), build_model(tcfg)
     module = params_from_jax(np_tree, tcfg)
@@ -93,13 +95,17 @@ def prefill_then_decode(arch, jparams, np_tree, port_impl, prompts, C,
         for r in range(B):
             chunk[r, :n[r]] = toks[r, lengths[r]:lengths[r] + n[r]]
         valid = np.arange(C)[None, :] < n[:, None]
+        jkw, tkw = {}, {}
+        if frames is not None and not lengths.any():
+            jkw["frames"] = jnp.asarray(frames)
+            tkw["frames"] = torch.from_numpy(frames)
         jl, jcache = jm.prefill(jparams, jnp.asarray(chunk), jcache,
                                 jnp.asarray(lengths),
-                                valid=jnp.asarray(valid))
+                                valid=jnp.asarray(valid), **jkw)
         with torch.no_grad():
             tl, tcache = tm.prefill(module, torch.from_numpy(chunk), tcache,
                                     torch.from_numpy(lengths),
-                                    valid=torch.from_numpy(valid))
+                                    valid=torch.from_numpy(valid), **tkw)
         rows = n > 0
         last = np.maximum(n - 1, 0)
         yield (f"prefill at {lengths.tolist()}",

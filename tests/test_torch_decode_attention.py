@@ -299,6 +299,7 @@ SERVE_SHAPES = {
     "gemma-7b": (16, 16, 256, 0, 0.0, None, False),
     "gemma2-27b": (32, 16, 128, 4096, 50.0, 144.0 ** -0.5, True),
     "qwen2-vl-72b": (64, 8, 128, 0, 0.0, None, False),
+    "whisper-large-v3": (20, 20, 64, 0, 0.0, None, False),
 }
 
 
@@ -324,6 +325,29 @@ def test_kernel_at_the_new_serve_shapes_matches_plain_on_card(arch, dtype):
     got = decode_attention_cuda(tq, tk, tv, tl, **kw)
     torch.cuda.synchronize()
     want = tref.decode_attention_ref(tq, tk, tv, tl, **kw)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.all(got[tl <= 0] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lens", [[1500] * 8,
+                                  [1500, 1, 0, 1499, 1472, 64, 65, 1000]])
+def test_kernel_at_whisper_cross_shape_matches_plain_on_card(lens, dtype):
+    """Whisper's cross-attention: 20 heads on 20 of 64 over 1500 encoder
+    frames (1500 = 23 x 64 + 28 keys: a ragged last tile), every frame
+    counted as served, and ragged fills."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v, lengths, scale, _, _ = _inputs(
+        (8, 1500, 20, 20, 64, 0, 0.0, lens), dtype)
+    dev = torch.device("cuda")
+    tq, tk, tv = (_torch(x, dtype).to(dev) for x in (q, k, v))
+    tl = torch.from_numpy(lengths).to(dev)
+    got = decode_attention_cuda(tq, tk, tv, tl, scale=scale)
+    torch.cuda.synchronize()
+    want = tref.decode_attention_ref(tq, tk, tv, tl, scale=scale)
     tol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     assert torch.all(got[tl <= 0] == 0)

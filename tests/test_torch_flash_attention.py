@@ -57,10 +57,12 @@ EDGE_CASES = [
     (1, 200, 200, 10, 1, 256, 0, 0.0, True),     # S * G = 2000, ragged
     (2, 300, 300, 10, 1, 256, 100, 0.0, True),   # window
     (1, 260, 260, 10, 1, 256, 64, 30.0, True),   # cap + window
+    # Whisper's encoder: non-causal, S = T = 1500 (ragged last tiles)
+    (1, 1500, 1500, 20, 20, 64, 0, 0.0, False),
 ]
 EDGE_IDS = ["g3_ragged", "d16_ragged", "win20_d128", "noncausal_t_lt_s",
             "g8_cap_win", "g10_d256_ragged", "g10_d256_window",
-            "g10_d256_cap_win"]
+            "g10_d256_cap_win", "whisper_enc"]
 
 # head dim 256 on the CPU: RecurrentGemma-2B's grouping, a window shorter
 # than S, causal
