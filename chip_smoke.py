@@ -240,14 +240,53 @@ prints no result.  Phases, each of which raises on failure:
      decode (B 8, T 1500) and the encoder's flash forward and backward
      (B 8, S = T 1500, non-causal) timed beside their bounds and SDPA.
 
+ 24. (run after phase 23) the fleet plane, its single-NIC twins and the
+     examples: (a) ``fleet_fabric`` (4 NICs, 120 us), ``fleet_incast``
+     (16 NICs, 80 us) and ``fleet_migrate`` (2 NICs, 240 us) through
+     ``launch.scenario.run_one`` on the event and batched datapaths, host
+     code: every report valid, the switch's conservation law, the
+     drift-free projections equal across the datapaths, the incast's
+     output 0 saturated with the quiet pair flat, the migration (victim
+     2 from NIC 0 to 1, MIGRATE_START / MIGRATE_DONE, its p99 under half
+     the ``migrate=False`` arm's and under target, fleet Jain held), an N
+     = 1 ideal-fabric ``qos_closed_loop`` equal to its single NIC, the
+     fleet OpenMetrics golden; host walls and packets/s; (b) the twins
+     (``FleetSpec.plain()``) of ``fleet_fabric`` (T 8) and
+     ``fleet_incast`` (T 16) through ``run_sweep`` on the card, 8 seeds,
+     one ``sweep_scan`` launch each and no ``wlbvt_select``, every
+     replica held against the port's host ``BatchedSimulator`` as in
+     phase 20 (c); ``fleet_migrate``'s twin refused (QoS controller); (c)
+     the examples: ``qos_controller_demo`` as a user runs it;
+     ``quickstart`` on the card (3 finite losses, 2 requests of 8 tokens,
+     decode and flash launches exact); ``multi_tenant_serving`` on the
+     card (every request done, decode launches = layers x decode steps,
+     the RunReport equal under ``chunked``); ``train_100m`` for 100 steps
+     (6 layers, d_model 512, gradient accumulation 2, 8 x 256 tokens, full
+     remat): flash launches exact, tokens/s, step wall, a profiled step's
+     device time and idle share, the save's stall and peak memory; then,
+     with ``fairness_demo --exp all`` started in its own process (after
+     the timed legs), the checks: the first loss near ln V, the step-100
+     checkpoint loaded into a fresh state equal bit for bit; the decode
+     kernel (quickstart's 4 x 128 cache, ``serve_three_class``'s 6 x 256;
+     4 on 4 heads of 16) and the flash pair (quickstart's 4 x 64,
+     train_100m's micro-batch 4 x 256 with 8 on 4 heads of 64; causal)
+     against their plain versions in bf16 and fp32; both serves again
+     with a ``chunked`` twin on the same weights fed the same inputs
+     (every decode step's logits within 0.1 of the largest); both
+     training legs' first micro-batch from their initial weights, logits
+     and every parameter's gradient against ``chunked`` (0.1).
+
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -265,7 +304,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.api import (ArrivalSpec, RunReport, ScenarioSpec,  # noqa: E402
                              ServeRuntime, SweepAxis, SweepSpec, TenantSpec,
                              WorkloadSpec, build_traces, get_scenario,
-                             list_scenarios)
+                             list_scenarios, run_scenario)
 from repro_torch.configs import (  # noqa: E402
     GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD, get_config, smoke_config)
 from repro_torch.kernels import build as kbuild  # noqa: E402
@@ -293,6 +332,7 @@ from repro_torch.launch.train import run_training  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serving.engine import ModelExecutor  # noqa: E402
 from repro_torch.serving.request import RequestStatus  # noqa: E402
+from repro_torch.serving.sampler import sample  # noqa: E402
 from repro_torch.sim import devicepath as DP  # noqa: E402
 from repro_torch.sim.fastpath import build_simulator  # noqa: E402
 
@@ -408,31 +448,37 @@ def check_decode_attention() -> float:
         for name, shp, win, cap, sc, ring_pos in NEW_DECODE]
     serve_err = None
     for dtype in (torch.bfloat16, torch.float32):
-        for i, (name, shp, lengths, win, cap, ring_pos, sc) in \
-                enumerate(cases):
-            q, k, v, lens = attn_inputs(**shp, lengths=lengths, dtype=dtype,
-                                        seed=SEED + i)
-            pos = (ring_positions(lengths, shp["T"], SEED + i) if ring_pos
-                   else None)
-            scale = sc or 1.0 / math.sqrt(shp["D"])
-            got = decode_attention_cuda(q, k, v, lens, scale=scale,
-                                        window=win, cap=cap, positions=pos)
-            torch.cuda.synchronize()
-            want = decode_attention_ref(q, k, v, lens, scale=scale,
-                                        window=win, cap=cap, positions=pos)
-            err = (got.float() - want.float()).abs().max().item()
-            ok = torch.allclose(got.float(), want.float(), atol=TOL[dtype],
-                                rtol=TOL[dtype])
-            empty_zero = bool(torch.all(got[lens <= 0] == 0))
-            log(f"check decode_attention {name:<15} {str(dtype):<15} "
-                f"max_abs_err={err:.3e} tol={TOL[dtype]:g} "
-                f"empty_rows_zero={empty_zero}")
-            if not (ok and empty_zero and torch.isfinite(got).all()):
-                raise AssertionError(f"decode_attention {name} {dtype}: "
-                                     f"kernel disagrees with plain version")
-            if name == "serve" and dtype == torch.bfloat16:
+        for i, case in enumerate(cases):
+            err = check_decode_case(*case, dtype=dtype, seed=SEED + i)
+            if case[0] == "serve" and dtype == torch.bfloat16:
                 serve_err = err
     return serve_err
+
+
+def check_decode_case(name, shp, lengths, win, cap, ring_pos, sc, *, dtype,
+                      seed) -> float:
+    """The kernel against its plain version on one case (``shp``: B, T,
+    Hq, Hkv, D; ``sc`` None: 1/sqrt(D)); returns max |kernel - plain|."""
+    q, k, v, lens = attn_inputs(**shp, lengths=lengths, dtype=dtype,
+                                seed=seed)
+    pos = ring_positions(lengths, shp["T"], seed) if ring_pos else None
+    scale = sc or 1.0 / math.sqrt(shp["D"])
+    got = decode_attention_cuda(q, k, v, lens, scale=scale, window=win,
+                                cap=cap, positions=pos)
+    torch.cuda.synchronize()
+    want = decode_attention_ref(q, k, v, lens, scale=scale, window=win,
+                                cap=cap, positions=pos)
+    err = (got.float() - want.float()).abs().max().item()
+    ok = torch.allclose(got.float(), want.float(), atol=TOL[dtype],
+                        rtol=TOL[dtype])
+    empty_zero = bool(torch.all(got[lens <= 0] == 0))
+    log(f"check decode_attention {name:<15} {str(dtype):<15} "
+        f"max_abs_err={err:.3e} tol={TOL[dtype]:g} "
+        f"empty_rows_zero={empty_zero}")
+    if not (ok and empty_zero and torch.isfinite(got).all()):
+        raise AssertionError(f"decode_attention {name} {dtype}: "
+                             f"kernel disagrees with plain version")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -756,38 +802,9 @@ def check_flash_attention():
     runs += [(name, case, torch.bfloat16, True, SEED + len(FLASH_CASES) + i)
              for i, (name, case) in enumerate(FLASH_FUSED)]
     for name, case, dtype, fused, seed in runs:
-        q, k, v, do, kw = flash_inputs(case, dtype, seed, fused)
-        o, lse = flash_attention_cuda(q, k, v, **kw)
-        torch.cuda.synchronize()
-        want_o, want_lse = flash_attention_ref(q, k, v, **kw)
-        err = (o.float() - want_o.float()).abs().max().item()
-        lse_err = (lse - want_lse).abs().max().item()
-        grads = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
-        torch.cuda.synchronize()
-        want = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
-        gerr = [rel_err(a, b) for a, b in zip(grads, want)]
-        gabs = max((a.float() - b.float()).abs().max().item()
-                   for a, b in zip(grads, want))
-        # autograd of the plain forward: the gradient's second oracle
-        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-        ref_o, _ = flash_attention_ref(*leaves, **kw)
-        auto = torch.autograd.grad(ref_o, leaves, do)
-        aerr = [rel_err(a, b) for a, b in zip(grads, auto)]
-        del ref_o, auto, leaves
-        ok = (err <= TOL[dtype] and lse_err <= 1e-4
-              and max(gerr + aerr) <= GRAD_TOL[dtype]
-              and all(torch.isfinite(x).all() for x in (o, *grads)))
-        log(f"check flash_attention {name:<16} {str(dtype):<15} "
-            f"fwd max_abs_err={err:.3e} (tol {TOL[dtype]:g}) "
-            f"lse_err={lse_err:.3e} bwd rel_err dq/dk/dv="
-            f"{'/'.join(f'{e:.2e}' for e in gerr)} vs autograd of "
-            f"plain {'/'.join(f'{e:.2e}' for e in aerr)} "
-            f"(tol {GRAD_TOL[dtype]:g})")
-        if not ok:
-            raise AssertionError(f"flash_attention {name} {dtype}: "
-                                 "kernel disagrees with plain version")
+        err, gabs, gerr = check_flash_case(name, case, dtype, seed, fused)
         if name == "qwen3" and dtype == torch.bfloat16:
-            out = dict(fwd_err=err, bwd_err=gabs, bwd_rel_err=max(gerr))
+            out = dict(fwd_err=err, bwd_err=gabs, bwd_rel_err=gerr)
     x = torch.zeros((1, 8, 6, 64), device="cuda", dtype=torch.bfloat16)
     for what, args in (
             ("head dim 48", [torch.zeros((1, 8, 2, 48), device="cuda")] * 3),
@@ -801,6 +818,44 @@ def check_flash_attention():
         else:
             raise AssertionError(f"flash_attention: {what} did not raise")
     return out
+
+
+def check_flash_case(name, case, dtype, seed, fused=False) -> tuple:
+    """Both kernels against their plain versions on one case (B, S, T,
+    Hq, Hkv, D, window, cap, causal).  Returns max |o - plain|, max
+    |grad - plain| over dq, dk, dv, and the worst relative gradient
+    error against the plain backward."""
+    q, k, v, do, kw = flash_inputs(case, dtype, seed, fused)
+    o, lse = flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want_o, want_lse = flash_attention_ref(q, k, v, **kw)
+    err = (o.float() - want_o.float()).abs().max().item()
+    lse_err = (lse - want_lse).abs().max().item()
+    grads = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    gerr = [rel_err(a, b) for a, b in zip(grads, want)]
+    gabs = max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(grads, want))
+    # autograd of the plain forward: the gradient's second oracle
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    ref_o, _ = flash_attention_ref(*leaves, **kw)
+    auto = torch.autograd.grad(ref_o, leaves, do)
+    aerr = [rel_err(a, b) for a, b in zip(grads, auto)]
+    del ref_o, auto, leaves
+    ok = (err <= TOL[dtype] and lse_err <= 1e-4
+          and max(gerr + aerr) <= GRAD_TOL[dtype]
+          and all(torch.isfinite(x).all() for x in (o, *grads)))
+    log(f"check flash_attention {name:<16} {str(dtype):<15} "
+        f"fwd max_abs_err={err:.3e} (tol {TOL[dtype]:g}) "
+        f"lse_err={lse_err:.3e} bwd rel_err dq/dk/dv="
+        f"{'/'.join(f'{e:.2e}' for e in gerr)} vs autograd of "
+        f"plain {'/'.join(f'{e:.2e}' for e in aerr)} "
+        f"(tol {GRAD_TOL[dtype]:g})")
+    if not ok:
+        raise AssertionError(f"flash_attention {name} {dtype}: "
+                             "kernel disagrees with plain version")
+    return err, gabs, max(gerr)
 
 
 def time_flash_attention(iters: int, shape=None) -> dict:
@@ -982,16 +1037,18 @@ def ptxas_report(logs: dict, pattern: str) -> list:
     return out
 
 
-def profile_train_step(cfg, state) -> None:
+def profile_train_step(cfg, state, seq_len: int = 1024, batch: int = 4,
+                       grad_accum: int = 1, label: str = "train") -> dict:
     """Device time by kernel over one more training step of ``state``
     (after the measured run), against the step's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.training.data import SyntheticLM
     from repro_torch.training.trainer import build_trainer
-    trainer = build_trainer(cfg, total_steps=5, device="cuda")
+    trainer = build_trainer(cfg, total_steps=5, grad_accum=grad_accum,
+                            device="cuda")
     batch = {k: torch.from_numpy(v).to("cuda") for k, v in
-             next(SyntheticLM(cfg, 1024, 4, seed=SEED + 1)).items()}
+             next(SyntheticLM(cfg, seq_len, batch, seed=SEED + 1)).items()}
     state, _ = trainer.train_step(state, batch)        # warm
     (state, _), wall = sync_time(lambda: trainer.train_step(state, batch))
     with profile(activities=[ProfilerActivity.CPU,
@@ -1003,14 +1060,16 @@ def profile_train_step(cfg, state) -> None:
     total = sum(e.self_device_time_total for e in rows) / 1e3
     attn = sum(e.self_device_time_total for e in rows
                if "flash_" in e.key) / 1e3
-    log(f"profile: train step wall {wall * 1e3:.3f} ms (host clock, "
+    idle = 1 - total / (wall * 1e3)
+    log(f"profile: {label} step wall {wall * 1e3:.3f} ms (host clock, "
         f"unprofiled), device time {total:.3f} ms over "
         f"{sum(e.count for e in rows)} kernels, idle share "
-        f"{1 - total / (wall * 1e3):.3f}, flash kernels {attn:.3f} ms "
+        f"{idle:.3f}, flash kernels {attn:.3f} ms "
         f"({attn / total:.3f} of device time)")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms  "
             f"{e.count:5d}x  {e.key[:90]}")
+    return dict(wall_ms=wall * 1e3, device_ms=total, idle=idle)
 
 
 def train_phase() -> dict:
@@ -2773,6 +2832,555 @@ def whisper_phase(smi: str) -> dict:
                 enc_t=enc_t)
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the fleet plane, its single-NIC twins and the examples
+# ---------------------------------------------------------------------------
+GOLDEN_FLEET = ROOT / "tests" / "data" / "openmetrics_schema.fleet.golden"
+FLEET = ("fleet_fabric", "fleet_incast", "fleet_migrate")
+TWIN_SEEDS = 8
+TRAIN_100M_STEPS = 100
+
+
+def fleet_drift_free(rep) -> str:
+    """tests/test_fleet.py's projection: the report but the time-averaged
+    Jain accumulators (last-ulp drift between the datapaths) and the spec
+    echoes (their ``datapath`` differs)."""
+    d = rep.to_dict()
+    d.pop("spec")
+    d.pop("jain_pu"), d.pop("jain_io")
+    for pn in d["extras"]["fleet"]["per_nic"]:
+        pn.pop("spec")
+        pn.pop("jain_pu"), pn.pop("jain_io")
+    return json.dumps(d, sort_keys=True)
+
+
+def fleet_run(name: str, params: dict, smi: str):
+    """One fleet scenario through the scenario CLI's ``run_one`` (host
+    code); the report validated and the switch's conservation law held."""
+    spec = get_scenario(name, **params)
+    pkts = len(build_traces(spec, arrays=True))
+    t0 = time.perf_counter()
+    rep = scenario_cli.run_one(name, "sim", params)
+    wall = time.perf_counter() - t0
+    rep.validate()
+    fl = rep.extras["fleet"]
+    sw = fl["switch"]
+    lhs = sum(sw["injected"]) + sum(sw["replayed"])
+    rhs = sum(sw["delivered"]) + sw["drops_total"] + sw["inflight"]
+    log(f"fleet {name} {params}: nics={fl['num_nics']} epochs={fl['epochs']} "
+        f"migrations={fl['migrations_total']} switch drops="
+        f"{sw['drops_total']} jain_fleet={fl['jain_fleet']!r} "
+        f"injected+replayed={lhs} delivered+drops+inflight={rhs}; host "
+        f"wall {wall:.4f} s on the card's machine ({smi}), {pkts} packets, "
+        f"{pkts / wall:.1f} packets/s")
+    if lhs != rhs:
+        raise AssertionError(f"fleet {name}: the switch lost packets "
+                             f"({lhs} != {rhs})")
+    return rep
+
+
+def fleet_leg(smi: str) -> None:
+    """Phase 24 (a): the fleet plane at its published sizes, host code."""
+    from repro_torch.fleet import FleetSpec, run_fleet
+    from repro_torch.telemetry.export import schema_lines
+    reps = {}
+    for name in FLEET:
+        for dp in ("event", "batched"):
+            reps[name, dp] = fleet_run(name, {"datapath": dp}, smi)
+        if (fleet_drift_free(reps[name, "event"])
+                != fleet_drift_free(reps[name, "batched"])):
+            raise AssertionError(f"fleet {name}: the event and batched "
+                                 "datapaths' reports differ")
+    log("check: every fleet report's drift-free projection is equal on the "
+        "event and batched datapaths")
+    # the incast: output 0 saturates, the quiet pair stays flat
+    rep = reps["fleet_incast", "event"]
+    n, sw = rep.spec["num_nics"], rep.extras["fleet"]["switch"]
+    util, lat = sw["link_utilization"], np.asarray(sw["pair_latency_mean"])
+    quiet = rep.spec["tenants"][-1]["arrival"]["size"]
+    ideal = quiet * 8.0 / rep.spec["link_gbps"] + rep.spec["prop_delay_ns"]
+    hot, flat = float(lat[:n - 1, 0].mean()), float(lat[n - 1, n - 1])
+    log(f"check fleet_incast: output 0 utilization {util[0]!r}, quiet "
+        f"output {util[-1]!r}; quiet pair latency {flat!r} ns "
+        f"(ideal {ideal!r}), hot pairs' mean {hot!r} ns")
+    if not (util[0] > 0.9 and util[-1] < 0.1
+            and 0.0 < flat < 3.0 * ideal and hot > 10.0 * flat):
+        raise AssertionError("fleet_incast: VOQ isolation does not hold")
+    # the migration: the victim moves, its p99 beats the control arm's
+    mig = reps["fleet_migrate", "event"]
+    ctl = fleet_run("fleet_migrate", {"migrate": False}, smi)
+    a, b = mig.extras["fleet"], ctl.extras["fleet"]
+    kinds = [e["kind"] for e in mig.events]
+    m0 = a["migrations"][0] if a["migrations"] else {}
+    log(f"check fleet_migrate: migrations {a['migrations']}, victim sojourn "
+        f"p99 {a['sojourn_p99'][2]!r} ns against the control arm's "
+        f"{b['sojourn_p99'][2]!r} (target "
+        f"{mig.spec['tenants'][2]['p99_target']!r}), jain_fleet "
+        f"{a['jain_fleet']!r} against {b['jain_fleet']!r}")
+    if not (a["migrations_total"] >= 1 and b["migrations_total"] == 0
+            and (m0.get("tenant"), m0.get("src"), m0.get("dst")) == (2, 0, 1)
+            and "migrate_start" in kinds and "migrate_done" in kinds
+            and a["sojourn_p99"][2] < 0.5 * b["sojourn_p99"][2]
+            and a["sojourn_p99"][2] < mig.spec["tenants"][2]["p99_target"]
+            and a["jain_fleet"] >= b["jain_fleet"] - 0.05):
+        raise AssertionError("fleet_migrate: the migration checks failed")
+    # N = 1 over the ideal fabric is the single NIC, byte for byte
+    base = get_scenario("qos_closed_loop")
+    fs = FleetSpec(**{f.name: getattr(base, f.name)
+                      for f in dataclasses.fields(ScenarioSpec)},
+                   num_nics=1, link_gbps=0.0, prop_delay_ns=0.0)
+    for dp in ("event", "batched"):
+        one = run_fleet(fs.replace(datapath=dp))
+        single = run_scenario(fs.plain().replace(datapath=dp))
+        if (json.dumps(one.extras["fleet"]["per_nic"][0], sort_keys=True)
+                != json.dumps(single.to_dict(), sort_keys=True)):
+            raise AssertionError(f"N = 1 fleet ({dp}) != the single NIC")
+    log("check: an N = 1 ideal-fabric fleet of qos_closed_loop equals "
+        "run_scenario(spec.plain()) byte for byte on both datapaths")
+    out = ROOT / "build" / "chip_smoke_fleet_export"
+    shutil.rmtree(out, ignore_errors=True)
+    scenario_cli.run_one("fleet_fabric", "sim", {}, fast=True,
+                         export_dir=str(out))
+    got = schema_lines((out / "fleet_fabric.sim.om.txt").read_text())
+    if got != GOLDEN_FLEET.read_text().splitlines():
+        raise AssertionError("fleet_fabric --fast --export: the OpenMetrics "
+                             "schema differs from the fleet golden")
+    log("check: fleet_fabric --fast --export matches "
+        "tests/data/openmetrics_schema.fleet.golden")
+
+
+def twins_leg(smi: str) -> int:
+    """Phase 24 (b): the fleets' single-NIC twins (``FleetSpec.plain()``)
+    through the card's sweep, held against the port's host
+    ``BatchedSimulator``; ``fleet_migrate``'s twin must be refused.
+    Returns the sweeps' ``sweep_scan`` launches."""
+    launches = 0
+    for name in ("fleet_fabric", "fleet_incast"):
+        twin = get_scenario(name).plain().replace(record_timeline=False)
+        sweep = SweepSpec(name=f"{name}.plain", base=twin,
+                          seeds=tuple(range(TWIN_SEEDS)))
+        rows, leg, wall, _ = run_sweep_leg(f"{name} twin (T "
+                                           f"{len(twin.tenants)})", sweep)
+        launches += leg["sweep_scan"]
+        specs = sweep.specs()
+        ops.reset_launches()
+        card = DP.run_sweep_specs(specs, record_completions=True,
+                                  device="cuda")
+        if ops.LAUNCHES["sweep_scan"] != 1 or ops.LAUNCHES["wlbvt_select"]:
+            raise AssertionError(f"{name} twin: {dict(ops.LAUNCHES)}")
+        if [d.summary_row(k) for (k, _), d in
+                zip(sweep.replicas(), card)] != rows:
+            raise AssertionError(f"{name} twin: the recorded run's rows "
+                                 "differ from run_sweep's")
+        host_s = 0.0
+        for i, (spec, d) in enumerate(zip(specs, card)):
+            h, hw = host_run(spec, "batched")
+            host_s += hw
+            check_card_against_host(f"{name} twin seed {i}", spec, h, d)
+        pkts = sum(len(build_traces(s, arrays=True)) for s in specs)
+        log(f"time {name} twin, {TWIN_SEEDS} seeds ({smi}): card sweep "
+            f"{wall:.4f} s ({pkts / wall:.1f} packets/s), host "
+            f"BatchedSimulator {host_s:.4f} s ({pkts / host_s:.1f} "
+            "packets/s); host clocks")
+    twin = get_scenario("fleet_migrate").plain().replace(
+        record_timeline=False)
+    try:
+        run_sweep(SweepSpec(name="fleet_migrate.plain", base=twin),
+                  device="cuda")
+    except DP.DevicePathError as e:
+        if "QoS controller" not in str(e):
+            raise
+        log(f"check: fleet_migrate's twin is refused: {e}")
+    else:
+        raise AssertionError("fleet_migrate's twin ran on the card")
+    return launches
+
+
+class TwinExecutor(ModelExecutor):
+    """A ``ModelExecutor`` under the kernels with a ``chunked`` twin on
+    the same weights, run call for call: the twin gets the same tokens,
+    lengths, valid counts and slot resets, so its cache follows the
+    kernel path's.  Each prefill's tokens must be equal (no kernel runs
+    there); each decode step's logits are held against the twin's on the
+    active rows (``steps``: max |diff| / max |twin logit|, greedy tokens
+    equal, rows compared; ``launched``: the decode kernel's launches on
+    the kernel path and on the twin's).  The engine is served the kernel
+    path's tokens."""
+
+    def __init__(self, model_cfg, ecfg, **kw):
+        super().__init__(model_cfg, ecfg, **kw)
+        self.plain_cfg = dataclasses.replace(model_cfg, attn_impl="chunked")
+        self.twin = ModelExecutor(self.plain_cfg, ecfg, params=self.params,
+                                  device=self.device)
+        self.steps, self.prefills_equal = [], []
+        self.launched = [0, 0]
+
+    @contextlib.contextmanager
+    def as_plain(self):
+        """The shared module runs as the twin's config while inside."""
+        served, self.params.cfg = self.params.cfg, self.plain_cfg
+        try:
+            yield
+        finally:
+            self.params.cfg = served
+
+    def prefill(self, tokens, lengths, valid_n):
+        nxt = super().prefill(tokens, lengths, valid_n)
+        with self.as_plain():
+            twin = self.twin.prefill(tokens, lengths, valid_n)
+        self.prefills_equal.append(bool(np.array_equal(nxt, twin)))
+        return nxt
+
+    def _logits(self, ex, tokens, lengths, active):
+        """``ex``'s decode step, as ``serve_step``'s ``decode`` runs it,
+        returning the logits (B, V)."""
+        with torch.no_grad():
+            logits, ex.cache = ex.fns.model.decode_step(
+                self.params, ex._dev(tokens)[:, None], ex.cache,
+                ex._dev(lengths), valid=ex._dev(active).bool()[:, None])
+        return logits[:, -1]
+
+    def decode(self, tokens, lengths, active):
+        n0 = ops.LAUNCHES["decode_attention"]
+        got = self._logits(self, tokens, lengths, active)
+        n1 = ops.LAUNCHES["decode_attention"]
+        with self.as_plain():
+            want = self._logits(self.twin, tokens, lengths, active)
+        self.launched[0] += n1 - n0
+        self.launched[1] += ops.LAUNCHES["decode_attention"] - n1
+        rows = torch.as_tensor(active, device=self.device).bool()
+        g, w = got[rows].float(), want[rows].float()
+        self.steps.append((((g - w).abs().max() / w.abs().max()).item(),
+                           int((g.argmax(-1) == w.argmax(-1)).sum()),
+                           int(rows.sum())))
+        return sample(got).cpu().numpy()
+
+    def reset(self, keep):
+        super().reset(keep)
+        self.twin.reset(keep)
+
+
+# The examples' legs against the plain (chunked) path on the same bf16
+# inputs, as max |diff| over max |plain|.  Rounding alone gives up to ~0.04
+# at these shapes; a wrong kernel gives 0.15-1.9 (tried on the plain
+# versions: a fill off by one, the scale off by 25 %, values shifted a
+# slot, no causal mask, dv off by 10 %, dq zero).
+SERVE_LOGIT_TOL = 0.1
+TRAIN_LOGIT_TOL = 0.1
+TRAIN_GRAD_TOL = 0.1
+
+
+def check_served_against_chunked(label: str, example, run):
+    """``run()`` (its prints dropped) serves through ``example``'s
+    ``ModelExecutor`` replaced by a ``TwinExecutor``: every decode step's
+    logits of the kernel path within ``SERVE_LOGIT_TOL`` of the chunked
+    twin's, and every prefill's tokens equal.  Returns what ``run()``
+    returns."""
+    made = []
+
+    class Twin(TwinExecutor):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+    served = example.ModelExecutor
+    example.ModelExecutor = Twin
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = run()
+    finally:
+        example.ModelExecutor = served
+    (ex,) = made
+    steps, prefills = ex.steps, ex.prefills_equal
+    worst = max(s[0] for s in steps)
+    agree, rows = sum(s[1] for s in steps), sum(s[2] for s in steps)
+    want = [ex.params.cfg.num_layers * len(steps), 0]
+    log(f"check {label}: kernel path against a chunked twin on the same "
+        f"weights and inputs, {len(steps)} decode steps: max |logit diff| "
+        f"/ max |logit| {worst:.3e} (tol {SERVE_LOGIT_TOL:g}), greedy "
+        f"tokens equal {agree}/{rows}; {len(prefills)} prefills' tokens "
+        f"equal {sum(prefills)}/{len(prefills)}; decode kernel launches, "
+        f"kernel path / twin, {ex.launched} (want {want})")
+    if worst > SERVE_LOGIT_TOL or not all(prefills) or ex.launched != want:
+        raise AssertionError(f"{label}: the kernel path's decode logits "
+                             "disagree with the chunked twin's")
+    return out
+
+
+def check_train_against_chunked(label: str, cfg, batch) -> None:
+    """A training leg's first micro-batch ``batch`` at the leg's own shape
+    and dtype, from the leg's initial weights (``init_state(0)``): the
+    loss, the logits and every parameter's gradient through the flash
+    kernels (forward and backward, under the config's remat) against
+    those through ``chunked`` attention."""
+    from repro_torch.training.trainer import build_trainer, cross_entropy
+    trainer = build_trainer(cfg, device="cuda")
+    module = trainer.init_state(0).params
+    legs, launched = {}, {}
+    for impl in ("pallas", "chunked"):
+        module.cfg = dataclasses.replace(cfg, attn_impl=impl)
+        module.zero_grad(set_to_none=True)
+        ops.reset_launches()
+        logits, _ = trainer.model.forward(module, batch)
+        loss_sum, n_tok = cross_entropy(logits, batch["labels"])
+        loss = loss_sum / torch.clamp(n_tok, min=1).to(loss_sum.dtype)
+        loss.backward()
+        legs[impl] = (loss.item(), logits.detach().float(),
+                      {n: p.grad.float() for n, p in
+                       module.named_parameters()})
+        launched[impl] = (ops.LAUNCHES["flash_attention"],
+                          ops.LAUNCHES["flash_attention_bwd"])
+    module.cfg = cfg
+    (kl, kx, kg), (pl, px, pg) = legs["pallas"], legs["chunked"]
+    lerr = ((kx - px).abs().max() / px.abs().max()).item()
+    gerr = {n: ((kg[n] - g).abs().max() / g.abs().max()).item()
+            for n, g in pg.items()}
+    worst = max(gerr, key=gerr.get)
+    norm = math.sqrt(sum(float(g.square().sum()) for g in kg.values()))
+    pnorm = math.sqrt(sum(float(g.square().sum()) for g in pg.values()))
+    log(f"check {label}: a micro-batch {tuple(batch['tokens'].shape)} "
+        f"through the flash kernels against chunked, {cfg.dtype}, remat "
+        f"{cfg.remat}: loss {kl!r} vs {pl!r}; logits max |diff| / max "
+        f"|logit| {lerr:.3e} (tol {TRAIN_LOGIT_TOL:g}); gradients, worst "
+        f"of {len(gerr)} parameters {gerr[worst]:.3e} ({worst}; tol "
+        f"{TRAIN_GRAD_TOL:g}), global norm {norm!r} vs {pnorm!r}; flash "
+        f"forward / backward launches {launched}")
+    passes = 2 if cfg.remat != "none" else 1
+    if not (math.isfinite(kl) and lerr <= TRAIN_LOGIT_TOL
+            and gerr[worst] <= TRAIN_GRAD_TOL
+            and launched == dict(pallas=(passes * cfg.num_layers,
+                                         cfg.num_layers), chunked=(0, 0))):
+        raise AssertionError(f"{label}: the flash kernels' logits or "
+                             "gradients disagree with chunked")
+
+
+def example_kernel_cases(qcfg, mcfg, mspec, tcfg, targs) -> None:
+    """The decode and flash kernels against their plain versions at the
+    examples' own shapes, in bf16 (the configs' dtype) and fp32: decode
+    over quickstart's 4 x 128 cache and ``serve_three_class``'s slots
+    (ragged fills, 0 and full among them), the flash pair at quickstart's
+    and train_100m's micro-batches (causal)."""
+    ecfgs = (("quickstart_decode", qcfg, 4, 128),
+             ("mts_decode", mcfg, mspec.serve.max_slots,
+              mspec.serve.max_len))
+    flash = (("quickstart_train", qcfg, 4, 64),
+             ("train_100m", tcfg, targs.global_batch // targs.grad_accum,
+              targs.seq_len))
+    for i, dtype in enumerate((torch.bfloat16, torch.float32)):
+        for j, (name, cfg, B, T) in enumerate(ecfgs):
+            lengths = [(0, 1, T, T - 1, 17, T // 2)[b % 6] for b in range(B)]
+            shp = dict(B=B, T=T, Hq=cfg.num_heads, Hkv=cfg.num_kv_heads,
+                       D=cfg.head_dim)
+            check_decode_case(name, shp, lengths, 0, 0.0, False, None,
+                              dtype=dtype, seed=SEED + 40 + 2 * j + i)
+        for j, (name, cfg, B, S) in enumerate(flash):
+            case = (B, S, S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                    0, 0.0, True)
+            check_flash_case(name, case, dtype, SEED + 50 + 2 * j + i)
+
+
+def examples_leg(smi: str) -> dict:
+    """Phase 24 (c): the five examples.  The two host ones run as a user
+    runs them (``python -m``; ``fairness_demo --exp all`` in a process of
+    its own, started once the timed legs are done); the three model ones
+    on the card, timed and counted, then held against the plain paths:
+    each kernel against its plain version at the legs' shapes, the
+    served decode logits against a chunked twin, the training logits
+    and gradients against chunked attention.  Returns their launches."""
+    from repro_torch.examples import (multi_tenant_serving, quickstart,
+                                      train_100m)
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training.data import make_pipeline
+    from repro_torch.training.trainer import build_trainer
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def example(name, *argv):
+        return [sys.executable, "-m", f"repro_torch.examples.{name}", *argv]
+
+    def first_batch(cfg, seq_len, global_batch, rows):
+        batch = next(make_pipeline(cfg, seq_len, global_batch))
+        return {k: torch.from_numpy(v[:rows]).to("cuda")
+                for k, v in batch.items()}
+    t0 = time.perf_counter()
+    qos = subprocess.run(example("qos_controller_demo"), cwd=ROOT, env=env,
+                         capture_output=True, text=True)
+    qos_s = time.perf_counter() - t0
+    for line in qos.stdout.strip().splitlines():
+        log(f"qos_controller_demo: {line}")
+    if qos.returncode or qos.stdout.count("victim p99 FCT") != 2:
+        raise AssertionError(f"qos_controller_demo: rc {qos.returncode}"
+                             f"\n{qos.stderr}")
+
+    # quickstart: 3 training steps and a two-tenant serve on the card
+    qcfg = quickstart.model_config()
+    ops.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        (hist, eng), q_s = sync_time(lambda: quickstart.run("cuda"))
+    q_launch = dict(ops.LAUNCHES)
+    for line in buf.getvalue().strip().splitlines():
+        log(f"quickstart: {line}")
+    losses = [float(m["loss"]) for m in hist]
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want["decode_attention"] = qcfg.num_layers * eng.decode_steps
+    want["flash_attention"] = want["flash_attention_bwd"] = \
+        3 * qcfg.num_layers     # remat "none" in the smoke config
+    log(f"quickstart ({smi}): losses {losses}, decode steps "
+        f"{eng.decode_steps}, launches {q_launch}, wall {q_s:.3f} s")
+    if (len(losses) != 3 or not all(map(math.isfinite, losses))
+            or len(eng.done) != 2
+            or any(r.status != RequestStatus.DONE or len(r.generated)
+                   != 8 for r in eng.done) or q_launch != want):
+        raise AssertionError(
+            f"quickstart: losses {losses}, requests "
+            f"{[(r.status, r.generated) for r in eng.done]}, launches "
+            f"{q_launch}, want {want}")
+    del hist, eng
+
+    # multi_tenant_serving: every request done, one decode launch a layer
+    # a step; the RunReport under chunked (no EOS stop: the same schedule)
+    mcfg = dataclasses.replace(smoke_config("qwen3-8b"), attn_impl="pallas")
+    mspec = get_scenario("serve_three_class")
+    ops.reset_launches()
+    rep, m_s = sync_time(lambda: multi_tenant_serving.run(device="cuda"))
+    m_launch = dict(ops.LAUNCHES)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        multi_tenant_serving.show(rep)
+    for line in buf.getvalue().strip().splitlines():
+        log(f"multi_tenant_serving: {line}")
+    plain = multi_tenant_serving.run(
+        cfg=dataclasses.replace(mcfg, attn_impl="chunked"), device="cuda")
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want["decode_attention"] = mcfg.num_layers * rep.extras["decode_steps"]
+    requests = sum(t.arrival.requests for t in mspec.tenants)
+    done = sum(t.completed for t in rep.tenants.values())
+    log(f"multi_tenant_serving ({smi}): done {done}/{requests}, decode "
+        f"steps {rep.extras['decode_steps']}, launches {m_launch}, wall "
+        f"{m_s:.3f} s; the RunReport under chunked is "
+        f"{'equal' if plain.to_json() == rep.to_json() else 'DIFFERENT'}")
+    if (done != requests or m_launch != want
+            or plain.to_json() != rep.to_json()):
+        raise AssertionError(f"multi_tenant_serving: done {done}/"
+                             f"{requests}, launches {m_launch}, want "
+                             f"{want}, or the chunked report differs")
+    del rep, plain
+
+    # train_100m: accumulation, checkpoint of step 100, one profile
+    ckpt = ROOT / "build" / "chip_smoke_100m_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    args = train_100m.parse_args(["--steps", str(TRAIN_100M_STEPS),
+                                  "--ckpt-dir", str(ckpt),
+                                  "--device", "cuda"])
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = train_100m.train(args)
+    t_launch = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for line in buf.getvalue().strip().splitlines():
+        log(f"train_100m: {line}")
+    cfg, state, losses = res["cfg"], res["state"], res["losses"]
+    remat = 2 if cfg.remat != "none" else 1
+    per_step = dict(flash_attention=args.grad_accum * cfg.num_layers * remat,
+                    flash_attention_bwd=args.grad_accum * cfg.num_layers)
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    for k, v in per_step.items():
+        want[k] = v * args.steps
+    tokens = args.steps * args.global_batch * args.seq_len
+    n_params = sum(p.numel() for p in state.params.parameters())
+    # the checkpoint against the live state, before the profile's steps
+    fresh = build_trainer(cfg, device="cuda").init_state(SEED + 1)
+    loaded, extra = CKPT.load(str(ckpt), fresh)
+    live = CKPT.state_leaves(state)
+    same = all(torch.equal(t, live[k])
+               for k, t in CKPT.state_leaves(loaded).items())
+    del fresh, loaded, live
+    shutil.rmtree(ckpt)
+    prof = profile_train_step(cfg, state, seq_len=args.seq_len,
+                              batch=args.global_batch,
+                              grad_accum=args.grad_accum, label="train_100m")
+    log(f"train_100m ({smi}): params={n_params} layers={cfg.num_layers} "
+        f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads}x"
+        f"{cfg.head_dim} vocab={cfg.vocab_size} remat={cfg.remat} "
+        f"grad_accum={args.grad_accum} batch {args.global_batch}x"
+        f"{args.seq_len}; {args.steps} steps in {res['wall_s']:.3f} s (host "
+        f"clock): step wall {res['wall_s'] / args.steps * 1e3:.3f} ms, "
+        f"tokens_per_s={tokens / res['wall_s']:.1f}; first loss "
+        f"{losses[0]!r}, last {losses[-1]!r}; checkpoint save stalls "
+        f"{res['ckpt_stall_s']} s; profiled step device "
+        f"{prof['device_ms']:.3f} ms, wall {prof['wall_ms']:.3f} ms, idle "
+        f"{prof['idle']:.3f}; max_memory_allocated={peak}; launches "
+        f"{t_launch} (a step {per_step})")
+    if not all(map(math.isfinite, losses)) or t_launch != want:
+        raise AssertionError(f"train_100m: losses finite "
+                             f"{all(map(math.isfinite, losses))}, launches "
+                             f"{t_launch}, want {want}")
+    del state, res
+
+    # the timed legs are done: the host demo runs beside the checks below
+    t_fair = time.perf_counter()
+    fair = subprocess.Popen(example("fairness_demo", "--exp", "all"),
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        ln_v = math.log(cfg.vocab_size)
+        want_first = ln_v + cfg.d_model * 0.02 ** 2 / 2
+        log(f"check train_100m: first loss {losses[0]!r} (ln V + d_model * "
+            f"0.02^2 / 2 = {want_first:.4f}, tol 0.25); checkpoint of step "
+            f"{extra.get('step')} loads "
+            f"{'bit for bit' if same else 'DIFFERENT'}")
+        if (abs(losses[0] - want_first) > 0.25 or not same
+                or extra.get("step") != args.steps):
+            raise AssertionError(f"train_100m: first loss {losses[0]}, "
+                                 f"checkpoint equal {same}")
+        # the kernels at the legs' shapes, then the legs against chunked
+        example_kernel_cases(qcfg, mcfg, mspec, cfg, args)
+        check_served_against_chunked(
+            "quickstart serve", quickstart,
+            lambda: quickstart.serve(qcfg, "cuda"))
+        check_served_against_chunked(
+            "multi_tenant_serving", multi_tenant_serving,
+            lambda: multi_tenant_serving.run(device="cuda"))
+        check_train_against_chunked("quickstart train", qcfg,
+                                    first_batch(qcfg, 64, 4, 4))
+        check_train_against_chunked(
+            "train_100m", cfg,
+            first_batch(cfg, args.seq_len, args.global_batch,
+                        args.global_batch // args.grad_accum))
+        torch.cuda.empty_cache()
+    except BaseException:
+        fair.kill()
+        fair.communicate()
+        raise
+    out, err = fair.communicate()
+    fair_s = time.perf_counter() - t_fair
+    for line in out.strip().splitlines():
+        log(f"fairness_demo: {line}")
+    if fair.returncode or any(f"Fig {k}" not in out
+                              for k in (9, 10, 12, 13)):
+        raise AssertionError(f"fairness_demo --exp all: rc "
+                             f"{fair.returncode}\n{err}")
+    log(f"time examples (host clocks on the card's machine, {smi}): "
+        f"qos_controller_demo {qos_s:.3f} s, quickstart {q_s:.3f} s, "
+        f"multi_tenant_serving {m_s:.3f} s (each alone), fairness_demo "
+        f"--exp all {fair_s:.3f} s (its own process, beside the checks "
+        f"that follow the timed legs)")
+    return {k: q_launch[k] + m_launch[k] + t_launch[k] for k in ops.LAUNCHES}
+
+
+def fleet_phase(smi: str) -> dict:
+    """Phase 24: (a) the fleet plane, (b) its twins on the card, (c) the
+    examples.  Returns the launches of the main paths."""
+    t0 = time.perf_counter()
+    fleet_leg(smi)
+    scans = twins_leg(smi)
+    launches = examples_leg(smi)
+    launches["sweep_scan"] += scans
+    log(f"phase 24: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2884,6 +3492,7 @@ def main() -> int:
     families = {arch: serve_family(arch, depth, smi)
                 for arch, depth in NEW_FAMILIES}
     whisper = whisper_phase(smi)
+    fleet = fleet_phase(smi)
     w_launches = {k: whisper["serve"][k] + whisper["encoder"][k]
                   + whisper["train"][k] for k in ops.LAUNCHES}
 
@@ -2910,7 +3519,7 @@ def main() -> int:
         + rgemma["launches"]["decode_attention"]
         + planes["launches"]["decode_attention"]
         + sum(f["decode_attention"] for f in families.values())
-        + w_launches["decode_attention"],
+        + w_launches["decode_attention"] + fleet["decode_attention"],
         "max_abs_err": err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]}, {
@@ -2925,7 +3534,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/sweep_scan.cu",
         "replaces": "src/repro/kernels/wlbvt_select.py:114 (inlined in "
                     "the scan of src/repro/sim/devicepath.py:285)",
-        "launches": scan_launches + cli["launches"]["sweep_scan"],
+        "launches": scan_launches + cli["launches"]["sweep_scan"]
+        + fleet["sweep_scan"],
         "max_abs_err": scan_err,
         "ms": scan_t["ms"], "plain_ms": scan_t["plain_ms"],
         "bound_ms": scan_t["bound_ms"], "bound_by": scan_t["bound_by"],
@@ -2934,7 +3544,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:28",
         "launches": tr["launches"]["flash_attention"]
-        + w_launches["flash_attention"],
+        + w_launches["flash_attention"] + fleet["flash_attention"],
         "max_abs_err": flash_err["fwd_err"], "ms": ft["fwd_ms"],
         "plain_ms": ft["plain_fwd_ms"], "bound_ms": ft["fwd_bound_ms"],
         "bound_by": ft["fwd_bound_by"], "library_ms": ft["library_fwd_ms"]}, {
@@ -2943,7 +3553,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:28 (its "
                     "gradient; no Pallas backward)",
         "launches": tr["launches"]["flash_attention_bwd"]
-        + w_launches["flash_attention_bwd"],
+        + w_launches["flash_attention_bwd"] + fleet["flash_attention_bwd"],
         "max_abs_err": flash_err["bwd_err"], "ms": ft["bwd_ms"],
         "plain_ms": ft["plain_bwd_ms"], "bound_ms": ft["bwd_bound_ms"],
         "bound_by": ft["bwd_bound_by"],

@@ -147,8 +147,7 @@ class RunReport:
     def _validate_extras(self) -> None:
         """Known ``extras`` blocks carry their declared schemas: the
         key tuples live next to the producers (single source of truth)
-        so the check can never drift from what they emit.  (The fleet
-        plane's block waits for the fleet plane.)"""
+        so the check can never drift from what they emit."""
         sa = self.extras.get("slo_audit")
         if sa is not None:
             from repro_torch.telemetry.slo_audit import (SUMMARY_KEYS,
@@ -172,6 +171,16 @@ class RunReport:
                        if k not in ts]
             if missing:
                 raise ValueError(f"trace_summary missing keys {missing}")
+        fl = self.extras.get("fleet")
+        if fl is not None:
+            from repro_torch.fleet.engine import FLEET_EXTRAS_KEYS
+            missing = [k for k in FLEET_EXTRAS_KEYS if k not in fl]
+            if missing:
+                raise ValueError(f"fleet extras missing keys {missing}")
+            if len(fl["per_nic"]) != fl["num_nics"]:
+                raise ValueError(
+                    f"fleet per_nic has {len(fl['per_nic'])} reports "
+                    f"for {fl['num_nics']} NICs")
 
     # -- console ------------------------------------------------------------
     def summary(self) -> str:

@@ -17,8 +17,9 @@ package's on the same spec).  ``run(spec)`` drives a whole declarative
 Both runtimes take the observability planes: ``attach_bus`` (one
 ``BusFrame`` per observation interval), ``trace=True`` (the flight
 recorder; ``flush_trace`` and ``extras["trace_summary"]``) and the SLO
-audit.  The fleet plane is not ported yet, so ``run_scenario`` takes
-single-NIC specs only.
+audit.  A ``FleetSpec`` goes to the fleet plane (``fleet/engine.py``):
+N per-NIC ``SimRuntime``s over the modeled switch, one aggregated
+report.
 """
 from __future__ import annotations
 
@@ -585,6 +586,12 @@ def run_scenario(spec: ScenarioSpec, backend: str = "sim", *,
     """Run a declarative scenario on either backend -> ``RunReport``."""
     if spec.analytic:
         return _run_analytic(spec)
+    from repro_torch.fleet.spec import FleetSpec
+    if isinstance(spec, FleetSpec):
+        # multi-NIC scenarios run the fleet engine (N per-NIC sims over
+        # the modeled switch) and return the aggregated report
+        from repro_torch.fleet.engine import run_fleet
+        return run_fleet(spec, backend, validate=validate)
     rt = make_runtime(spec, backend, executor=executor)
     rep = rt.run(spec)
     return rep.validate() if validate else rep

@@ -11,7 +11,9 @@ The sweep datapath runs the simulator scenarios that fit its contract
 Every other spec given to it raises ``DevicePathError`` with the reason.
 Every scenario runs on the host simulators and the serving engine
 through ``launch/scenario.py`` (``run_scenario``).  The fleet plane's
-multi-NIC scenarios wait for that plane's port.
+multi-NIC scenarios (``fleet/scenarios.py``) are registered from the
+end of this module and run on the host fleet engine; the sweep takes
+only their single-NIC twins (``FleetSpec.plain()``).
 """
 from __future__ import annotations
 
@@ -218,9 +220,10 @@ def fleet_sweep(*, tenants: int = 128, duration_us: float = 10240.0,
     (SuperNIC/Meili-style) where drops, ECN marks and watchdog kills
     all fire at volume.  Despite the name this is NOT the multi-NIC
     fabric family: no switch is modeled and nothing crosses a
-    crossbar.  N NICs exchanging traffic through a modeled VOQ/crossbar
-    switch are the fleet plane's scenarios (DESIGN.md §12), which this
-    package does not have yet.
+    crossbar.  For N NICs exchanging traffic through the modeled
+    VOQ/crossbar switch — placement, live migration, global QoS — see
+    the ``fleet_fabric`` / ``fleet_incast`` / ``fleet_migrate``
+    scenarios (repro_torch.fleet.scenarios, DESIGN.md §12).
 
     Four service classes cycle across the fleet: light RPC handlers,
     histogram analytics, heavy ML preprocessing, and watchdog-bounded
@@ -353,3 +356,10 @@ def serve_three_class(*, scheduler: str = "wlbvt", arbiter: str = "dwrr",
         scheduler=scheduler, arbiter=arbiter, seed=seed,
         serve=ServeSpec(max_slots=6, max_len=256, prefill_chunk=32,
                         vocab=vocab))
+
+
+# ---------------------------------------------------------------------------
+# fleet-plane scenarios (multi-NIC fabric): registered on import; the
+# registry loads only this module, so the fleet catalog hooks in here
+# ---------------------------------------------------------------------------
+from repro_torch.fleet import scenarios as _fleet_scenarios  # noqa: E402,F401

@@ -12,13 +12,16 @@ the portable RunReport (DESIGN.md §7).
         --backend serve --arch qwen3-8b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.scenario qos_closed_loop \
         --export /tmp/obs --dash
+    PYTHONPATH=src python -m repro_torch.launch.scenario fleet_migrate
 
 Scenario parameters are overridable with ``--set key=value`` (repeat as
 needed); values parse as JSON where possible (``--set scheduler=rr``,
 ``--set duration_us=60``).  The sim backend and ``--backend serve``
 without ``--arch`` (the scheduling-only NullExecutor) are host code on
 every machine; ``--arch`` selects a real model, which runs on the card
-unless ``--device cpu`` (without a card the default raises).
+unless ``--device cpu`` (without a card the default raises).  The
+fleet plane's multi-NIC scenarios (``fleet_*``) run on the host fleet
+engine on every machine.
 """
 from __future__ import annotations
 
@@ -83,6 +86,7 @@ def run_one(name: str, backend: str, params, *, arch: str = "",
             f"(supported: {', '.join(spec.backends)})")
 
     bus = None
+    om_sink = None
     if (export_dir or dash) and not spec.analytic:
         from repro_torch.telemetry.bus import MetricsBus
         bus = MetricsBus()
@@ -90,12 +94,29 @@ def run_one(name: str, backend: str, params, *, arch: str = "",
         if export_dir:
             os.makedirs(export_dir, exist_ok=True)
             from repro_torch.telemetry.export import attach_exporters
-            attach_exporters(
+            om_sink, _ = attach_exporters(
                 bus, os.path.join(export_dir, f"{name}.{backend}"),
                 names=names)
         if dash:
             from repro_torch.launch.dash import Dashboard
             bus.add_sink(Dashboard(names=names))
+
+    from repro_torch.fleet.spec import FleetSpec
+    if isinstance(spec, FleetSpec) and not spec.analytic:
+        # fleet scenarios: N per-NIC engines over the modeled switch,
+        # publishing per-NIC frames onto the one shared bus; the fabric
+        # gauges ride into the OpenMetrics exposition as extra rows.
+        # Host code on every machine, whatever ``device`` says
+        from repro_torch.fleet.engine import fleet_metric_rows, run_fleet
+        try:
+            rep = run_fleet(spec, backend, bus=bus)
+            if om_sink is not None:
+                om_sink.extra_rows = fleet_metric_rows(
+                    rep.extras["fleet"], backend=backend)
+            return rep
+        finally:
+            if bus is not None:
+                bus.close()
 
     if backend == "serve" and arch and not spec.analytic:
         from repro_torch.api import ServeRuntime

@@ -1,12 +1,12 @@
 """The port's scenario CLI (``repro_torch.launch.scenario``) against the
 JAX package's (``repro.launch.scenario``).
 
-``--list`` prints the reference's lines for every scenario the port
-registers (all but the fleet plane's multi-NIC scenarios, not ported
-yet); ``--all --fast`` writes, for each scenario and backend, the file
-the reference's ``run_one`` saves, byte for byte; ``--set`` parses as
-the reference parses.  ``--arch`` serves a smoke model on the CPU only
-when asked (``--device cpu``), and the planes still to come raise.
+``--list`` prints the reference's lines for every scenario, the fleet
+plane's multi-NIC scenarios included; ``--all --fast`` writes, for each
+scenario and backend, the file the reference's ``run_one`` saves, byte
+for byte (the fleet scenarios among them); ``--set`` parses as the
+reference parses.  ``--arch`` serves a smoke model on the CPU only when
+asked (``--device cpu``).
 """
 import os
 
@@ -21,22 +21,13 @@ from repro_torch.api import list_scenarios  # noqa: E402
 from repro_torch.launch import scenario as cli  # noqa: E402
 
 
-def _fleet_plane_names():
-    """Scenarios the JAX package registers from its fleet plane."""
-    from repro.fleet.spec import FleetSpec
-    from repro.api import get_scenario, list_scenarios as jax_list
-    return {s["name"] for s in jax_list()
-            if isinstance(get_scenario(s["name"]), FleetSpec)}
-
-
 def test_list_lines_equal_reference(capsys):
     assert cli.main(["--list"]) == 0
     port = capsys.readouterr().out.splitlines()
     assert jax_cli.main(["--list"]) == 0
-    fleet = _fleet_plane_names()
-    ref = [line for line in capsys.readouterr().out.splitlines()
-           if line.split()[0] not in fleet]
-    assert fleet and port == ref
+    assert port == capsys.readouterr().out.splitlines()
+    names = {line.split()[0] for line in port}
+    assert {"fleet_fabric", "fleet_incast", "fleet_migrate"} <= names
 
 
 def test_all_fast_files_equal_reference(tmp_path, capsys):
@@ -60,6 +51,8 @@ def test_all_fast_files_equal_reference(tmp_path, capsys):
             assert got == path.read_bytes(), tag
             want.add(f"{tag}.json")
     assert set(os.listdir(out)) == want
+    assert {"fleet_fabric.sim.json", "fleet_incast.sim.json",
+            "fleet_migrate.sim.json"} <= want
 
 
 @pytest.mark.parametrize("pairs", [

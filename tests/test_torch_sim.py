@@ -70,9 +70,14 @@ SIM_CASES = [
 
 
 def test_sim_cases_cover_the_registry():
+    """Every single-NIC sim scenario has a case here; the fleet plane's
+    multi-NIC scenarios are tests/test_torch_fleet.py's."""
+    from repro_torch.fleet import FleetSpec
     sim = {s["name"] for s in list_scenarios()
            if "sim" in s["backends"] and not s["analytic"]}
-    assert sim == {name for name, _ in SIM_CASES}
+    fleet = {n for n in sim if isinstance(get_scenario(n), FleetSpec)}
+    assert fleet == {"fleet_fabric", "fleet_incast", "fleet_migrate"}
+    assert sim - fleet == {name for name, _ in SIM_CASES}
 
 
 @pytest.mark.parametrize("datapath", ["event", "batched"])
