@@ -9,8 +9,10 @@ accumulation and asynchronous checkpoints.
 Trains on the card (the default; without a card it raises) through the
 hand-written flash-attention forward and backward kernels
 (``attn_impl="pallas"``); ``--device cpu`` runs their plain versions.
-Sharded training is not ported: ``--mesh`` other than ``none`` raises
-``NotImplementedError``.  Checkpoints go to ``--ckpt-dir`` (default: a
+``--mesh DxM`` trains sharded over a (data, model) mesh whose ranks
+``torchrun`` starts (``launch/mesh.py``; NCCL on the card, gloo with
+``--device cpu``); a mesh that needs more ranks than the run has raises.
+Checkpoints go to ``--ckpt-dir`` (default: a
 directory under the system's temporary directory), one every 100 steps.
 """
 import argparse
@@ -60,12 +62,16 @@ def train(args) -> dict:
     ``wall_s`` of the loop and ``ckpt_stall_s``, the seconds each save
     held the loop (its copy to the host; the write runs on a thread)."""
     cfg = config_100m()
-    mesh = None if args.mesh == "none" else args.mesh
+    mesh = None
+    if args.mesh != "none":
+        from repro_torch.launch.mesh import make_mesh, parse_mesh
+        mesh = make_mesh(parse_mesh(args.mesh), ("data", "model"),
+                         args.device)
     trainer = build_trainer(cfg, mesh=mesh, total_steps=args.steps,
                             warmup_steps=20, grad_accum=args.grad_accum,
                             device=args.device)
     state = trainer.init_state(0)
-    n = sum(p.numel() for p in state.params.parameters())
+    n = sum(p.numel() for p in state.named_params().values())
     print(f"params: {n/1e6:.1f}M   mesh: {args.mesh}")
 
     dev = trainer.device

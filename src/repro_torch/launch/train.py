@@ -9,9 +9,20 @@ Attention takes the hand-written kernels (``attn_impl="pallas"``): the
 flash-attention forward on every layer of every step and its backward
 kernel for the gradient.  Weights are random, drawn from ``--seed``.
 
+``--mesh DxM`` trains sharded over a (data, model) ``DeviceMesh``
+(``launch/mesh.py``): rank and world size come from the environment that
+``torchrun`` sets, NCCL on the card, gloo with ``--device cpu``:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch qwen3-8b \
+        --smoke --mesh 2x2 --device cpu
+
+With no such environment it is a group of one.  Every rank draws the same
+global batch; only rank 0 prints.
+
 Fault tolerance as in the JAX package's train CLI: asynchronous checkpoints
-with an atomic commit; ``--resume`` restarts from LATEST (parameters,
-optimizer and data-iterator state); SIGTERM triggers a final save.
+with an atomic commit (sharded: each rank writes its own shards);
+``--resume`` restarts from LATEST (parameters, optimizer and data-iterator
+state) on whatever mesh this run has; SIGTERM triggers a final save.
 ``run_training`` is the loop itself, for callers that build their own
 config (``chip_smoke.py`` trains the full width at reduced depth).
 """
@@ -28,7 +39,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 def run_training(cfg, *, steps: int, seq_len: int, global_batch: int,
                  grad_accum: int = 1, ckpt_dir: str = "",
                  ckpt_every: int = 50, resume: bool = False, seed: int = 0,
-                 log_every: int = 10, device="cuda",
+                 log_every: int = 10, device="cuda", mesh=None,
                  stop: Optional[Dict] = None,
                  log: Callable[[str], None] = print
                  ) -> Tuple[object, List[Dict]]:
@@ -45,8 +56,8 @@ def run_training(cfg, *, steps: int, seq_len: int, global_batch: int,
     from repro_torch.training.trainer import build_trainer
 
     dev = require_device(device)
-    trainer = build_trainer(cfg, total_steps=steps, grad_accum=grad_accum,
-                            device=dev)
+    trainer = build_trainer(cfg, mesh, total_steps=steps,
+                            grad_accum=grad_accum, device=dev)
     pipe = make_pipeline(cfg, seq_len, global_batch, seed=seed)
     state = trainer.init_state(seed)
 
@@ -103,6 +114,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--mesh", default="none",
+                    help="none | DxM grid like 2x4 (data x model)")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
@@ -118,12 +131,28 @@ def main(argv=None) -> int:
     cfg = dataclasses.replace(cfg, attn_impl="pallas")
     stop = {"flag": False}
     signal.signal(signal.SIGTERM, lambda *_: stop.update(flag=True))
+    mesh, log = None, print
+    if args.mesh != "none":
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import make_mesh, parse_mesh
+        mesh = make_mesh(parse_mesh(args.mesh), ("data", "model"),
+                         args.device)
+        if dist.get_rank():
+            log = _quiet
     run_training(cfg, steps=args.steps, seq_len=args.seq_len,
                  global_batch=args.global_batch, grad_accum=args.grad_accum,
                  ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                  resume=args.resume, seed=args.seed,
-                 log_every=args.log_every, device=args.device, stop=stop)
+                 log_every=args.log_every, device=args.device, mesh=mesh,
+                 stop=stop, log=log)
+    if mesh is not None:
+        dist.destroy_process_group()
     return 0
+
+
+def _quiet(_: str) -> None:
+    pass
 
 
 if __name__ == "__main__":

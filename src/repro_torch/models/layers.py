@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import parallel as PAR
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -189,8 +190,13 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
 def lm_logits(x: torch.Tensor, embed_table: torch.Tensor,
               head: Optional[torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
     """Tied (``head`` None: the embedding table, transposed) or untied
-    (``head`` (d, V)) LM head; fp32 logits, soft-capped if configured."""
+    (``head`` (d, V)) LM head; fp32 logits, soft-capped if configured.
+    Under a sharded train step with a vocab-parallel head, only this
+    rank's slice of the vocabulary (``distributed/parallel.py``)."""
     table = embed_table.T if head is None else head
+    act = PAR.current()
+    if act is not None and act.vocab_group is not None:
+        table = table[:, act.vocab_slice]
     logits = (x @ table.to(x.dtype)).float()
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)

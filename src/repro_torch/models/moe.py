@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import parallel as PAR
 from repro_torch.models import layers as L
 
 MOE_IMPL = ("gshard", "ragged")
@@ -164,6 +165,18 @@ def apply_moe_ragged(p: MoE, x: torch.Tensor, cfg: ModelConfig):
 
 def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig,
               impl: str = "gshard"):
+    """Under a sharded train step whose batch is split over ranks, the
+    rows of the whole microbatch are gathered first, so the routing, the
+    capacity groups and the auxiliary loss are the unsharded ones; each
+    rank keeps its rows of the output."""
+    act = PAR.current()
+    if act is not None and act.rows_group is not None:
+        y, aux = _apply(p, PAR.gather_rows(x, act), cfg, impl)
+        return PAR.local_rows(y, act), aux
+    return _apply(p, x, cfg, impl)
+
+
+def _apply(p: MoE, x: torch.Tensor, cfg: ModelConfig, impl: str):
     if impl == "ragged":
         return apply_moe_ragged(p, x, cfg)
     return apply_moe_gshard(p, x, cfg)

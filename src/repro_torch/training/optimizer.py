@@ -15,6 +15,11 @@ slots in place, clips the gradients in place and returns the updates in
 the gradients' buffers (float32 ones); ``apply_updates`` adds them to the
 parameters in place.  The step counter is a device tensor, so no update
 reads a value on the host.
+
+The sharded trainer runs the same update on each rank's slices of the
+tensors; the few reductions that span a tensor (the global norm,
+Adafactor's row and column means and its RMS clip) go through a
+``Reducer``, whose plain form reduces the tensor it is given.
 """
 from __future__ import annotations
 
@@ -56,12 +61,33 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
+class Reducer:
+    """The reductions of an update that span a whole tensor.  This plain
+    one reduces the tensors as given; ``distributed/parallel.py``'s
+    ``ShardReducer`` reduces each rank's slices across the ranks.
+    ``pdim`` is the parameter dim that ``dim`` of ``x`` runs along."""
+
+    def global_norm(self, tensors: Tensors) -> torch.Tensor:
+        return global_norm(tensors.values())
+
+    def mean(self, name: str, x: torch.Tensor, dim: int, pdim: int,
+             keepdim: bool = False) -> torch.Tensor:
+        return x.mean(dim, keepdim=keepdim)
+
+    def mean_all(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        return torch.mean(x)
+
+
+PLAIN = Reducer()
+
+
 @torch.no_grad()
-def clip_by_global_norm(grads: Tensors, max_norm: float
+def clip_by_global_norm(grads: Tensors, max_norm: float,
+                        red: Reducer = PLAIN
                         ) -> Tuple[Tensors, torch.Tensor]:
     """Scale ``grads`` in place so their global norm is at most
     ``max_norm``; returns (grads, the norm before clipping)."""
-    norm = global_norm(grads.values())
+    norm = red.global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in grads.values():
         g.mul_(scale.to(g.dtype))
@@ -96,7 +122,8 @@ def _step0(params: Tensors) -> torch.Tensor:
 # AdamW
 # ---------------------------------------------------------------------------
 def adamw(lr_fn, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-          weight_decay: float = 0.1, max_grad_norm: float = 1.0) -> Optimizer:
+          weight_decay: float = 0.1, max_grad_norm: float = 1.0,
+          red: Reducer = PLAIN) -> Optimizer:
     def init(params):
         def z(p):
             return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -106,7 +133,7 @@ def adamw(lr_fn, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 
     @torch.no_grad()
     def update(grads, st, params):
-        grads, _ = clip_by_global_norm(grads, max_grad_norm)
+        grads, _ = clip_by_global_norm(grads, max_grad_norm, red)
         step = st["step"] + 1
         t = step.to(torch.float32)
         lr = lr_fn(step)
@@ -133,7 +160,7 @@ def adamw(lr_fn, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 # ---------------------------------------------------------------------------
 def adafactor(lr_fn, *, decay_pow: float = 0.8, clip_threshold: float = 1.0,
               eps: float = 1e-30, weight_decay: float = 0.0,
-              max_grad_norm: float = 1.0) -> Optimizer:
+              max_grad_norm: float = 1.0, red: Reducer = PLAIN) -> Optimizer:
     def _factored(shape) -> bool:
         return len(shape) >= 2
 
@@ -150,7 +177,7 @@ def adafactor(lr_fn, *, decay_pow: float = 0.8, clip_threshold: float = 1.0,
 
     @torch.no_grad()
     def update(grads, st, params):
-        grads, _ = clip_by_global_norm(grads, max_grad_norm)
+        grads, _ = clip_by_global_norm(grads, max_grad_norm, red)
         step = st["step"] + 1
         t = step.to(torch.float32)
         beta2 = 1.0 - t ** (-decay_pow)
@@ -161,9 +188,12 @@ def adafactor(lr_fn, *, decay_pow: float = 0.8, clip_threshold: float = 1.0,
             g32 = g.float()
             g2 = torch.square(g32) + eps
             if _factored(g.shape):
-                v_row = beta2 * slot["v_row"] + (1 - beta2) * g2.mean(-1)
-                v_col = beta2 * slot["v_col"] + (1 - beta2) * g2.mean(-2)
-                r = v_row / torch.clamp(v_row.mean(-1, keepdim=True), min=eps)
+                v_row = (beta2 * slot["v_row"]
+                         + (1 - beta2) * red.mean(name, g2, -1, -1))
+                v_col = (beta2 * slot["v_col"]
+                         + (1 - beta2) * red.mean(name, g2, -2, -2))
+                r = v_row / torch.clamp(
+                    red.mean(name, v_row, -1, -2, keepdim=True), min=eps)
                 vhat = r[..., None] * v_col[..., None, :]
                 slot["v_row"].copy_(v_row)
                 slot["v_col"].copy_(v_col)
@@ -174,7 +204,7 @@ def adafactor(lr_fn, *, decay_pow: float = 0.8, clip_threshold: float = 1.0,
             u = g32 * torch.rsqrt(torch.clamp(vhat, min=eps))
             del vhat
             # update clipping (RMS <= clip_threshold)
-            rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
+            rms = torch.sqrt(red.mean_all(name, torch.square(u)) + 1e-30)
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             u = -lr * u
             if weight_decay:
@@ -187,10 +217,11 @@ def adafactor(lr_fn, *, decay_pow: float = 0.8, clip_threshold: float = 1.0,
 
 # ---------------------------------------------------------------------------
 def make_optimizer(cfg: ModelConfig, total_steps: int = 10_000,
-                   warmup_steps: int = 100) -> Optimizer:
+                   warmup_steps: int = 100,
+                   red: Reducer = PLAIN) -> Optimizer:
     lr_fn = cosine_schedule(cfg.learning_rate, total_steps, warmup_steps)
     if cfg.optimizer == "adafactor":
-        return adafactor(lr_fn)
+        return adafactor(lr_fn, red=red)
     if cfg.optimizer == "adamw":
-        return adamw(lr_fn)
+        return adamw(lr_fn, red=red)
     raise ValueError(f"unknown optimizer {cfg.optimizer!r}")

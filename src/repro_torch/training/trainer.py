@@ -1,6 +1,6 @@
-"""Train-step factory: loss, gradient accumulation, optimizer.
+"""Train-step factory: loss, gradient accumulation, optimizer, sharding.
 
-``build_trainer(cfg)`` returns a ``Trainer`` whose ``train_step`` is
+``build_trainer(cfg, mesh)`` returns a ``Trainer`` whose ``train_step`` is
 ``(state, batch) -> (state, metrics)`` with:
 
   * cross-entropy over fp32 logits, + z-loss (+ the MoE aux term, 0 for
@@ -9,9 +9,21 @@
     ``.grad`` sums them in order, fp32, then divides);
   * AdamW / Adafactor with a cosine schedule and global-norm clipping.
 
+With a ``DeviceMesh`` (``launch/mesh.py``; NCCL on the card, gloo on the
+CPU) the state is sharded by the train rules (``distributed/sharding.py``):
+each parameter and its optimizer slots (Adafactor's ``v_row`` / ``v_col``
+included) are DTensors, ZeRO-3 over ``data`` and the TP dims over
+``model``.  ``train_step`` takes the global batch on every rank; each
+microbatch is split over the batch axes (``pod``/``data``), the sharded
+parameters are gathered whole for the compute, the LM head's logits are
+vocab-parallel over ``model`` (``distributed/parallel.py``), and the
+gradients are summed over the ranks and cut to each rank's slices before
+the update, whose norms and means reduce across the slices.  The model
+ranks repeat the blocks' compute on the same rows: the tensor-parallel
+compute of the blocks is not ported.
+
 The step launches its work and returns: no value is read on the host, so
 ``metrics["loss"]`` stays a device tensor until the caller reads it.
-The JAX package's sharding (``mesh``) is not ported: a mesh raises.
 """
 from __future__ import annotations
 
@@ -19,6 +31,7 @@ import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.registry import Model, build_model
@@ -46,21 +59,18 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     return torch.sum(nll), torch.sum(mask)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("sharded training (a mesh) is not ported "
-                                  "yet: the port trains on one device")
+def _aux_term(cfg: ModelConfig, aux: torch.Tensor) -> Optional[torch.Tensor]:
+    return MOE_AUX * aux / max(cfg.num_layers, 1) if cfg.moe is not None \
+        else None
 
 
-def make_loss_fn(model: Model, cfg: ModelConfig, mesh=None):
-    _no_mesh(mesh)
-
+def make_loss_fn(model: Model, cfg: ModelConfig):
     def loss_fn(module, batch):
         logits, aux = model.forward(module, batch)
         loss_sum, n_tok = cross_entropy(logits, batch["labels"])
         loss = loss_sum / torch.clamp(n_tok, min=1).to(loss_sum.dtype)
         if cfg.moe is not None:
-            loss = loss + MOE_AUX * aux / max(cfg.num_layers, 1)
+            loss = loss + _aux_term(cfg, aux)
         return loss, {"ntok": n_tok}
     return loss_fn
 
@@ -76,18 +86,43 @@ class Trainer:
     device: torch.device
     train_step: Callable[[TrainState, Dict[str, torch.Tensor]],
                          Tuple[TrainState, Dict[str, torch.Tensor]]]
-    init_state: Callable[[int], TrainState]
+    init_state: Callable[..., TrainState]
+    # (state, batch) -> (mean loss, {name: gradient}): the step's gradients
+    # before the update (on a mesh, this rank's slices of the summed ones);
+    # the next step reuses their buffers
+    grads: Optional[Callable] = None
+    mesh: Optional[object] = None
+    # the sharded state's layout: {leaf id: DTensor placements}, filled by
+    # init_state ("params.<name>", "opt_state.m.<name>", ...)
+    placements: Optional[Dict[str, tuple]] = None
+
+
+def opt_state_pspecs(cfg: ModelConfig, shapes: Dict[str, tuple],
+                     pspecs: Dict[str, tuple]) -> Dict:
+    """Specs of the optimizer slots, mirroring the parameters' (Adafactor's
+    ``v_row`` drops the last dim's entry, ``v_col`` the one before it).
+    Given the shapes as ``pspecs``, the slots' shapes."""
+    if cfg.optimizer == "adamw":
+        return {"m": dict(pspecs), "v": dict(pspecs)}
+
+    def one(shape, spec):
+        if len(shape) >= 2:
+            return {"v_row": spec[:-1], "v_col": spec[:-2] + spec[-1:]}
+        return {"v": spec}
+    return {"slots": {n: one(shapes[n], pspecs[n]) for n in pspecs}}
 
 
 def build_trainer(cfg: ModelConfig, mesh=None, *, total_steps: int = 10_000,
                   warmup_steps: int = 100, grad_accum: Optional[int] = None,
                   device="cuda") -> Trainer:
-    _no_mesh(mesh)
     dev = require_device(device)
+    accum = grad_accum if grad_accum is not None else cfg.grad_accum
+    if mesh is not None:
+        return _build_sharded(cfg, mesh, dev, total_steps, warmup_steps,
+                              accum)
     model = build_model(cfg, moe_impl="gshard")
     opt = OPT.make_optimizer(cfg, total_steps, warmup_steps)
-    accum = grad_accum if grad_accum is not None else cfg.grad_accum
-    loss_fn = make_loss_fn(model, cfg, mesh)
+    loss_fn = make_loss_fn(model, cfg)
 
     def _grads(module, batch):
         """(mean loss, {name: fp32 grad}) over ``accum`` microbatches."""
@@ -98,11 +133,7 @@ def build_trainer(cfg: ModelConfig, mesh=None, *, total_steps: int = 10_000,
             loss, _ = loss_fn(module, batch)
             loss.backward()
             return loss.detach(), {n: p.grad for n, p in params.items()}
-        B = batch["tokens"].shape[0]
-        if B % accum:
-            raise ValueError(f"batch {B} does not split into {accum} "
-                             "microbatches")
-        mb = B // accum
+        mb = _microbatch(batch, accum)
         loss_sum = 0.0
         for i in range(accum):
             sub = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
@@ -128,12 +159,225 @@ def build_trainer(cfg: ModelConfig, mesh=None, *, total_steps: int = 10_000,
         metrics = {"loss": loss, "grad_norm": gnorm, "step": new_state.step}
         return new_state, metrics
 
-    def init_state(seed: int) -> TrainState:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+    def init_state(seed: int, *, compression: bool = False) -> TrainState:
         with torch.no_grad():
-            module = model.init(gen)
-        return TrainState.create(module, opt)
+            module = model.init(_generator(dev, seed))
+        return TrainState.create(module, opt, compression=compression)
 
     return Trainer(cfg=cfg, model=model, optimizer=opt, device=dev,
-                   train_step=train_step, init_state=init_state)
+                   train_step=train_step, init_state=init_state,
+                   grads=lambda state, batch: _grads(state.params, batch))
+
+
+def _generator(dev: torch.device, seed: int) -> torch.Generator:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return gen
+
+
+def _microbatch(batch, accum: int) -> int:
+    B = batch["tokens"].shape[0]
+    if B % accum:
+        raise ValueError(f"batch {B} does not split into {accum} "
+                         "microbatches")
+    return B // accum
+
+
+# ---------------------------------------------------------------------------
+# the mesh branch
+# ---------------------------------------------------------------------------
+def _build_sharded(cfg: ModelConfig, mesh, dev: torch.device,
+                   total_steps: int, warmup_steps: int,
+                   accum: int) -> Trainer:
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.distributed import compression as C
+    from repro_torch.distributed import parallel as PAR
+    from repro_torch.distributed import sharding as SH
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
+                        f"(launch/mesh.py), not {type(mesh).__name__}")
+    if mesh.device_type != dev.type:
+        raise ValueError(f"a {mesh.device_type} mesh cannot train on {dev}")
+    model = build_model(cfg, moe_impl="gshard")
+    sizes = SH.mesh_sizes(mesh)
+    names = list(sizes)
+    coord = mesh.get_coordinate()
+    world = mesh.mesh.numel()
+    layout: Dict[str, Tuple[tuple, int]] = {}     # name -> (placements, ndim)
+    red = PAR.ShardReducer(mesh, layout) if world > 1 else OPT.PLAIN
+    opt = OPT.make_optimizer(cfg, total_steps, warmup_steps, red)
+    placements: Dict[str, tuple] = {}
+    compute: Dict[str, torch.nn.Module] = {}
+    groups: Dict[tuple, tuple] = {}
+
+    def sharded(pls) -> bool:
+        return any(isinstance(p, Shard) and s > 1
+                   for p, s in zip(pls, sizes.values()))
+
+    def local(full: torch.Tensor, pls) -> torch.Tensor:
+        if not sharded(pls):
+            return full
+        return full[SH.local_slices(full.shape, pls, mesh, coord)].contiguous()
+
+    def zeros(shape, pls) -> DTensor:
+        sl = SH.local_slices(shape, pls, mesh, coord)
+        t = torch.zeros([s.stop - s.start for s in sl], dtype=torch.float32,
+                        device=dev)
+        return DTensor.from_local(t, mesh, pls, run_check=False)
+
+    def init_state(seed: int, *, compression: bool = False) -> TrainState:
+        with torch.no_grad():
+            module = model.init(_generator(dev, seed))
+        module.requires_grad_(True)
+        compute["module"] = module
+        shapes = {n: tuple(p.shape) for n, p in module.named_parameters()}
+        pspecs = SH.param_pspecs(cfg, shapes, mesh, "train")
+        params = {}
+        for n, p in module.named_parameters():
+            pls = SH.placements(pspecs[n], mesh)
+            layout[n] = (pls, p.dim())
+            placements[f"params.{n}"] = pls
+            params[n] = DTensor.from_local(local(p.detach(), pls), mesh, pls,
+                                           run_check=False)
+        specs = opt_state_pspecs(cfg, shapes, pspecs)
+
+        def slots(spec_tree, shape_tree, prefix):
+            if isinstance(shape_tree, dict):
+                return {k: slots(spec_tree[k], shape_tree[k],
+                                 f"{prefix}.{k}") for k in shape_tree}
+            pls = SH.placements(spec_tree, mesh)
+            placements[prefix] = pls
+            return zeros(shape_tree, pls)
+        opt_state = slots(specs, opt_state_pspecs(cfg, shapes, shapes),
+                          "opt_state")
+        opt_state["step"] = torch.zeros((), dtype=torch.int32, device=dev)
+        return TrainState(params=params, opt_state=opt_state,
+                          step=torch.zeros((), dtype=torch.int32, device=dev),
+                          err_feedback=C.init_error(params) if compression
+                          else None)
+
+    def bind(state: TrainState) -> torch.nn.Module:
+        """The compute module, holding every parameter whole: a replicated
+        one is this rank's tensor itself, a sharded one is gathered."""
+        if "module" not in compute:
+            with torch.no_grad():
+                compute["module"] = model.init(_generator(dev, 0))
+            compute["module"].requires_grad_(True)
+        module = compute["module"]
+        with torch.no_grad():
+            for n, p in module.named_parameters():
+                d = state.params[n]
+                layout[n] = (tuple(d.placements), d.dim())
+                placements[f"params.{n}"] = layout[n][0]
+                p.data = d.full_tensor() if sharded(d.placements) \
+                    else d.to_local()
+        return module
+
+    def row_layout(mb: int) -> Tuple[PAR.ActivationMesh, int]:
+        """The microbatch's layout over the ranks and this rank's row
+        block."""
+        baxes = SH.batch_axes(mesh, mb)
+        axes = () if baxes is None else (
+            (baxes,) if isinstance(baxes, str) else tuple(baxes))
+        if axes not in groups:
+            groups[axes] = PAR.subgroup(mesh, axes) if axes else (None, 1)
+        rows_group, rows = groups[axes]
+        block = 0
+        for a in axes:
+            block = block * sizes[a] + coord[names.index(a)]
+        vocab = sizes.get("model", 1)
+        vkw = {}
+        if vocab > 1:
+            vkw = dict(vocab_group=mesh.get_group("model"),
+                       vocab_slice=PAR.vocab_split(
+                           cfg.vocab_size, vocab, coord[names.index("model")]))
+        return PAR.ActivationMesh(rows_group=rows_group, rows=rows,
+                                  ce_scale=rows * vocab / world,
+                                  aux_scale=1.0 / world, **vkw), block
+
+    def share_of(module, sub, act: PAR.ActivationMesh, block: int):
+        """(this rank's share of one microbatch's loss, its cross-entropy
+        and MoE terms, detached).  Nothing of the forward outlives this
+        call but the graph, so the logits go in the backward."""
+        n_tok = torch.clamp(torch.sum(sub["labels"] >= 0), min=1)
+        b = sub["tokens"].shape[0] // act.rows
+        loc = {k: v[block * b:(block + 1) * b] for k, v in sub.items()}
+        logits, aux = model.forward(module, loc)
+        if act.vocab_group is not None:
+            ce, _ = PAR.vocab_parallel_cross_entropy(
+                logits, loc["labels"], act, Z_LOSS)
+        else:
+            ce, _ = cross_entropy(logits, loc["labels"])
+        ce = ce / n_tok.to(ce.dtype)
+        aux_t = _aux_term(cfg, aux)
+        share = ce if act.ce_scale == 1.0 else ce * act.ce_scale
+        if aux_t is not None:
+            share = share + (aux_t if act.aux_scale == 1.0
+                             else aux_t * act.aux_scale)
+        return share, ce.detach(), None if aux_t is None else aux_t.detach()
+
+    def microbatch_loss(module, sub, act: PAR.ActivationMesh, block: int):
+        """Backward of this rank's share of one microbatch's loss; returns
+        the microbatch's loss (the same on every rank)."""
+        with PAR.activation_mesh(act):
+            share, loss, aux_t = share_of(module, sub, act, block)
+            share.backward()
+        if act.rows_group is not None:
+            dist.all_reduce(loss, group=act.rows_group)
+        return loss if aux_t is None else loss + aux_t
+
+    def sharded_grads(state: TrainState, batch):
+        module = bind(state)
+        mb = _microbatch(batch, accum)
+        act, block = row_layout(mb)
+        for p in module.parameters():
+            p.grad = None
+        loss_sum = 0.0
+        for i in range(accum):
+            sub = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            loss_sum = loss_sum + microbatch_loss(module, sub, act, block)
+        loss = loss_sum / accum if accum > 1 else loss_sum
+        grads = {}
+        with torch.no_grad():
+            for n, p in module.named_parameters():
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                p.grad = None
+                if accum > 1:
+                    g.div_(accum)
+                if world > 1:
+                    dist.all_reduce(g)
+                grads[n] = local(g, layout[n][0])
+        return loss, grads
+
+    def train_step(state: TrainState, batch):
+        loss, grads = sharded_grads(state, batch)
+        with torch.no_grad():
+            params = {n: d.to_local() for n, d in state.params.items()}
+            gnorm = red.global_norm(grads)
+            opt_local = _map_tree(state.opt_state, _to_local)
+            updates, new_opt = opt.update(grads, opt_local, params)
+            OPT.apply_updates(params, updates)
+        new_state = TrainState(
+            params=state.params,
+            opt_state={**state.opt_state, "step": new_opt["step"]},
+            step=state.step + 1, err_feedback=state.err_feedback)
+        metrics = {"loss": loss, "grad_norm": gnorm, "step": new_state.step}
+        return new_state, metrics
+
+    return Trainer(cfg=cfg, model=model, optimizer=opt, device=dev,
+                   train_step=train_step, init_state=init_state,
+                   grads=sharded_grads, mesh=mesh, placements=placements)
+
+
+def _to_local(t):
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)

@@ -228,7 +228,10 @@ def test_train_100m_keeps_the_reference_widths_and_trains(tmp_path,
 
 
 def test_train_100m_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """A mesh the run's ranks cannot fill is refused (this process is a
+    group of one; ``tests/test_torch_sharded_training.py`` trains on
+    meshes whose ranks torchrun starts)."""
+    with pytest.raises(ValueError, match="needs 8 ranks"):
         train_100m.main(["--mesh", "2x4", "--device", "cpu"])
 
 

@@ -321,8 +321,10 @@ def test_remat_gives_the_same_gradients_and_reruns_attention(remat,
 
 
 def test_trainer_refuses_a_mesh_and_a_missing_card():
+    """A mesh must be a DeviceMesh (``launch/mesh.py``); the sharded
+    trainer's own tests are ``tests/test_torch_sharded_training.py``."""
     _, tcfg = _cfgs("pallas")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         build_trainer(tcfg, mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
