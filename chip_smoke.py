@@ -532,7 +532,8 @@ def library_kernels(fn) -> list:
 
 def time_decode_attention(T: int, calls: int, shape=None, window: int = 0,
                           ring: bool = False, lengths=None, cap: float = 0.0,
-                          scale=None) -> dict:
+                          scale=None, positions=None,
+                          lse: bool = False) -> dict:
     """Device time per call of the kernel and of SDPA (CUDA-graph replays
     of ``calls`` calls, K/V rotated through more buffers than the 50 MB L2
     holds, as the layers' caches are on the main path), the same launched
@@ -541,7 +542,10 @@ def time_decode_attention(T: int, calls: int, shape=None, window: int = 0,
     unless ``lengths`` is given; ``ring``: the kernel masks by stored
     positions, as RecurrentGemma's local layers call it (a wrapped ring
     when a length exceeds T).  SDPA has no soft-cap: with ``cap`` it is
-    held to, and times, the uncapped function (``library_uncapped``)."""
+    held to, and times, the uncapped function (``library_uncapped``).
+    ``positions``: given stored positions (B, T) (a length shard);
+    ``lse``: the kernel and the plain version also return the
+    log-sum-exp (SDPA is timed without it)."""
     S = dict(shape or SERVE, T=T)
     B, Hq, Hkv, D = S["B"], S["Hq"], S["Hkv"], S["D"]
     dtype, G = torch.bfloat16, S["Hq"] // S["Hkv"]
@@ -551,17 +555,19 @@ def time_decode_attention(T: int, calls: int, shape=None, window: int = 0,
     sets = [attn_inputs(**S, lengths=lengths, dtype=dtype, seed=100 + i)
             for i in range(nbuf)]
     scale = scale or 1.0 / math.sqrt(D)
-    pos = ring_positions(lengths, T, SEED) if ring else None
+    pos = positions if positions is not None else (
+        ring_positions(lengths, T, SEED) if ring else None)
     kw = dict(scale=scale, window=window, positions=pos, cap=cap)
 
     def kernel(q, k, v, lens):
-        return decode_attention_cuda(q, k, v, lens, **kw)
+        return decode_attention_cuda(q, k, v, lens, return_lse=lse, **kw)
 
     def plain(q, k, v, lens):
-        return decode_attention_ref(q, k, v, lens, **kw)
+        return decode_attention_ref(q, k, v, lens, return_lse=lse, **kw)
 
     # the keys that count, as the kernel masks them
-    kpos = (pos.long() if ring else torch.arange(T, device="cuda")[None, :])
+    kpos = (pos.long() if pos is not None
+            else torch.arange(T, device="cuda")[None, :])
     lens = sets[0][3].long()[:, None]
     mask = (kpos >= 0) & (kpos < lens)
     if window:
@@ -590,7 +596,8 @@ def time_decode_attention(T: int, calls: int, shape=None, window: int = 0,
     counted = int(mask.sum().item())
     kv_elems = counted * Hkv * D               # K (and V) read
     nbytes = 2 * kv_elems * 2 + 2 * (B * Hq * D * 2) + B * 4 \
-        + (B * T * 4 if ring else 0)          # + q, out, lens, positions
+        + (B * T * 4 if pos is not None else 0) \
+        + (B * Hq * 4 if lse else 0)    # + q, out, lens, positions, lse
     flops = 2 * 2 * G * kv_elems          # one MAC per query row, QK and PV
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -1382,6 +1389,234 @@ def sharded_phase(p13: dict, smi: str) -> dict:
     log(f"phase 25: {time.perf_counter() - t0:.1f} s")
     return dict(hist=hist, launches=launches, peak=peak, prof=prof,
                 comp=comp, ckpt=ck, spread=spread, chunked=pd)
+
+
+# ---------------------------------------------------------------------------
+# phase 26: sharded serving on NCCL, the decode kernel at tensor-parallel
+# shapes, the dry run's plans
+# ---------------------------------------------------------------------------
+# Qwen3-8B's decode at tensor-parallel degrees 2, 4 and 8: its 32 query /
+# 8 kv heads over model as 16/4, 8/2 and 4/1 a rank; and its length
+# shard, every head over a sixteenth of T 256 (kv 8 on a 16-way axis),
+# masked by the slice's stored positions, with the log-sum-exp output
+TP_DECODE = [("tp2", dict(SERVE, Hq=16, Hkv=4)),
+             ("tp4", dict(SERVE, Hq=8, Hkv=2)),
+             ("tp8", dict(SERVE, Hq=4, Hkv=1))]
+LEN_SHARDS = 16
+LEN_SHARD = dict(SERVE, T=SERVE["T"] // LEN_SHARDS)
+LEN_ROWS = [0, 3, 1, 0, 15, 0, 5, 15]      # each row's slice of the 16
+LEN_LENGTHS = [130, 200, 17, 0, 256, 5, 90, 241]
+DRYRUN_CELLS = [("qwen3-8b", "decode_32k"), ("qwen3-8b", "train_4k"),
+                ("llama4-maverick-400b-a17b", "decode_32k")]
+DRYRUN_DIR = ROOT / "build" / "dryrun_torch_chip"
+DRYRUN_CARD = "qwen3-8b__decode_32k__1x1__card.json"
+
+
+def start_dryrun() -> subprocess.Popen:
+    """Phase 26 (c), started after the build so that its host work (one
+    core; the card is hidden from it) overlaps the card's phases: the dry
+    run of ``DRYRUN_CELLS`` on the single-pod mesh under ``pallas`` (the
+    card's attention path), then the plan of (a)'s own cell (Qwen3-8B
+    decode at B 8, T 256 on the (1, 1) mesh)."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    common = ["--attn-impl", "pallas", "--out-dir", str(DRYRUN_DIR)]
+    cells = [["--arch", a, "--shape", sh, "--mesh", "single"] + common
+             for a, sh in DRYRUN_CELLS]
+    cells.append(["--arch", "qwen3-8b", "--shape", "decode_32k",
+                  "--mesh-shape", "1x1", "--batch", str(SERVE["B"]),
+                  "--seq-len", str(SERVE["T"]), "--tag", "card"] + common)
+    code = "\n".join([
+        "import json, sys, time",
+        "import torch",
+        "print('dryrun: torch', torch.__version__, flush=True)",
+        "from torch.testing._internal.distributed.fake_pg import FakeStore",
+        "print('dryrun: torch.testing FakeStore imports', flush=True)",
+        "from repro_torch.launch import dryrun",
+        "rc = 0",
+        "for argv in json.loads(sys.argv[1]):",
+        "    t = time.perf_counter()",
+        "    r = dryrun.main(argv)",
+        "    print('dryrun: %s: %.1f s, rc %d' % (' '.join(argv[:4]),",
+        "          time.perf_counter() - t, r), flush=True)",
+        "    rc |= r",
+        "sys.exit(rc)"])
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen([sys.executable, "-c", code, json.dumps(cells)],
+                            env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    import atexit
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def check_len_shard(dtype) -> float:
+    """The kernel's output and log-sum-exp on a length shard against the
+    plain version's (phase 4's tolerance; lse 1e-5 fp32, 1e-2 bf16), and
+    the whole T 256 cache cut into its 16 slices: the slices' outputs
+    merged by their lse equal the kernel on the whole cache.  Returns
+    the shard's max |kernel - plain| of the output."""
+    B, T, Hq, Hkv, D = (SERVE[k] for k in ("B", "T", "Hq", "Hkv", "D"))
+    Tl = LEN_SHARD["T"]
+    q, k, v, lens = attn_inputs(B, T, Hq, Hkv, D, LEN_LENGTHS, dtype, SEED)
+    scale = 1.0 / math.sqrt(D)
+    ar = torch.arange(Tl, dtype=torch.int32, device="cuda")
+    pos = torch.stack([ar + Tl * r for r in LEN_ROWS])
+    rows = torch.arange(B, device="cuda")[:, None]
+    idx = pos.long()
+    ks, vs = k[rows, idx].contiguous(), v[rows, idx].contiguous()
+    o, lse = decode_attention_cuda(q, ks, vs, lens, scale=scale,
+                                   positions=pos, return_lse=True)
+    wo, wl = decode_attention_ref(q, ks, vs, lens, scale=scale,
+                                  positions=pos, return_lse=True)
+    torch.cuda.synchronize()
+    err = (o.float() - wo.float()).abs().max().item()
+    lse_tol = 1e-5 if dtype == torch.float32 else 1e-2
+    lse_err = (lse - wl).abs().max().item()
+    parts = [decode_attention_cuda(
+        q, k[:, r * Tl:(r + 1) * Tl], v[:, r * Tl:(r + 1) * Tl], lens,
+        scale=scale, positions=(ar + Tl * r)[None].expand(B, Tl)
+        .contiguous(), return_lse=True) for r in range(LEN_SHARDS)]
+    os_ = torch.stack([p[0].float() for p in parts])
+    ls = torch.stack([p[1] for p in parts])[:, :, None, :]
+    w = torch.exp(ls - ls.amax(dim=0))
+    merged = (w[..., None] * os_).sum(0) / w.sum(0)[..., None]
+    whole = decode_attention_cuda(q, k, v, lens, scale=scale)
+    merge_err = (merged - whole.float()).abs().max().item()
+    log(f"check decode_attention len_shard {str(dtype):<15} "
+        f"max_abs_err={err:.3e} tol={TOL[dtype]:g} lse_max_abs_err="
+        f"{lse_err:.3e} tol={lse_tol:g}; {LEN_SHARDS} slices merged by lse "
+        f"against the whole T {T}: max_abs_err={merge_err:.3e}")
+    if err > TOL[dtype] or lse_err > lse_tol or merge_err > TOL[dtype] \
+            or not torch.isfinite(o).all():
+        raise AssertionError(f"decode_attention len_shard {dtype}: the "
+                             "kernel or its lse disagrees")
+    return err
+
+
+def sharded_serve_phase(p5: dict, decode_device_ms: float,
+                        dry: subprocess.Popen, smi: str) -> dict:
+    """Phase 26: (a) full-width, full-depth Qwen3-8B serves phase 5's
+    ``serve_mixed_slo`` through ``ModelExecutor(mesh=)`` on a (1, 1) NCCL
+    mesh: 12 of 12 done, decode launches exactly layers x steps, the
+    RunReport phase 5's, the bytes held after init against the plan's
+    argument bytes (1 %) and a decode step's peak against its live bytes;
+    (b) the kernel at the tensor-parallel local shapes and on a length
+    shard with its lse, checked and timed; (c) the dry run's records."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    cfg = dataclasses.replace(get_config("qwen3-8b"), attn_impl="pallas")
+    spec = serve_spec(cfg, SEED)
+    log(f"phase 26: {dist.get_backend()} world {dist.get_world_size()}, "
+        f"mesh {mesh.mesh_dim_names} {tuple(mesh.mesh.shape)}; qwen3-8b "
+        f"{cfg.num_layers} layers through the mesh branch")
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    rt, init_s = sync_time(lambda: ServeRuntime.from_spec(
+        spec, executor=lambda e: ModelExecutor(cfg, e, rng_seed=SEED,
+                                               device="cuda", mesh=mesh)))
+    held = torch.cuda.memory_allocated() - base
+    ex = rt.engine.exe
+    if ex.fns.layout is None:
+        raise AssertionError("phase 26: the executor took no mesh branch")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    rep, wall = sync_time(lambda: rt.run(spec).validate())
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    done = rt.engine.done
+    steps = rep.extras["decode_steps"]
+    generated = sum(len(r.generated) for r in done)
+    log(f"phase 26 serve: init_s={init_s:.2f} steps={int(rep.duration)} "
+        f"prefill_chunks={rep.extras['prefill_chunks']} decode_steps={steps} "
+        f"wall_s={wall:.3f} generated_tokens={generated} "
+        f"tokens_per_s={generated / wall:.2f} max_memory_allocated={peak} "
+        f"(phase 5: wall_s={p5['wall']:.3f}, "
+        f"tokens_per_s={p5['tokens'] / p5['wall']:.2f}); {smi}")
+    if len(done) != 12 or any(r.status != RequestStatus.DONE for r in done):
+        raise AssertionError("phase 26: not every request ended done")
+    if launches["decode_attention"] != cfg.num_layers * steps or any(
+            v for k, v in launches.items() if k != "decode_attention"):
+        raise AssertionError(f"phase 26: launches {launches} (want "
+                             f"decode_attention {cfg.num_layers} x {steps})")
+    if rep.to_json() != p5["json"]:
+        raise AssertionError("phase 26: the RunReport differs from phase 5's")
+    log("check: phase 26's RunReport JSON equals phase 5's; decode "
+        f"launches {launches['decode_attention']} = {cfg.num_layers} x "
+        f"{steps}")
+    B = SERVE["B"]
+    tokens, lengths = np.ones(B, np.int32), np.full(B, 128, np.int32)
+    active = np.ones(B, bool)
+    ex.decode(tokens, lengths, active)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ex.decode(tokens, lengths, active)
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated() - before
+    dev_ms = profile_step("qwen3-8b full-width decode step, (1, 1) NCCL "
+                          "mesh", lambda: ex.decode(tokens, lengths, active),
+                          kernel="decode_attention")
+    log(f"phase 26 decode step device time {dev_ms:.3f} ms against phase "
+        f"7's {decode_device_ms:.3f} ms (ratio "
+        f"{dev_ms / decode_device_ms:.4f})")
+    del rt, ex
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+    # (b) the kernel at the tensor-parallel shapes
+    errs = []
+    for i, (name, shp) in enumerate(TP_DECODE):
+        lens = [shp["T"], 1, 0, 7, 100, 129, 64, shp["T"] - 1]
+        for dtype in (torch.bfloat16, torch.float32):
+            errs.append(check_decode_case(name, shp, lens, 0, 0.0, False,
+                                          None, dtype=dtype, seed=SEED + i))
+    for dtype in (torch.bfloat16, torch.float32):
+        errs.append(check_len_shard(dtype))
+    times = [time_decode_attention(SERVE["T"], 100, shape=shp)
+             for _, shp in TP_DECODE]
+    ar = torch.arange(LEN_SHARD["T"], dtype=torch.int32, device="cuda")
+    len_pos = torch.stack([ar + LEN_SHARD["T"] * r for r in LEN_ROWS])
+    times.append(time_decode_attention(LEN_SHARD["T"], 100, shape=LEN_SHARD,
+                                       positions=len_pos,
+                                       lengths=[SERVE["T"]] * B, lse=True))
+    for (name, _), t in zip(TP_DECODE + [("len_shard_lse", None)], times):
+        log(f"time decode_attention bf16 {name} (ms, library_ms: CUDA-graph "
+            f"replays; eager_ms, library_eager_ms, plain_ms: launched from "
+            f"Python) " + fields(t))
+
+    # (c) the dry run
+    out, _ = dry.communicate(timeout=900)
+    for line in out.strip().splitlines():
+        log(f"  {line}")
+    if dry.returncode != 0:
+        raise AssertionError(f"phase 26: the dry run exited {dry.returncode}")
+    recs = {}
+    for a, sh in DRYRUN_CELLS:
+        rec = json.loads((DRYRUN_DIR / f"{a}__{sh}__singlepod.json")
+                         .read_text())
+        if "skipped" in rec or rec["cost"]["flops"] <= 0:
+            raise AssertionError(f"phase 26: no plan of {a} x {sh}")
+        recs[f"{a} {sh}"] = rec
+        log(f"phase 26 dry run {a} x {sh} x singlepod: " + json.dumps(rec))
+    plan = json.loads((DRYRUN_DIR / DRYRUN_CARD).read_text())
+    log("phase 26 dry run of the card's cell: " + json.dumps(plan))
+    args = plan["memory"]["argument_bytes"]
+    gap = held / args - 1
+    log(f"phase 26 memory: held after init {held} B against the plan's "
+        f"argument bytes {args} B (rel {gap:+.5f}, limit 0.01); a decode "
+        f"step's peak above its start {step_peak} B against the plan's "
+        f"live bytes {plan['memory']['temp_bytes']} B (rel "
+        f"{step_peak / max(plan['memory']['temp_bytes'], 1) - 1:+.4f})")
+    if abs(gap) > 0.01:
+        raise AssertionError("phase 26: the plan's argument bytes miss the "
+                             "bytes held after init by more than 1 %")
+    log(f"phase 26: {time.perf_counter() - t0:.1f} s")
+    return dict(launches=launches, err=max(errs), times=times, recs=recs,
+                held=held, step_peak=step_peak, plan=plan, dev_ms=dev_ms,
+                wall=wall, tokens=generated)
 
 
 # ---------------------------------------------------------------------------
@@ -3637,6 +3872,7 @@ def main() -> int:
         for line in text.strip().splitlines():
             log(f"  {line}")
     log(f"build: {len(kbuild.sources())} sources in {build_s:.1f} s")
+    dry = start_dryrun()
     for lib, fn, regs, st, ld in ptxas_report(logs, r"Li256E"):
         log(f"build {lib}: head dim 256 {fn}: {regs} registers, {st} bytes "
             f"spill stores, {ld} bytes spill loads")
@@ -3745,6 +3981,7 @@ def main() -> int:
             f"grad_norm={h['grad_norm']:.6f} step_s={h['step_s']:.4f} "
             f"tokens_per_s={h['tokens_per_s']:.1f}")
     sh = sharded_phase(tr, smi)
+    sv = sharded_serve_phase(p5, decode_device_ms, dry, smi)
 
     t = timings[0]
     st = sel_times[0]
@@ -3756,7 +3993,8 @@ def main() -> int:
         + rgemma["launches"]["decode_attention"]
         + planes["launches"]["decode_attention"]
         + sum(f["decode_attention"] for f in families.values())
-        + w_launches["decode_attention"] + fleet["decode_attention"],
+        + w_launches["decode_attention"] + fleet["decode_attention"]
+        + sv["launches"]["decode_attention"],
         "max_abs_err": err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]}, {

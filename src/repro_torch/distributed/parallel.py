@@ -20,6 +20,18 @@ rows of the whole microbatch across the batch group before it routes,
 so the capacity groups and the load-balancing loss are the unsharded
 ones, and ``layers.lm_logits`` computes only this rank's vocabulary
 slice.
+
+Serving computes on the shards themselves (``ServeLayout``, set with
+``serve_layout`` by the mesh branch of ``serving/serve_step.py``): each
+rank holds its slices of the weights (placed by the serve rules) and of
+the cache, and the layers compute on them, reading what is sharded from
+the local shapes: column-parallel projections, row-parallel outputs
+summed by one all-reduce over ``model``, attention over the local heads
+or the local length (merged by log-sum-exp), the experts of this rank,
+the LM head's vocabulary slice and a greedy argmax across the slices.
+This is the placement's compute that XLA's SPMD partitioner derives for
+the JAX package's jitted serve.  Serving runs under ``torch.no_grad``,
+so these collectives have no backward.
 """
 from __future__ import annotations
 
@@ -260,3 +272,182 @@ class ShardReducer(Reducer):
         for i in dims:
             n *= self.sizes[i]
         return self._sum_over(x.sum(), dims) / n
+
+
+# ---------------------------------------------------------------------------
+# serving: compute on the local shards
+# ---------------------------------------------------------------------------
+NEG_INF = -1.0e30
+
+
+class ServeLayout:
+    """The serving step's layout over a mesh.
+
+    ``mesh``: the ``DeviceMesh``; ``batch`` / ``max_len``: the global
+    cache shape; ``shard_length``: the cache's length goes over ``data``
+    (batch 1); ``ep``: the mesh axis the serve rules put the experts on.
+    The batch rows split as the cache's batch dim does (``row_axes``),
+    this rank holding block ``row_block`` of ``rows``."""
+
+    def __init__(self, mesh, *, batch: int, max_len: int,
+                 shard_length: bool = False, ep: Optional[str] = "model"):
+        from repro_torch.distributed import sharding as SH
+        self.mesh = mesh
+        self.sizes: Dict[str, int] = SH.mesh_sizes(mesh)
+        names = list(self.sizes)
+        coord = mesh.get_coordinate()
+        self.coord: Dict[str, int] = dict(zip(names, coord))
+        self.batch, self.max_len = batch, max_len
+        self.shard_length = shard_length
+        self.ep = ep
+        # the rows are the cache's: its batch dim goes over ``data`` when
+        # it divides (``sharding.cache_pspecs``); the pod axis repeats
+        brows = SH._cache_leaf("pos", (batch, max_len), self.sizes,
+                               shard_length)[0]
+        self.row_axes: Tuple[str, ...] = () if brows is None else (brows,)
+        self.rows = self.size(self.row_axes)
+        self.row_block = self.index(self.row_axes)
+        self.model = self.sizes.get("model", 1)
+        self.model_rank = self.coord.get("model", 0)
+        self._groups: Dict[Tuple[str, ...], object] = {}
+
+    # -- axes ---------------------------------------------------------------
+    def size(self, axes: Sequence[str]) -> int:
+        n = 1
+        for a in axes:
+            n *= self.sizes.get(a, 1)
+        return n
+
+    def index(self, axes: Sequence[str]) -> int:
+        """This rank's block along ``axes`` (the first axis major)."""
+        i = 0
+        for a in axes:
+            i = i * self.sizes.get(a, 1) + self.coord.get(a, 0)
+        return i
+
+    def group(self, axes: Sequence[str]):
+        """The process group of the ranks that differ from this one only
+        along ``axes`` (every rank builds the same groups in the same
+        order, as the step runs the same code everywhere)."""
+        axes = tuple(a for a in axes if a in self.sizes)
+        if axes not in self._groups:
+            self._groups[axes] = subgroup(self.mesh, axes)[0]
+        return self._groups[axes]
+
+    def cache_spec(self, name: str, shape: Sequence[int]):
+        """The cache rule's spec of a leaf of global ``shape``."""
+        from repro_torch.distributed import sharding as SH
+        return SH._cache_leaf(name, tuple(shape), self.sizes,
+                              self.shard_length)
+
+    # -- rows ---------------------------------------------------------------
+    def local_rows(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rows == 1:
+            return x
+        b = x.shape[0] // self.rows
+        return x[self.row_block * b:(self.row_block + 1) * b]
+
+    def gather_rows(self, x: torch.Tensor, always: bool = False
+                    ) -> torch.Tensor:
+        """(B_local, ...) -> (B, ...) in row order.  ``always``: run the
+        collective on a group of one too (the step's token gather, so a
+        one-rank mesh still goes through the process group)."""
+        if self.rows == 1 and not always:
+            return x
+        return self.all_gather(x, self.row_axes, dim=0)
+
+    # -- collectives --------------------------------------------------------
+    def all_gather(self, x: torch.Tensor, axes: Sequence[str], dim: int
+                   ) -> torch.Tensor:
+        """The blocks of the ranks along ``axes``, concatenated on
+        ``dim`` in their order."""
+        n = self.size(axes)
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=self.group(axes))
+        return torch.cat(parts, dim=dim)
+
+    def all_reduce(self, x: torch.Tensor, axes: Sequence[str]
+                   ) -> torch.Tensor:
+        """Sum over the ranks along ``axes`` (in place; x when they are
+        all of size 1)."""
+        if self.size(axes) > 1:
+            dist.all_reduce(x, group=self.group(axes))
+        return x
+
+    def all_reduce_model(self, x: torch.Tensor) -> torch.Tensor:
+        """The row-parallel outputs' sum over ``model``."""
+        return self.all_reduce(x, ("model",))
+
+    def gather_cols(self, x: torch.Tensor, full: int) -> torch.Tensor:
+        """A column-parallel output (..., full / model) -> (..., full);
+        x itself when its weight was whole."""
+        if x.shape[-1] == full:
+            return x
+        return self.all_gather(x, ("model",), dim=-1)
+
+    def merge_lse(self, o: torch.Tensor, lse: torch.Tensor, axis: str
+                  ) -> torch.Tensor:
+        """Attentions of the ranks along ``axis`` over disjoint key sets,
+        o (..., H, D) with log-sum-exp (..., H), merged as one attention
+        over their union (rank order; a rank whose keys all miss weighs
+        0, and a row that no rank attends stays 0)."""
+        if self.sizes.get(axis, 1) == 1:
+            return o
+        packed = torch.cat([o.float(), lse.float()[..., None]], dim=-1)
+        allp = self.all_gather(packed[None], (axis,), dim=0)
+        os_, ls = allp[..., :-1], allp[..., -1]
+        m = ls.amax(dim=0)
+        w = torch.exp(ls - m)
+        out = (w[..., None] * os_).sum(dim=0) / w.sum(dim=0)[..., None]
+        return out.to(o.dtype)
+
+    # -- vocabulary ---------------------------------------------------------
+    def vocab_slice(self, vocab: int) -> slice:
+        return vocab_split(vocab, self.model, self.model_rank)
+
+    def vocab_argmax(self, logits: torch.Tensor, vocab: int
+                     ) -> torch.Tensor:
+        """Greedy tokens from this rank's vocabulary slice (B, V_slice):
+        each slice's (max, first index) is gathered over ``model`` and the
+        first maximum in vocabulary order wins, as ``torch.argmax`` on the
+        whole row keeps it.  (B,) int32."""
+        lo = self.vocab_slice(vocab).start
+        idx = torch.argmax(logits, dim=-1)
+        best = torch.gather(logits, -1, idx[:, None])[:, 0]
+        # indices below 2**24 are exact in fp32
+        packed = torch.stack([best.float(), (idx + lo).float()], dim=-1)
+        allp = self.all_gather(packed[None], ("model",), dim=0)
+        pick = torch.argmax(allp[..., 0], dim=0)          # first max wins
+        tok = torch.gather(allp[..., 1], 0, pick[None])[0]
+        return tok.to(torch.int32)
+
+    def gather_vocab(self, logits: torch.Tensor, vocab: int) -> torch.Tensor:
+        """This rank's vocabulary slice (B, V_slice) -> (B, V): the
+        slices, padded to one length for the gather, in vocabulary
+        order."""
+        if self.model == 1:
+            return logits
+        width = -(-vocab // self.model)
+        pad = torch.nn.functional.pad(logits, (0, width - logits.shape[-1]))
+        allp = self.all_gather(pad[None], ("model",), dim=0)
+        return torch.cat([allp[k, :, :sl.stop - sl.start] for k, sl in
+                          enumerate(vocab_split(vocab, self.model, r)
+                                    for r in range(self.model))], dim=-1)
+
+
+_SERVE: Optional[ServeLayout] = None
+
+
+def serving() -> Optional[ServeLayout]:
+    return _SERVE
+
+
+@contextlib.contextmanager
+def serve_layout(srv: Optional[ServeLayout]) -> Iterator[None]:
+    """Make ``srv`` the active serving layout for the step inside."""
+    global _SERVE
+    prev, _SERVE = _SERVE, srv
+    try:
+        yield
+    finally:
+        _SERVE = prev

@@ -240,6 +240,21 @@ def local_slices(shape: Sequence[int], placements_: Sequence, mesh,
     return tuple(slice(a, a + n) for a, n in zip(start, length))
 
 
+def local_shape(shape: Sequence[int], spec: Sequence[Entry], mesh
+                ) -> Tuple[int, ...]:
+    """The shape of one rank's block of a tensor of ``shape`` placed by
+    ``spec`` (even splits)."""
+    sizes = mesh_sizes(mesh)
+    out = []
+    for d, e in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        n = _axis_size(sizes, e)
+        if d % n:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                             f"{n} ways")
+        out.append(d // n)
+    return tuple(out)
+
+
 def batch_axes(mesh, n: Optional[int] = None):
     """Dim-0 entry for batch sharding: 'data', ('pod', 'data'), or None.
 

@@ -105,6 +105,8 @@ struct Params {
   float cap;
   const int* kpos;   // (B, T) stored key positions, or null: index
   long long kpos_sb;
+  float* lse;        // (B, Hq) log-sum-exp of the counted scores, or null
+  long long lse_sb;
 };
 
 // Byte offsets into the dynamic shared memory (from a 1024-byte aligned
@@ -633,6 +635,10 @@ decode_attention_kernel(const __grid_constant__ CUtensorMap kmap,
       }
     }
     lsum_s[g] = fmaxf(l, 1e-30f);
+    // the row's log-sum-exp over every split (kNegInf where no key
+    // counts): attentions over disjoint key sets combine by it
+    if (p.lse && split == 0)
+      p.lse[b * p.lse_sb + h * G + g] = l > 0.f ? m + logf(l) : kNegInf;
   }
   __syncthreads();
   for (int i = split * kThreads + tid; i < G * D; i += n * kThreads) {
@@ -714,7 +720,9 @@ extern "C" {
 // Hkv, D), last dim contiguous, other strides in elements, every base
 // address and byte stride of k/v a multiple of 16.  lengths: int32 (B,).
 // kpos: int32 (B, T) with row stride kpos_sb and a contiguous last dim,
-// or null (a key's position is its index).  D in {16, 32, 64, 128, 256};
+// or null (a key's position is its index).  lse: fp32 (B, Hq) with row
+// stride lse_sb, written with each head's log-sum-exp of its counted
+// (scaled, capped) scores, or null.  D in {16, 32, 64, 128, 256};
 // G <= 16; 1 <= splits <= 8 blocks (a cluster) a (b, h) pair.  Returns
 // the cudaError_t of the launch (0 = success).
 int decode_attention(int dtype, const void* q, const void* k, const void* v,
@@ -724,13 +732,13 @@ int decode_attention(int dtype, const void* q, const void* k, const void* v,
                      long long v_sb, long long v_st, long long v_sh,
                      long long o_sb, long long o_sh, float scale, int window,
                      float cap, const int* kpos, long long kpos_sb,
-                     void* stream) {
+                     float* lse, long long lse_sb, void* stream) {
   if (B < 1 || T < 1 || Hkv < 1 || G < 1 || G > kMaxG || splits < 1 ||
       splits > kMaxSplits)
     return int(cudaErrorInvalidValue);
   Params p{q, k, v, lengths, out, T, G, splits, kStages, q_sb, q_sh, k_sb,
            k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_sh, scale, window, cap, kpos,
-           kpos_sb};
+           kpos_sb, lse, lse_sb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_dim<float>(p, B, Hkv, D, s);
   if (dtype == 1) return launch_dim<__nv_bfloat16>(p, B, Hkv, D, s);

@@ -10,7 +10,9 @@ is ``kernels/ref.py::decode_attention_ref``.
 The kernel splits each (batch row, KV head) pair's keys across a cluster
 of ``num_splits(...)`` blocks and combines their partial softmax sums in
 the same launch; ``kernels/ref.py::decode_attention_split_ref`` is that
-split form, written the plain way.
+split form, written the plain way.  With ``return_lse`` the combine also
+writes each head's log-sum-exp (B, Hq) fp32, which a length-sharded
+cache needs to merge the ranks' attentions.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ MAX_SPLITS = 8        # blocks a (batch row, KV head): one portable cluster
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-             _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _F, _P, _L, _P]
+             _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _F, _P, _L,
+             _P, _L, _P]
 
 
 def num_splits(T: int, rows: int, sms: int, *, window: int = 0,
@@ -105,13 +108,16 @@ def _check(q, k, v, lengths, positions) -> None:
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           lengths: torch.Tensor, *, scale: float,
                           window: int = 0, cap: float = 0.0,
-                          positions=None) -> torch.Tensor:
+                          positions=None, return_lse: bool = False):
     """Launch the kernel on the current stream -> (B, 1, Hq, D) in q's
-    dtype.  Raises on inputs it does not take and on a failed launch."""
+    dtype, and with ``return_lse`` the (B, Hq) fp32 log-sum-exp beside
+    it.  Raises on inputs it does not take and on a failed launch."""
     _check(q, k, v, lengths, positions)
     B, _, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     splits = num_splits(T, B * Hkv, _sm_count(q.device.index or 0),
                         window=window, positions=positions is not None)
     lib = _lib()
@@ -123,6 +129,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out.stride(0), out.stride(2),
         float(scale), int(window), float(cap),
         positions.data_ptr() if positions is not None else None,
-        positions.stride(0) if positions is not None else 0, stream)
+        positions.stride(0) if positions is not None else 0,
+        lse.data_ptr() if lse is not None else None,
+        lse.stride(0) if lse is not None else 0, stream)
     build.check(lib, NAME, code)
-    return out
+    return (out, lse) if return_lse else out

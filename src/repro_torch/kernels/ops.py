@@ -3,14 +3,17 @@
 Dispatch is by the device of the tensors: a CPU tensor takes the plain
 PyTorch version (``kernels/ref.py``); a CUDA tensor launches the
 hand-written kernel, which raises on anything it does not take.  Nothing
-falls back from the kernel to the plain version.
+falls back from the kernel to the plain version.  A meta tensor (the dry
+run, ``launch/dryrun.py``) computes nothing: the call returns empty
+outputs of the kernel's shapes and adds the kernel's work to
+``PLAN_COUNTER`` when one is set.  Any other device raises.
 
 ``LAUNCHES`` counts kernel launches per kernel name (plain ints): the
 main path's launches are read from it after a run that set it to zero.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -29,28 +32,59 @@ LAUNCHES: Dict[str, int] = {"decode_attention": 0, "flash_attention": 0,
                             "ssd_scan": 0, "rglru_scan": 0, "sweep_scan": 0}
 WLBVT_IMPLS = ("", "jnp", "jnp_ref", "pallas")
 
+# The dry run's tally of kernel work on meta tensors: {"flops", "bytes",
+# "<kernel>": calls}, or None (``launch/op_stats.py`` sets it for a trace).
+# The work is what ``chip_smoke.py`` bounds each kernel by: every input
+# read once, every output written once, the products of a full cache.
+PLAN_COUNTER: Optional[Dict[str, float]] = None
+
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
 
 
+def _plan(name: str, flops: float, nbytes: float) -> None:
+    if PLAN_COUNTER is not None:
+        PLAN_COUNTER["flops"] = PLAN_COUNTER.get("flops", 0.0) + flops
+        PLAN_COUNTER["bytes"] = PLAN_COUNTER.get("bytes", 0.0) + nbytes
+        PLAN_COUNTER[name] = PLAN_COUNTER.get(name, 0) + 1
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
 def decode_attention(q, k, v, lengths, *, scale: float, window: int = 0,
-                     cap: float = 0.0, positions=None) -> torch.Tensor:
+                     cap: float = 0.0, positions=None,
+                     return_lse: bool = False):
     """q: (B,1,Hq,D); k/v: (B,T,Hkv,D); lengths: (B,) -> (B,1,Hq,D).
 
     Keys at positions ``0 <= kpos < lengths[b]`` (and within ``window`` of
     the length) count; a key's position is its index, or
     ``positions[b, t]`` (B,T) when given (a ring cache).  Rows with a
-    length <= 0 return 0."""
+    length <= 0 return 0.  ``return_lse``: also each head's log-sum-exp
+    of its counted scores, (B, Hq) fp32 (NEG_INF where none counts); on a
+    CUDA tensor the kernel writes it."""
+    kw = dict(scale=scale, window=window, cap=cap, positions=positions)
     if q.device.type == "cpu":
-        return ref.decode_attention_ref(q, k, v, lengths, scale=scale,
-                                        window=window, cap=cap,
-                                        positions=positions)
+        return ref.decode_attention_ref(q, k, v, lengths,
+                                        return_lse=return_lse, **kw)
+    if q.device.type == "meta":
+        B, _, Hq, D = q.shape
+        T, Hkv = k.shape[1], k.shape[2]
+        live = T if positions is not None or window <= 0 else min(T, window)
+        out = torch.empty_like(q)
+        lse = (torch.empty((B, Hq), dtype=torch.float32, device=q.device)
+               if return_lse else None)
+        kv = 2 * B * live * Hkv * D * k.element_size()
+        _plan("decode_attention", 4 * B * Hq * live * D,
+              kv + _nbytes(q, out, lengths, positions, lse))
+        return (out, lse) if return_lse else out
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
-    out = decode_attention_cuda(q, k, v, lengths.to(torch.int32), scale=scale,
-                                window=window, cap=cap, positions=positions)
+    out = decode_attention_cuda(q, k, v, lengths.to(torch.int32),
+                                return_lse=return_lse, **kw)
     LAUNCHES["decode_attention"] += 1
     return out
 
@@ -76,6 +110,8 @@ def ssd_scan(x, dt, A_log, B_mat, C_mat, *, chunk: int = 128,
     if x.device.type == "cpu":
         return ref.ssd_scan_ref(x, dt, A_log, B_mat, C_mat,
                                 init_state=init_state)
+    if x.device.type == "meta":
+        return _ssd_meta(x, dt, A_log, B_mat, C_mat, chunk, init_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
     out = ssd_scan_cuda(x, dt.float(), A_log.float(), B_mat, C_mat,
@@ -93,6 +129,10 @@ def rglru_scan(a, b, h0=None):
     a, b = a.float(), b.float()
     if a.device.type == "cpu":
         return ref.rglru_scan_ref(a, b, h0)
+    if a.device.type == "meta":
+        h, last = torch.empty_like(a), torch.empty_like(a[:, 0])
+        _plan("rglru_scan", 2 * a.numel(), _nbytes(a, b, h0, h, last))
+        return h, last
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan: no kernel for device {a.device}")
     out = rglru_scan_cuda(a, b, h0)
@@ -110,6 +150,8 @@ class _FlashAttention(torch.autograd.Function):
         dev = q.device.type
         if dev == "cpu":
             o, lse = ref.flash_attention_ref(q, k, v, **kw)
+        elif dev == "meta":
+            o, lse = _flash_meta(q, k, v, kw, backward=False)
         elif dev == "cuda":
             o, lse = flash_attention_cuda(q, k, v, **kw)
             LAUNCHES["flash_attention"] += 1
@@ -127,11 +169,58 @@ class _FlashAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
                                                      **ctx.kw)
+        elif q.device.type == "meta":
+            dq, dk, dv = _flash_meta(q, k, v, ctx.kw, backward=True)
         else:
             dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, lse, do,
                                                   **ctx.kw)
             LAUNCHES["flash_attention_bwd"] += 1
         return dq, dk, dv, None, None, None, None
+
+
+def _flash_meta(q, k, v, kw, *, backward: bool):
+    """The flash pair's outputs on the meta device, and their work: per
+    (query, key) pair that the mask keeps, 4 D flops forward and 10 D
+    backward."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    win = kw["window"]
+    if kw["causal"]:
+        per_head = sum(min(s + 1, win or T) for s in range(min(S, T)))
+    else:
+        per_head = S * T
+    pairs = B * Hq * per_head
+    lse_bytes = B * Hq * S * 4
+    if backward:
+        grads = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+        _plan("flash_attention_bwd", 10 * D * pairs,
+              2 * _nbytes(q) + _nbytes(q, k, v) + lse_bytes
+              + _nbytes(*grads))
+        return grads
+    o = torch.empty_like(q)
+    lse = torch.empty((B, Hkv, S * (Hq // Hkv)), dtype=torch.float32,
+                      device=q.device)
+    _plan("flash_attention", 4 * D * pairs, _nbytes(q, k, v, o) + lse_bytes)
+    return o, lse
+
+
+def _ssd_meta(x, dt, A_log, B_mat, C_mat, chunk: int, init_state):
+    """The SSD scan's outputs on the meta device, and its work (the
+    chunked scan's products, as ``chip_smoke.ssd_cost`` counts them)."""
+    B, S, H, P = x.shape
+    G, N = B_mat.shape[2], B_mat.shape[3]
+    Q = min(chunk, S)
+    flops = 0
+    for c0 in range(0, S, Q):
+        q = min(Q, S - c0)
+        flops += 2 * (q * (q + 1) // 2) * (N + P) + 2 * q * P * N
+        if init_state is not None or c0 > 0:
+            flops += 2 * q * P * N
+    y = torch.empty_like(x)
+    state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    _plan("ssd_scan", flops * B * H,
+          _nbytes(x, dt, A_log, B_mat, C_mat, init_state, y, state))
+    return y, state
 
 
 def flash_attention(q, k, v, *, scale: float, causal: bool = True,

@@ -15,7 +15,8 @@ NEG_INF = -1.0e30
 
 
 def decode_attention_ref(q, k, v, lengths, *, scale: float, window: int = 0,
-                         cap: float = 0.0, positions=None) -> torch.Tensor:
+                         cap: float = 0.0, positions=None,
+                         return_lse: bool = False):
     """q: (B,1,Hq,D); k/v: (B,T,Hkv,D); lengths: (B,) valid cache entries.
 
     A key counts when its position ``kpos`` satisfies ``0 <= kpos <
@@ -26,6 +27,11 @@ def decode_attention_ref(q, k, v, lengths, *, scale: float, window: int = 0,
     position ``length - 1`` sees exactly the keys that ``naive_attention``
     lets it see.  Rows with ``length <= 0`` attend to nothing and return
     exactly 0.  fp32 arithmetic; the output has q's dtype.
+
+    ``return_lse``: also the log-sum-exp of each head's counted scores
+    (after scale and cap), (B, Hq) fp32, NEG_INF where no key counts, so
+    that attentions over disjoint key sets combine exactly
+    (``models/attention.py``'s length-sharded decode).
     """
     B, _, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
@@ -43,7 +49,12 @@ def decode_attention_ref(q, k, v, lengths, *, scale: float, window: int = 0,
     s = torch.where(mask[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1) * mask[:, None, None, :]
     o = torch.einsum("bhgt,bthd->bhgd", p, v.float())
-    return o.reshape(B, 1, Hq, D).to(q.dtype)
+    o = o.reshape(B, 1, Hq, D).to(q.dtype)
+    if not return_lse:
+        return o
+    any_key = mask.any(dim=-1)[:, None, None]
+    lse = torch.where(any_key, torch.logsumexp(s, dim=-1), NEG_INF)
+    return o, lse.reshape(B, Hq)
 
 
 def decode_attention_split_ref(q, k, v, lengths, *, scale: float,

@@ -10,24 +10,41 @@ none set, the process is a group of one on a free localhost port.  A
 CUDA run with more ranks on this host than cards raises: nothing falls
 back to the CPU or to fewer ranks.
 
-The JAX package's ``make_production_mesh`` and its v5e constants
-describe TPU pods and have no counterpart here; ``input_specs`` /
-``cache_specs`` (the dry run's stand-ins) are not ported.
+The dry run's side (the JAX package's ``launch/mesh.py:30-99``):
+``production_mesh_sizes(multi_pod)`` is the reference's logical mesh as
+an axis-size mapping (16 x 16, or 2 x 16 x 16 with ``pod``), which the
+sharding rules take with no rank; ``input_specs`` / ``cache_specs`` give
+a cell's inputs and KV cache as meta tensors (global shapes, nothing
+allocated) with each one's spec beside it by the same keys.  The card's
+constants below are the H100's (the JAX package's are a TPU's and have
+no use here).
 """
 from __future__ import annotations
 
 import math
 import os
 import socket
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.distributed import sharding as SH
 from repro_torch.serving.serve_step import require_device
 
 AXES = ("pod", "data", "model")
+
+# One card, for the plans' rooflines: NVIDIA H100 80GB HBM3 (SXM) at its
+# 700 W power limit, from NVIDIA's data sheet.  A card set to a lower
+# limit runs slower under load.
+CARD = "NVIDIA H100 80GB HBM3"
+POWER_LIMIT_W = 700
+PEAK_FLOPS_BF16 = 989e12          # dense bf16 tensor-core flops/s
+HBM_BW = 3.35e12                  # bytes/s
+HBM_BYTES = 80 * 10**9            # device memory
+NVLINK_BW = 450e9                 # bytes/s a direction (NVLink 4, 18 links)
 
 
 def _free_port() -> int:
@@ -97,3 +114,65 @@ def parse_mesh(text: str) -> Tuple[int, ...]:
     if text == "none":
         return ()
     return tuple(int(x) for x in text.split("x"))
+
+
+def production_mesh_sizes(multi_pod: bool = False) -> Dict[str, int]:
+    """The JAX package's production mesh as axis sizes: one pod (data 16,
+    model 16) or two (pod 2, data 16, model 16)."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
+# ---------------------------------------------------------------------------
+# the dry run's stand-ins: meta tensors beside their specs
+# ---------------------------------------------------------------------------
+def input_specs(cfg: ModelConfig, shape: ShapeSpec, mesh
+                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, tuple]]:
+    """Every model input of the (arch, shape) cell: ({name: meta tensor
+    of the global shape}, {name: spec}).  ``mesh``: a ``DeviceMesh`` or
+    an axis-size mapping.
+
+    train:   tokens, labels (+ frames, or vis_embeds + vis_mask stubs)
+    prefill: tokens, lengths (+ frames)
+    decode:  tokens (B,), lengths (B,): one new token against a cache of
+             shape.seq_len (``cache_specs``)."""
+    B, S = shape.global_batch, shape.seq_len
+    b = SH.batch_axes(mesh, B)
+    tensors: Dict[str, torch.Tensor] = {}
+    specs: Dict[str, tuple] = {}
+
+    def add(name, dims, dtype, spec):
+        tensors[name] = torch.empty(dims, dtype=dtype, device="meta")
+        specs[name] = spec
+
+    if shape.kind in ("train", "prefill"):
+        add("tokens", (B, S), torch.int32, (b, None))
+        if shape.kind == "train":
+            add("labels", (B, S), torch.int32, (b, None))
+        else:
+            add("lengths", (B,), torch.int32, (b,))
+        if cfg.is_encoder_decoder:
+            add("frames", (B, cfg.num_audio_frames, cfg.d_model),
+                torch.float32, (b, None, None))
+        elif cfg.frontend_stub and shape.kind == "train":
+            add("vis_embeds", (B, S, cfg.d_model), torch.bfloat16,
+                (b, None, None))
+            add("vis_mask", (B, S), torch.bool, (b, None))
+    else:
+        add("tokens", (B,), torch.int32, (b,))
+        add("lengths", (B,), torch.int32, (b,))
+    return tensors, specs
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeSpec, mesh, model=None
+                ) -> Tuple[list, list]:
+    """The KV cache of a decode (or prefill) cell: (per-layer dicts of
+    meta tensors, the same dicts of specs).  A batch of 1 (long_500k)
+    puts the cache's length over ``data`` too, as the JAX package's
+    ``shard_length`` does."""
+    from repro_torch.models.registry import build_model
+    model = model or build_model(cfg)
+    B, S = shape.global_batch, shape.seq_len
+    cache = model.init_cache(B, S, "meta")
+    return cache, SH.cache_pspecs(cfg, cache, mesh, shard_length=(B == 1))

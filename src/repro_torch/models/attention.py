@@ -15,6 +15,17 @@ MLA's absorbed path attends with K dim rank + rope != V dim rank, which
 no kernel takes: it runs the plain paths under every implementation, as
 in the JAX package.  Whisper's decoder cross-attention
 (``cross_attention_layer``) attends every encoder frame, non-causal.
+
+Under a serving layout (``distributed/parallel.py``) the layer computes
+on this rank's shards.  When the cache's kv heads go over ``model``, q,
+k and v come from the column slices of ``wq``/``wk``/``wv`` (whole
+heads), attention runs on the local heads and ``wo`` is row-parallel,
+summed by one all-reduce.  When the cache's length goes over an axis
+instead, q, k and v are gathered whole, the new entries are written by
+the rank whose slice holds their index, each rank attends its slice of
+the positions, returning its log-sum-exp beside its output, and the
+ranks' results merge by log-sum-exp before this rank's heads go through
+``wo``.
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig, LOCAL_ATTN
+from repro_torch.distributed import parallel as PAR
 from repro_torch.models import layers as L
 
 NEG_INF = -1.0e30
@@ -81,14 +93,17 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, scale: float,
 def _chunked_attention(q, k, v, q_pos, k_pos, *, scale: float,
                        causal: bool = True, window: int = 0,
                        cap: float = 0.0, chunk: int = 512,
-                       k_valid=None, seg_q=None, seg_k=None) -> torch.Tensor:
+                       k_valid=None, seg_q=None, seg_k=None,
+                       return_lse: bool = False):
     """q: (B,S,Hq,Dk), k: (B,T,Hkv,Dk), v: (B,T,Hkv,Dv).
 
     q_pos: (B,S) absolute positions of queries; k_pos: (B,T) of keys.
     k_valid: (B,T) bool — entries that exist (cache fill mask).
-    Returns (B,S,Hq,Dv).  All accumulation in fp32; products of the
-    working dtype are exact in fp32, so upcasting the operands is the
-    reference's fp32-accumulating product.
+    Returns (B,S,Hq,Dv), and with ``return_lse`` the log-sum-exp of each
+    query's kept scores (B,S,Hq) fp32 beside it (NEG_INF where none is
+    kept).  All accumulation in fp32; products of the working dtype are
+    exact in fp32, so upcasting the operands is the reference's
+    fp32-accumulating product.
     """
     B, S, Hq, Dk = q.shape
     T, Hkv = k.shape[1], k.shape[2]
@@ -127,7 +142,12 @@ def _chunked_attention(q, k, v, q_pos, k_pos, *, scale: float,
             "bshgc,bchd->bshgd", p.to(v_i.dtype).float(), v_i.float())
         m = m_new
     out = acc / torch.clamp(lsum, min=1e-30)[..., None]
-    return out.reshape(B, S, Hq, Dv).to(q.dtype)
+    out = out.reshape(B, S, Hq, Dv).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(lsum > 0, m + torch.log(torch.clamp(lsum, min=1e-30)),
+                      NEG_INF)
+    return out, lse.reshape(B, S, Hq)
 
 
 def naive_attention(q, k, v, q_pos, k_pos, *, scale, causal=True, window=0,
@@ -194,13 +214,18 @@ def _run_attention(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, scale, causal,
 # ---------------------------------------------------------------------------
 # KV cache helpers
 # ---------------------------------------------------------------------------
+def cache_len(cfg: ModelConfig, kind: str, max_len: int) -> int:
+    """A layer's cache length: the window for a local layer (a ring)."""
+    return (min(max_len, cfg.window_size)
+            if (kind == LOCAL_ATTN and cfg.window_size) else max_len)
+
+
 def init_kv_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                   device) -> dict:
     """Zeroed cache dict for one attention layer: k/v/pos, or for MLA the
     latent ``ckv``, the shared rotary key ``krope`` and pos."""
     dt = L.dtype_of(cfg)
-    size = (min(max_len, cfg.window_size)
-            if (kind == LOCAL_ATTN and cfg.window_size) else max_len)
+    size = cache_len(cfg, kind, max_len)
     pos = torch.full((batch, size), -1, dtype=torch.int32, device=device)
     if cfg.mla is not None:
         m = cfg.mla
@@ -245,6 +270,76 @@ def update_cache(cache: dict, new: dict, offsets: torch.Tensor,
     return cache
 
 
+def _ring_write_slice(buf: torch.Tensor, new: torch.Tensor,
+                      offsets: torch.Tensor, lo: int, T: int) -> None:
+    """``_ring_write`` into a ring of T entries of which ``buf`` (B, Tl,
+    ...) holds indices [lo, lo + Tl): the entries whose index falls there
+    are written, the rest are another rank's.  No host sync: one token
+    (decode) writes its slot or rewrites the old value; a chunk gathers,
+    for each held slot, the entry whose index it is."""
+    B, P = new.shape[:2]
+    Tl = buf.shape[1]
+    rows = torch.arange(B, device=buf.device)
+    tail = (1,) * (new.dim() - 2)
+    if P == 1:
+        idx = offsets.long() % T - lo
+        li = idx.clamp(0, Tl - 1)
+        mine = ((idx >= 0) & (idx < Tl)).reshape((B,) + tail)
+        buf[rows, li] = torch.where(mine, new[:, 0].to(buf.dtype),
+                                    buf[rows, li])
+        return
+    slots = torch.arange(Tl, device=buf.device) + lo
+    j = (slots[None, :] - offsets.long()[:, None]) % T          # (B, Tl)
+    hit = (j < P).reshape(j.shape + tail)
+    src = new[rows[:, None], j.clamp(max=P - 1)].to(buf.dtype)
+    buf.copy_(torch.where(hit, src, buf))
+
+
+def _write_sharded(srv, cache: dict, new: dict, offsets, positions, T: int,
+                   len_axis, pos_axis) -> torch.Tensor:
+    """``update_cache`` on this rank's slices of a ring of T entries
+    (k/v's length over ``len_axis``, pos's over ``pos_axis``, or whole);
+    returns the positions that mask this rank's keys: its slice, or the
+    whole row gathered when only ``pos`` is sliced (heads over
+    ``model``)."""
+    def write(buf, val, axis):
+        if axis is None:
+            _ring_write(buf, val, offsets)
+        else:
+            _ring_write_slice(buf, val, offsets,
+                              srv.coord[axis] * buf.shape[1], T)
+    for name, val in new.items():
+        write(cache[name], val, len_axis)
+    write(cache["pos"], positions.to(torch.int32), pos_axis)
+    if pos_axis is not None and len_axis is None:
+        return srv.all_gather(cache["pos"], (pos_axis,), dim=1)
+    return cache["pos"]
+
+
+def _length_sharded(cfg: ModelConfig, srv, axis: str, q, cache: dict,
+                    pos2d, *, scale: float, window: int) -> torch.Tensor:
+    """Attention of whole q (B,S,Hq,D) over this rank's slice of a cache
+    whose length goes over mesh axis ``axis`` (the decode kernel with its
+    log-sum-exp under ``pallas``, the chunked path otherwise), merged
+    with the other ranks' by log-sum-exp."""
+    kpos = cache["pos"]
+    if cfg.attn_impl == "pallas" and q.shape[1] == 1:
+        from repro_torch.kernels import ops as kops
+        # a slice holds arbitrary indices: mask by the stored positions,
+        # with the global fill q_pos + 1
+        o, lse = kops.decode_attention(
+            q, cache["k"], cache["v"], (pos2d[:, 0] + 1).to(torch.int32),
+            scale=scale, window=window, cap=cfg.attn_softcap,
+            positions=kpos, return_lse=True)
+        lse = lse[:, None]
+    else:
+        o, lse = _chunked_attention(
+            q, cache["k"], cache["v"], pos2d, kpos, scale=scale,
+            causal=True, window=window, cap=cfg.attn_softcap,
+            chunk=cfg.attn_chunk, k_valid=kpos >= 0, return_lse=True)
+    return srv.merge_lse(o, lse, axis)
+
+
 # ---------------------------------------------------------------------------
 # standard GQA attention layer
 # ---------------------------------------------------------------------------
@@ -263,6 +358,7 @@ def attention_layer(p, x: torch.Tensor, positions: torch.Tensor,
         return _mla_layer(p, x, positions, cfg, cache, cache_offset)
     dt = x.dtype
     B, S, _ = x.shape
+    hd = cfg.head_dim
     pos2d = positions if positions.dim() == 2 else positions[0]
     q = x @ p.wq.to(dt)
     k = x @ p.wk.to(dt)
@@ -271,9 +367,23 @@ def attention_layer(p, x: torch.Tensor, positions: torch.Tensor,
         q = q + p.bq.to(dt)
         k = k + p.bk.to(dt)
         v = v + p.bv.to(dt)
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    srv = PAR.serving()
+    len_axis = pos_axis = None
+    if srv is not None and cache is not None:
+        T = cache_len(cfg, kind, srv.max_len)
+        spec = srv.cache_spec("k", (srv.batch, T, cfg.num_kv_heads, hd))
+        len_axis = spec[1]
+        # ``pos`` has no head dim: the rule puts its length over ``model``
+        # when the kv heads take that axis of k and v
+        pos_axis = srv.cache_spec("pos", (srv.batch, T))[1]
+        if spec[2] is None:     # the cache holds every head: whole q/k/v
+            q = srv.gather_cols(q, cfg.q_dim)
+            k = srv.gather_cols(k, cfg.kv_dim)
+            v = srv.gather_cols(v, cfg.kv_dim)
+    # the head counts are the local shapes' (a serving rank's heads)
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
     if cfg.qk_norm:
         q = L.rms_norm(q, p.q_norm, cfg.norm_eps)
         k = L.rms_norm(k, p.k_norm, cfg.norm_eps)
@@ -291,13 +401,30 @@ def attention_layer(p, x: torch.Tensor, positions: torch.Tensor,
                              causal=causal, window=window,
                              cap=cfg.attn_softcap, seg_q=seg, seg_k=seg)
     else:
-        cache = update_cache(cache, {"k": k, "v": v}, cache_offset, pos2d)
-        k_valid = cache["pos"] >= 0
-        out = _run_attention(cfg, q, cache["k"], cache["v"], pos2d,
-                             cache["pos"], scale=scale, causal=causal,
-                             window=window, cap=cfg.attn_softcap,
-                             k_valid=k_valid)
-    out = out.reshape(B, S, cfg.q_dim) @ p.wo.to(dt)
+        if srv is None:
+            cache = update_cache(cache, {"k": k, "v": v}, cache_offset,
+                                 pos2d)
+            kpos = cache["pos"]
+        else:
+            kpos = _write_sharded(srv, cache, {"k": k, "v": v},
+                                  cache_offset, pos2d, T, len_axis,
+                                  pos_axis)
+        if len_axis is not None:
+            out = _length_sharded(cfg, srv, len_axis, q, cache, pos2d,
+                                  scale=scale, window=window)
+        else:
+            out = _run_attention(cfg, q, cache["k"], cache["v"], pos2d,
+                                 kpos, scale=scale, causal=causal,
+                                 window=window, cap=cfg.attn_softcap,
+                                 k_valid=kpos >= 0)
+    out = out.reshape(B, S, -1)
+    rows = p.wo.shape[0]
+    if srv is not None and rows < out.shape[-1]:
+        # every head here, wo row-parallel: this rank's heads
+        out = out[..., srv.model_rank * rows:(srv.model_rank + 1) * rows]
+    out = out @ p.wo.to(dt)
+    if srv is not None and rows < cfg.q_dim:
+        out = srv.all_reduce_model(out)
     return out, cache
 
 

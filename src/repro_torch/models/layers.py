@@ -5,7 +5,9 @@ gated ``MLP`` is here, shared by the dense layers and the MoE layers'
 shared experts); the functions here are plain tensor code.  Norms, RoPE
 and softmax run in fp32; matmuls run in ``cfg.dtype`` with the weights
 (held in ``cfg.param_dtype``) cast at the point of use, as in the JAX
-package.
+package.  Under a serving layout (``distributed/parallel.py``) the
+module holds this rank's shards and the MLP, the embedding and the LM
+head compute on them.
 """
 from __future__ import annotations
 
@@ -31,18 +33,42 @@ def pdtype_of(cfg: ModelConfig) -> torch.dtype:
 # init helpers (random weights drawn from an explicit generator, on the
 # generator's device)
 # ---------------------------------------------------------------------------
+class ShapeOnly:
+    """Stands in for the generator to build a model on the meta device
+    (the dry run): every weight gets its shape and dtype, and nothing is
+    drawn or allocated."""
+    device = torch.device("meta")
+
+
+def generator(device, seed: int):
+    """The generator a model's weights are drawn from, seeded; on the
+    meta device a ``ShapeOnly``."""
+    dev = torch.device(device)
+    if dev.type == "meta":
+        return ShapeOnly()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return gen
+
+
+def randn(gen, shape) -> torch.Tensor:
+    """N(0, 1) fp32 from ``gen`` on its device; empty on meta."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype: torch.dtype) -> torch.Tensor:
-    w = torch.randn((d_in, d_out), generator=gen, device=gen.device,
-                    dtype=torch.float32)
+    w = randn(gen, (d_in, d_out))
     return w.mul_(1.0 / math.sqrt(d_in)).to(dtype)
 
 
 def conv_init(gen: torch.Generator, width: int, ch: int,
               dtype: torch.dtype) -> torch.Tensor:
     """Depthwise temporal-conv weight (width, ch), N(0, 1/width)."""
-    w = torch.randn((width, ch), generator=gen, device=gen.device,
-                    dtype=torch.float32)
+    w = randn(gen, (width, ch))
     return w.mul_(1.0 / math.sqrt(width)).to(dtype)
 
 
@@ -53,8 +79,7 @@ def param(t: torch.Tensor) -> torch.nn.Parameter:
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,
                dtype: torch.dtype) -> torch.Tensor:
-    w = torch.randn((vocab, d), generator=gen, device=gen.device,
-                    dtype=torch.float32)
+    w = randn(gen, (vocab, d))
     return w.mul_(0.02).to(dtype)
 
 
@@ -79,7 +104,9 @@ def act_fn(name: str):
 
 def apply_mlp(w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
               x: torch.Tensor, act: str) -> torch.Tensor:
-    """Gated MLP (SwiGLU / GeGLU)."""
+    """Gated MLP (SwiGLU / GeGLU).  On column slices of ``w_gate`` /
+    ``w_up`` and the matching row slice of ``w_down`` it gives this
+    slice's share of the output, which the shares sum to."""
     dt = x.dtype
     gate = act_fn(act)(x @ w_gate.to(dt))
     up = x @ w_up.to(dt)
@@ -93,12 +120,23 @@ class MLP(torch.nn.Module):
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, d_ff: int):
         super().__init__()
         pd, d = pdtype_of(cfg), cfg.d_model
+        self.d_ff = d_ff
         self.w_gate = param(dense_init(gen, d, d_ff, pd))
         self.w_up = param(dense_init(gen, d, d_ff, pd))
         self.w_down = param(dense_init(gen, d_ff, d, pd))
 
+    def partial(self) -> bool:
+        """Whether this module holds a slice of the hidden dim (a serving
+        rank's shard), so its output is a share to be summed over
+        ``model``."""
+        return self.w_down.shape[0] < self.d_ff
+
     def forward(self, x: torch.Tensor, act: str) -> torch.Tensor:
-        return apply_mlp(self.w_gate, self.w_up, self.w_down, x, act)
+        y = apply_mlp(self.w_gate, self.w_up, self.w_down, x, act)
+        srv = PAR.serving()
+        if srv is not None and self.partial():
+            y = srv.all_reduce_model(y)
+        return y
 
 
 # ---------------------------------------------------------------------------
@@ -181,7 +219,19 @@ def sinusoidal_positions(seq_len: int, d_model: int,
 # ---------------------------------------------------------------------------
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    x = table[tokens.long()].to(dtype_of(cfg))
+    """Rows of the embedding.  A serving rank holding a slice of the
+    vocabulary's rows looks up the tokens in it (zero elsewhere), and the
+    slices' rows are summed over ``model``: exactly one rank holds each
+    token."""
+    srv = PAR.serving()
+    if srv is not None and table.shape[0] < cfg.vocab_size:
+        lo = srv.vocab_slice(cfg.vocab_size).start
+        idx = tokens.long() - lo
+        inside = (idx >= 0) & (idx < table.shape[0])
+        rows = table[idx.clamp(0, table.shape[0] - 1)] * inside[..., None]
+        x = srv.all_reduce_model(rows).to(dtype_of(cfg))
+    else:
+        x = table[tokens.long()].to(dtype_of(cfg))
     if cfg.scale_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
@@ -191,12 +241,18 @@ def lm_logits(x: torch.Tensor, embed_table: torch.Tensor,
               head: Optional[torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
     """Tied (``head`` None: the embedding table, transposed) or untied
     (``head`` (d, V)) LM head; fp32 logits, soft-capped if configured.
-    Under a sharded train step with a vocab-parallel head, only this
-    rank's slice of the vocabulary (``distributed/parallel.py``)."""
+    Under a sharded train step with a vocab-parallel head, or a serving
+    layout over ``model``, only this rank's slice of the vocabulary
+    (``distributed/parallel.py``)."""
     table = embed_table.T if head is None else head
     act = PAR.current()
+    srv = PAR.serving()
     if act is not None and act.vocab_group is not None:
         table = table[:, act.vocab_slice]
+    elif srv is not None and srv.model > 1 \
+            and table.shape[1] == cfg.vocab_size:
+        # a whole head (the vocabulary does not divide): this rank's slice
+        table = table[:, srv.vocab_slice(cfg.vocab_size)]
     logits = (x @ table.to(x.dtype)).float()
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)

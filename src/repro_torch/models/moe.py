@@ -8,6 +8,14 @@ The serving and training steps run it, as in the JAX package.
 ``ragged`` — sort tokens by expert, then one grouped product per expert.
 The reference computes these with ``jax.lax.ragged_dot``, outside any
 Pallas kernel; here they are plain ``torch.matmul`` calls.
+
+Under a serving layout (``distributed/parallel.py``) a rank holds the
+experts of its block of the experts' axis (``model`` under the serve
+rules, ``data`` under Llama-4's) and, where the expert hidden dim goes
+over ``model``, its columns.  The routing and the capacity groups are
+computed whole on every rank from the whole batch's rows, each rank
+computes its experts only, and one all-reduce sums the weighted outputs,
+so the tokens that drop are the one-device ones.
 """
 from __future__ import annotations
 
@@ -36,9 +44,7 @@ class MoE(nn.Module):
         d, f, E = cfg.d_model, m.expert_d_ff, m.num_experts
 
         def normal(shape, scale, dtype):
-            w = torch.randn(shape, generator=gen, device=gen.device,
-                            dtype=torch.float32)
-            return L.param(w.mul_(scale).to(dtype))
+            return L.param(L.randn(gen, shape).mul_(scale).to(dtype))
 
         self.router = normal((d, E), 0.02, torch.float32)
         self.w_gate = normal((E, d, f), 1.0 / math.sqrt(d), pd)
@@ -75,7 +81,8 @@ def _expert_ffn(w_gate, w_up, w_down, h, act: str):
 
 
 def apply_moe_gshard(p: MoE, x: torch.Tensor, cfg: ModelConfig,
-                     capacity_factor: float = 0.0, group_size: int = 2048):
+                     capacity_factor: float = 0.0, group_size: int = 2048,
+                     expert_lo: int = 0, shared: bool = True):
     """Grouped capacity-based dispatch (GShard).  x: (B,S,d) -> (B,S,d).
 
     Tokens are dispatched within groups of ``group_size`` rows: the
@@ -83,7 +90,11 @@ def apply_moe_gshard(p: MoE, x: torch.Tensor, cfg: ModelConfig,
     major) and the capacity C = max(1, int(Gsz * top_k * cf / E)) are
     per group, so which tokens drop depends on the rows' order.  Every
     row counts: inactive decode slots and chunk tails take capacity too.
-    The last group is padded with rows of expert -1, never kept."""
+    The last group is padded with rows of expert -1, never kept.
+
+    ``p`` may hold a block of the experts, from ``expert_lo`` (a serving
+    rank's shard): the output is then their share alone; ``shared``
+    False leaves the shared experts out."""
     m = cfg.moe
     B, S, d = x.shape
     dt = x.dtype
@@ -122,12 +133,13 @@ def apply_moe_gshard(p: MoE, x: torch.Tensor, cfg: ModelConfig,
     combine = torch.einsum("gtke,gtkc->gtec", e_oh * wk[..., None].to(dt),
                            c_oh)
 
-    h = torch.einsum("gtec,gtd->gecd", dispatch, xg)              # (g,E,C,d)
+    mine = slice(expert_lo, expert_lo + p.w_gate.shape[0])
+    h = torch.einsum("gtec,gtd->gecd", dispatch[:, :, mine], xg)  # (g,E,C,d)
     out_e = _expert_ffn(p.w_gate.to(dt), p.w_up.to(dt), p.w_down.to(dt),
                         h, cfg.mlp_act)
-    y = torch.einsum("gtec,gecd->gtd", combine, out_e)
+    y = torch.einsum("gtec,gecd->gtd", combine[:, :, mine], out_e)
     y = y.reshape(nG * Gsz, d)[:T].reshape(B, S, d)
-    if m.num_shared_experts:
+    if m.num_shared_experts and shared:
         y = y + p.shared(x, cfg.mlp_act)
     return y, aux
 
@@ -173,7 +185,37 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig,
     if act is not None and act.rows_group is not None:
         y, aux = _apply(p, PAR.gather_rows(x, act), cfg, impl)
         return PAR.local_rows(y, act), aux
+    srv = PAR.serving()
+    if srv is not None:
+        return _apply_serving(p, x, cfg, impl, srv)
     return _apply(p, x, cfg, impl)
+
+
+def _apply_serving(p: MoE, x: torch.Tensor, cfg: ModelConfig, impl: str,
+                   srv: PAR.ServeLayout):
+    """This rank's experts on the whole batch's rows; one all-reduce over
+    the axes that split the experts and their hidden dim (the shared
+    experts' share added by one rank of each group that repeats it)."""
+    if impl != "gshard":
+        raise NotImplementedError(f"moe_impl {impl!r}: the serving mesh "
+                                  "dispatches with gshard")
+    m = cfg.moe
+    E_l, f_l = p.w_gate.shape[0], p.w_gate.shape[2]
+    e_axes = (srv.ep,) if E_l < m.num_experts else ()
+    f_axes = ("model",) if f_l < m.expert_d_ff else ()
+    xw = srv.gather_rows(x)
+    y, aux = apply_moe_gshard(p, xw, cfg, shared=False,
+                              expert_lo=srv.index(e_axes) * E_l)
+    axes = set(e_axes) | set(f_axes)
+    if m.num_shared_experts:
+        s_axes = {"model"} if p.shared.partial() else set()
+        sh = L.apply_mlp(p.shared.w_gate, p.shared.w_up, p.shared.w_down,
+                         xw, cfg.mlp_act)
+        if all(srv.coord.get(a, 0) == 0 for a in axes - s_axes):
+            y = y + sh
+        axes |= s_axes
+    y = srv.all_reduce(y, [a for a in srv.sizes if a in axes])
+    return srv.local_rows(y), aux
 
 
 def _apply(p: MoE, x: torch.Tensor, cfg: ModelConfig, impl: str):

@@ -93,16 +93,21 @@ class ModelExecutor:
     sampled tokens come back with ``.cpu().numpy()``.  ``device`` is the
     card unless the caller asks for ``"cpu"``; without a card the default
     raises instead of falling back.
+
+    ``mesh`` (a ``DeviceMesh``, as the JAX package's executor takes one):
+    every rank runs the same engine on the same (B,) arrays; the serve
+    functions take each rank's rows and gather the sampled tokens back,
+    so every rank's engine sees the same stream.
     """
 
     def __init__(self, model_cfg: ModelConfig, ecfg: EngineConfig,
                  params=None, rng_seed: int = 0, temperature: float = 0.0,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.fns = build_serve_fns(
-            model_cfg, batch=ecfg.max_slots, max_len=ecfg.max_len,
+            model_cfg, mesh, batch=ecfg.max_slots, max_len=ecfg.max_len,
             temperature=temperature, device=device)
         self.device = self.fns.device
-        self.params = (params if params is not None
+        self.params = (self.fns.place(params) if params is not None
                        else self.fns.init_params(rng_seed))
         self.cache = self.fns.init_cache()
 

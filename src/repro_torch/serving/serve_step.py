@@ -1,7 +1,8 @@
-"""Serving steps: batched chunked-prefill and decode on one device.
+"""Serving steps: batched chunked-prefill and decode, on one device or
+over a mesh.
 
-``build_serve_fns(cfg, batch=, max_len=, device=)`` returns the
-data-plane functions the engine calls:
+``build_serve_fns(cfg, mesh=None, batch=, max_len=, device=)`` returns
+the data-plane functions the engine (and the dry run) calls:
 
   * ``prefill_chunk(module, cache, tokens(B,C), lengths(B,), valid_n(B,))``
       -> (next_token (B,), last_logits (B,V), cache)
@@ -16,15 +17,31 @@ data-plane functions the engine calls:
 The functions run eagerly and update the cache's tensors in place (the
 JAX package jits them and donates the cache).  ``device`` is the card
 unless the caller asks for ``"cpu"``; without a card the default raises.
+``"meta"`` builds shapes only (the dry run).
+
+With a ``DeviceMesh`` (``launch/mesh.py``) every rank holds its slices:
+the weights placed by the serve rules (``sharding.param_placements(...,
+"serve")``; drawn whole from the seed, as on one device, then cut), the
+cache allocated at the local shapes of ``sharding.cache_pspecs``, and the
+batch rows of its block of the cache's batch axis.  The functions still
+take and return whole (B,) / (B, V) tensors: each rank takes its rows,
+computes on its shards under the serving layout
+(``distributed/parallel.py``), and gathers the sampled tokens (and
+prefill's last logits) back, so every rank returns the same.  Families
+whose mixers have no tensor-parallel compute (MLA, SSD, RG-LRU, the
+encoder-decoder) serve on a mesh only with ``model`` 1, their rows over
+``data``.  The pod axis repeats the step: the cache rule keeps it off
+the cache.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import RGLRU, SSD, ModelConfig
+from repro_torch.models import layers as L
 from repro_torch.models.registry import Model, build_model
 from repro_torch.serving.sampler import sample
 
@@ -39,6 +56,12 @@ class ServeFns:
     prefill_chunk: Callable[..., Tuple[torch.Tensor, torch.Tensor, Any]]
     decode: Callable[..., Tuple[torch.Tensor, Any]]
     reset_slots: Callable[[Any, torch.Tensor], Any]
+    chunk: int = 256                 # prefill chunk, clipped by the window
+    place: Callable[[Any], Any] = lambda module: module   # a whole module
+    #                                  -> this rank's shards (mesh branch)
+    layout: Any = None               # the mesh branch's ServeLayout
+    placements: Optional[Dict[str, tuple]] = None   # parameter -> DTensor
+    #                                                 placements (mesh)
 
 
 def require_device(device) -> torch.device:
@@ -72,10 +95,18 @@ def make_reset_slots(cfg: ModelConfig):
     return reset
 
 
-def build_serve_fns(cfg: ModelConfig, *, batch: int, max_len: int,
-                    temperature: float = 0.0, device="cuda") -> ServeFns:
+def build_serve_fns(cfg: ModelConfig, mesh=None, *, batch: int,
+                    max_len: int, prefill_chunk: int = 256,
+                    moe_impl: str = "gshard", temperature: float = 0.0,
+                    device="cuda", shard_cache_length: bool = False
+                    ) -> ServeFns:
     dev = require_device(device)
-    model = build_model(cfg, moe_impl="gshard")
+    model = build_model(cfg, moe_impl=moe_impl)
+    if cfg.window_size:
+        prefill_chunk = min(prefill_chunk, cfg.window_size)
+    if mesh is not None:
+        return _build_sharded(cfg, mesh, model, dev, batch, max_len,
+                              prefill_chunk, temperature, shard_cache_length)
 
     @torch.no_grad()
     def _prefill(module, cache, tokens, lengths, valid_n):
@@ -99,12 +130,123 @@ def build_serve_fns(cfg: ModelConfig, *, batch: int, max_len: int,
 
     @torch.no_grad()
     def init_params(seed: int):
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        return model.init(gen)
+        return model.init(L.generator(dev, seed))
 
     return ServeFns(
         cfg=cfg, model=model, device=dev, init_params=init_params,
         init_cache=lambda: model.init_cache(batch, max_len, dev),
         prefill_chunk=_prefill, decode=_decode,
-        reset_slots=make_reset_slots(cfg))
+        reset_slots=make_reset_slots(cfg), chunk=prefill_chunk)
+
+
+# ---------------------------------------------------------------------------
+# the mesh branch
+# ---------------------------------------------------------------------------
+def tp_unsupported(cfg: ModelConfig) -> Optional[str]:
+    """The part of ``cfg`` that has no tensor-parallel compute, or None."""
+    kinds = set(cfg.pattern_for_layers())
+    if cfg.is_encoder_decoder:
+        return "the encoder-decoder stack"
+    if cfg.mla is not None:
+        return "MLA attention"
+    if SSD in kinds:
+        return "the SSD mixer"
+    if RGLRU in kinds:
+        return "the RG-LRU mixer"
+    return None
+
+
+def _build_sharded(cfg: ModelConfig, mesh, model: Model, dev: torch.device,
+                   batch: int, max_len: int, chunk: int, temperature: float,
+                   shard_length: bool) -> ServeFns:
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.distributed import parallel as PAR
+    from repro_torch.distributed import sharding as SH
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
+                        f"(launch/mesh.py), not {type(mesh).__name__}")
+    if dev.type != "meta" and mesh.device_type != dev.type:
+        raise ValueError(f"a {mesh.device_type} mesh cannot serve on {dev}")
+    sizes = SH.mesh_sizes(mesh)
+    what = tp_unsupported(cfg)
+    if what is not None and sizes.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} has no tensor-parallel compute yet "
+            "(ROADMAP Queue 1: TP compute for MLA, SSM, RG-LRU and "
+            "encoder-decoder serving); serve it on a mesh with model 1")
+    rules = SH.rules_for(cfg, "serve", sizes)
+    srv = PAR.ServeLayout(mesh, batch=batch, max_len=max_len,
+                          shard_length=shard_length, ep=rules.ep)
+    coord = mesh.get_coordinate()
+    placements: Dict[str, tuple] = {}
+    V = cfg.vocab_size
+
+    @torch.no_grad()
+    def place(module):
+        """Cut a whole module's weights to this rank's slices, in place."""
+        pls = SH.param_placements(cfg, module, mesh, "serve")
+        for n, p in module.named_parameters():
+            placements[n] = pls[n]
+            sl = SH.local_slices(p.shape, pls[n], mesh, coord)
+            if any(s.stop - s.start < d for s, d in zip(sl, p.shape)):
+                p.data = p.data[sl].contiguous()
+        return module
+
+    @torch.no_grad()
+    def init_params(seed: int):
+        return place(model.init(L.generator(dev, seed)))
+
+    def init_cache():
+        whole = model.init_cache(batch, max_len, "meta")
+        specs = SH.cache_pspecs(cfg, whole, sizes, shard_length)
+        return [{name: torch.full(SH.local_shape(t.shape, specs[i][name],
+                                                 sizes),
+                                  -1 if name == "pos" else 0,
+                                  dtype=t.dtype, device=dev)
+                 for name, t in layer.items()}
+                for i, layer in enumerate(whole)]
+
+    def pick(last):
+        """(B_local, V slice) -> (B,) tokens, the same on every rank."""
+        if temperature <= 0.0:
+            tok = srv.vocab_argmax(last, V)
+        else:
+            tok = sample(srv.gather_vocab(last, V), temperature=temperature)
+        return srv.gather_rows(tok, always=True)
+
+    @torch.no_grad()
+    def _prefill(module, cache, tokens, lengths, valid_n):
+        tokens, lengths, valid_n = map(srv.local_rows,
+                                       (tokens, lengths, valid_n))
+        B, C = tokens.shape
+        valid = torch.arange(C, device=tokens.device)[None, :] \
+            < valid_n[:, None]
+        with PAR.serve_layout(srv):
+            logits, cache = model.prefill(module, tokens, cache, lengths,
+                                          valid=valid)
+            idx = torch.clamp(valid_n.long() - 1, min=0)
+            last = logits[torch.arange(B, device=logits.device), idx]
+            nxt = pick(last)
+            last = srv.gather_rows(srv.gather_vocab(last, V))
+        return nxt, last, cache
+
+    @torch.no_grad()
+    def _decode(module, cache, tokens, lengths, active):
+        tokens, lengths, active = map(srv.local_rows,
+                                      (tokens, lengths, active))
+        with PAR.serve_layout(srv):
+            logits, cache = model.decode_step(
+                module, tokens[:, None], cache, lengths,
+                valid=active.to(torch.bool)[:, None])
+            nxt = pick(logits[:, -1])
+        return nxt, cache
+
+    reset = make_reset_slots(cfg)
+
+    return ServeFns(
+        cfg=cfg, model=model, device=dev, init_params=init_params,
+        init_cache=init_cache, prefill_chunk=_prefill, decode=_decode,
+        reset_slots=lambda cache, keep: reset(cache, srv.local_rows(keep)),
+        chunk=chunk, place=place, layout=srv, placements=placements)

@@ -35,6 +35,7 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.registry import Model, build_model
+from repro_torch.models import layers as L
 from repro_torch.serving.serve_step import require_device
 from repro_torch.training import optimizer as OPT
 from repro_torch.training.train_state import TrainState
@@ -161,18 +162,12 @@ def build_trainer(cfg: ModelConfig, mesh=None, *, total_steps: int = 10_000,
 
     def init_state(seed: int, *, compression: bool = False) -> TrainState:
         with torch.no_grad():
-            module = model.init(_generator(dev, seed))
+            module = model.init(L.generator(dev, seed))
         return TrainState.create(module, opt, compression=compression)
 
     return Trainer(cfg=cfg, model=model, optimizer=opt, device=dev,
                    train_step=train_step, init_state=init_state,
                    grads=lambda state, batch: _grads(state.params, batch))
-
-
-def _generator(dev: torch.device, seed: int) -> torch.Generator:
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    return gen
 
 
 def _microbatch(batch, accum: int) -> int:
@@ -199,7 +194,7 @@ def _build_sharded(cfg: ModelConfig, mesh, dev: torch.device,
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
                         f"(launch/mesh.py), not {type(mesh).__name__}")
-    if mesh.device_type != dev.type:
+    if dev.type != "meta" and mesh.device_type != dev.type:
         raise ValueError(f"a {mesh.device_type} mesh cannot train on {dev}")
     model = build_model(cfg, moe_impl="gshard")
     sizes = SH.mesh_sizes(mesh)
@@ -230,7 +225,7 @@ def _build_sharded(cfg: ModelConfig, mesh, dev: torch.device,
 
     def init_state(seed: int, *, compression: bool = False) -> TrainState:
         with torch.no_grad():
-            module = model.init(_generator(dev, seed))
+            module = model.init(L.generator(dev, seed))
         module.requires_grad_(True)
         compute["module"] = module
         shapes = {n: tuple(p.shape) for n, p in module.named_parameters()}
@@ -264,7 +259,7 @@ def _build_sharded(cfg: ModelConfig, mesh, dev: torch.device,
         one is this rank's tensor itself, a sharded one is gathered."""
         if "module" not in compute:
             with torch.no_grad():
-                compute["module"] = model.init(_generator(dev, 0))
+                compute["module"] = model.init(L.generator(dev, 0))
             compute["module"].requires_grad_(True)
         module = compute["module"]
         with torch.no_grad():

@@ -211,10 +211,23 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         flash_attention_bwd_cuda(tq, tk, tv, o, lse, tdo, **kw)
 
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device with no kernel."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_ops_refuses_other_devices():
-    x = torch.zeros((1, 2, 2, 16), device="meta")
+    x = torch.zeros((1, 2, 2, 16)).as_subclass(_Elsewhere)
     with pytest.raises(ValueError, match="no kernel"):
         tops.flash_attention(x, x, x, scale=1.0)
+    # the meta device computes nothing: the dry run's shapes (its work
+    # goes to ``ops.PLAN_COUNTER``)
+    m = torch.zeros((1, 2, 2, 16), device="meta")
+    out = tops.flash_attention(m, m, m, scale=1.0)
+    assert out.device.type == "meta" and out.shape == m.shape
 
 
 # ---------------------------------------------------------------------------
