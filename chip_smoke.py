@@ -293,6 +293,33 @@ prints no result.  Phases, each of which raises on failure:
      at a time: every element within half its block's scale, the
      residual carried, ``psum_compressed`` over one rank equal to
      ``dequantize``; the pass's device time.
+ 26. (run after phase 25) sharded serving on NCCL: (a) full-width Qwen3-8B
+     serves phase 5's ``serve_mixed_slo`` through ``ModelExecutor(mesh=)``
+     on a (1, 1) mesh: every request done, decode launches exact, the
+     RunReport phase 5's, the bytes held after init against the dry run's
+     argument bytes (1 %); (b) the decode kernel at Qwen3-8B's
+     tensor-parallel local shapes and on a length shard with its lse,
+     checked and timed; (c) the dry run (started right after the build in
+     a subprocess, card hidden) of Qwen3-8B decode_32k and train_4k (and
+     train_4k with ``--seq-parallel``) and Llama-4 decode_32k on 16 x 16,
+     and of (a)'s cell.
+ 27. (run after phase 26, last) training's tensor-parallel compute with
+     ``seq_parallel``: (a) phase 25's cell (Qwen3-8B's widths at 8
+     layers, 3 steps under the kernels, phase 13's seed and batches)
+     through ``run_training(..., mesh=, seq_parallel=True)`` on a (1, 1)
+     NCCL mesh: flash launches exact, losses and grad norms within 1e-2
+     of phase 13's, then 2 ``chunked`` steps bit for bit phase 25's
+     chunked ones (at world 1 nothing is sliced: the plumbing only); step
+     wall, tokens/s, peak, a profiled step's device time and idle share;
+     (b) the flash pair at the TP-local shapes of Qwen3-8B's train_4k (B
+     2, S 4096, causal: 8 / 2 heads of 128 at model 4, 2 / 1 at model
+     16) against the plain versions in bf16 and fp32 (phase 11's
+     tolerances), timed as CUDA-graph replays and eagerly beside the
+     plain versions, SDPA and the bounds; (c) the dry run's train_4k plans
+     with and without ``seq_parallel``: live bytes and collectives by
+     type against the plan of the trainer that gathered every weight
+     whole (37,924,475,916 B; 432 all-reduces, 505 all-gathers); the live
+     bytes must fall, and further with ``seq_parallel``.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -1388,7 +1415,8 @@ def sharded_phase(p13: dict, smi: str) -> dict:
     dist.destroy_process_group()
     log(f"phase 25: {time.perf_counter() - t0:.1f} s")
     return dict(hist=hist, launches=launches, peak=peak, prof=prof,
-                comp=comp, ckpt=ck, spread=spread, chunked=pd)
+                comp=comp, ckpt=ck, spread=spread, chunked=pd,
+                plain_hist=phist)
 
 
 # ---------------------------------------------------------------------------
@@ -1422,6 +1450,9 @@ def start_dryrun() -> subprocess.Popen:
     common = ["--attn-impl", "pallas", "--out-dir", str(DRYRUN_DIR)]
     cells = [["--arch", a, "--shape", sh, "--mesh", "single"] + common
              for a, sh in DRYRUN_CELLS]
+    # phase 27 (c): the train cell with the sequence-sharded residual
+    cells.append(["--arch", "qwen3-8b", "--shape", "train_4k", "--mesh",
+                  "single", "--seq-parallel"] + common)
     cells.append(["--arch", "qwen3-8b", "--shape", "decode_32k",
                   "--mesh-shape", "1x1", "--batch", str(SERVE["B"]),
                   "--seq-len", str(SERVE["T"]), "--tag", "card"] + common)
@@ -1617,6 +1648,184 @@ def sharded_serve_phase(p5: dict, decode_device_ms: float,
     return dict(launches=launches, err=max(errs), times=times, recs=recs,
                 held=held, step_peak=step_peak, plan=plan, dev_ms=dev_ms,
                 wall=wall, tokens=generated)
+
+
+# ---------------------------------------------------------------------------
+# phase 27: training's tensor-parallel compute with seq_parallel on NCCL,
+# the flash pair at the TP-local training shapes, the dry run's train plans
+# ---------------------------------------------------------------------------
+# Qwen3-8B's train_4k cell on the 16 x 16 mesh: a rank's microbatch is 256
+# rows / 8 accumulation steps / 16 data ranks = 2 rows of 4096; its 32 / 8
+# heads of 128 over model 4 and 16 are 8 / 2 and 2 / 1 a rank (over 16 the
+# kv columns are gathered and each rank keeps the kv head of its 2 query
+# heads)
+TP_FLASH = [("tp4", dict(B=2, S=4096, Hq=8, Hkv=2, D=128)),
+            ("tp16", dict(B=2, S=4096, Hq=2, Hkv=1, D=128))]
+# the plan of that cell (pallas) by the trainer that gathered every weight
+# whole, every model rank repeating the blocks: live bytes a device and its
+# collectives
+WHOLE_TRAIN_PLAN = {"temp_bytes": 37_924_475_916,
+                   "all-reduce": (432, 30_274_408_488),
+                   "all-gather": (505, 2_000_551_936)}
+TRAIN_PLANS = (("without seq_parallel", "qwen3-8b__train_4k__singlepod.json"),
+               ("with seq_parallel",
+                "qwen3-8b__train_4k__singlepod__seqpar.json"))
+
+
+def time_flash_tp(shape: dict, per_graph: int = 5, replays: int = 10) -> dict:
+    """``time_flash_attention`` at ``shape`` (eager CUDA events: the
+    kernels, the plain versions, SDPA forward and backward, the bounds),
+    plus the kernels' and SDPA's forward as CUDA-graph replays."""
+    r = time_flash_attention(10, shape)
+    case = (shape["B"], shape["S"], shape["S"], shape["Hq"], shape["Hkv"],
+            shape["D"], 0, 0.0, True)
+    q, k, v, do, kw = flash_inputs(case, torch.bfloat16, 300)
+    o, lse = flash_attention_cuda(q, k, v, **kw)
+    lq, lk, lv = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    r["graph_fwd_ms"] = graph_ms(lambda: flash_attention_cuda(q, k, v, **kw),
+                                 per_graph, replays)
+    r["graph_bwd_ms"] = graph_ms(lambda: flash_attention_bwd_cuda(
+        q, k, v, o, lse, do, **kw), per_graph, replays)
+    r["library_graph_fwd_ms"] = graph_ms(
+        lambda: F.scaled_dot_product_attention(
+            lq, lk, lv, is_causal=True, scale=kw["scale"], enable_gqa=True),
+        per_graph, replays)
+    return r
+
+
+def check_train_plans() -> dict:
+    """Phase 27 (c): the dry run's train_4k plans with and without
+    ``seq_parallel`` (run in phase 26's subprocess) against the
+    whole-weight trainer's; the live bytes must fall, and further with
+    ``seq_parallel``."""
+    plans = {}
+    for label, fname in TRAIN_PLANS:
+        rec = json.loads((DRYRUN_DIR / fname).read_text())
+        if "skipped" in rec:
+            raise AssertionError(f"phase 27: no plan {label}")
+        m, c = rec["memory"], rec["collectives"]
+        plans[label] = rec
+        log(f"phase 27 dry run qwen3-8b x train_4k x singlepod {label}: "
+            f"live bytes {m['temp_bytes']} B ("
+            f"{m['temp_bytes'] / WHOLE_TRAIN_PLAN['temp_bytes']:.4f} of the "
+            f"whole-weight plan's {WHOLE_TRAIN_PLAN['temp_bytes']} B), "
+            "argument bytes "
+            f"{m['argument_bytes']} B, flops {rec['cost']['flops']:.4e}; "
+            "collectives " + ", ".join(
+                f"{k} {v['count']}x {v['bytes']:.4e} B" for k, v in c.items()
+                if isinstance(v, dict) and v["count"])
+            + f" (total {c['total_bytes']:.4e} B); whole-weight: "
+            + ", ".join(
+                f"{k} {WHOLE_TRAIN_PLAN[k][0]}x {WHOLE_TRAIN_PLAN[k][1]:.4e} B"
+                for k in ("all-reduce", "all-gather")))
+    live = [plans[label]["memory"]["temp_bytes"] for label, _ in TRAIN_PLANS]
+    if not live[1] < live[0] < WHOLE_TRAIN_PLAN["temp_bytes"]:
+        raise AssertionError(f"phase 27: live bytes {live} do not fall below "
+                             "the whole-weight plan's, or not further with "
+                             "seq_parallel")
+    return plans
+
+
+def tp_train_phase(p13: dict, p25: dict, smi: str) -> dict:
+    """Phase 27: (a) phase 25's cell (Qwen3-8B's widths at 8 layers, 3
+    steps under the kernels, phase 13's seed and batches) through the
+    trainer's tensor-parallel compute with ``seq_parallel=True`` on a
+    (1, 1) NCCL mesh, held to phase 13's one-device steps (1e-2, as phase
+    25), then 2 steps under ``chunked`` held to phase 25's chunked ones
+    bit for bit; (b) the flash pair at the TP-local shapes of Qwen3-8B's
+    train_4k, checked and timed; (c) the dry run's train_4k plans with
+    and without ``seq_parallel`` against the whole-weight trainer's.
+
+    At world 1 ``model`` is 1: no weight is sliced and the residual stays
+    whole, so (a) exercises the plumbing only; the sharded compute is
+    held on gloo at world 4 on the CPU (tests/test_torch_tp_training.py)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training.trainer import build_trainer
+    t0 = time.perf_counter()
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    cfg = dataclasses.replace(get_config("qwen3-8b"), num_layers=8,
+                              remat="full", attn_impl="pallas")
+    run = dict(seq_len=1024, global_batch=4, seed=SEED, log_every=1,
+               device="cuda", log=log, mesh=mesh, seq_parallel=True)
+    log(f"phase 27: {dist.get_backend()} world {dist.get_world_size()}, "
+        f"mesh {mesh.mesh_dim_names} {tuple(mesh.mesh.shape)}; qwen3-8b "
+        f"widths at {cfg.num_layers} layers, batch 4x1024, {SHARDED_STEPS} "
+        "steps, tensor-parallel compute with seq_parallel=True: at world 1 "
+        "(model 1) no weight is sliced and the residual stays whole, so "
+        "this exercises the plumbing only")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    (state, hist), wall = sync_time(lambda: run_training(
+        cfg, steps=SHARDED_STEPS, **run))
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want["flash_attention"] = 2 * cfg.num_layers * SHARDED_STEPS
+    want["flash_attention_bwd"] = cfg.num_layers * SHARDED_STEPS
+    ld, gd = rel_diffs(hist, p13["hist"], "loss"), \
+        rel_diffs(hist, p13["hist"], "grad_norm")
+    for h in hist:
+        log(f"tp train step {h['step']}: loss={h['loss']:.6f} "
+            f"grad_norm={h['grad_norm']:.6f} step_s={h['step_s']:.4f} "
+            f"tokens_per_s={h['tokens_per_s']:.1f}")
+    log(f"tp train ({smi}): wall_s={wall:.3f} max_memory_allocated={peak} "
+        f"launches {launches} (want {want}); against phase 13's one-device "
+        f"steps: loss rel diff {[f'{d:.2e}' for d in ld]}, grad norm rel "
+        f"diff {[f'{d:.2e}' for d in gd]} (tol 1e-2)")
+    if launches != want or len(ld) != SHARDED_STEPS or max(ld + gd) > 1e-2:
+        raise AssertionError(f"phase 27: launches {launches} (want {want}) "
+                             "or the steps leave the one-device trainer's")
+    tr = build_trainer(cfg, mesh, total_steps=5, device="cuda",
+                       seq_parallel=True)
+    prof = profile_train_step(cfg, state, label="tp train (seq_parallel)",
+                              trainer=tr)
+    del state, tr
+    torch.cuda.empty_cache()
+    plain = dataclasses.replace(cfg, attn_impl="chunked")
+    ops.reset_launches()
+    state, phist = run_training(plain, steps=len(p25["plain_hist"]),
+                                **dict(run, log=lambda _: None))
+    del state
+    torch.cuda.empty_cache()
+    same = all((a["loss"], a["grad_norm"]) == (b["loss"], b["grad_norm"])
+               for a, b in zip(phist, p25["plain_hist"]))
+    pd = rel_diffs(phist, p25["plain_hist"], "loss") \
+        + rel_diffs(phist, p25["plain_hist"], "grad_norm")
+    log(f"tp train under chunked against phase 25's chunked steps: losses "
+        f"{[h['loss'] for h in phist]} vs "
+        f"{[h['loss'] for h in p25['plain_hist']]}, grad norms "
+        f"{[h['grad_norm'] for h in phist]} vs "
+        f"{[h['grad_norm'] for h in p25['plain_hist']]}: "
+        + ("bit for bit" if same else
+           f"NOT bit for bit, max rel diff {max(pd):.2e} (tol 1e-5)"))
+    if ops.LAUNCHES["flash_attention"] or max(pd) > 1e-5:
+        raise AssertionError("phase 27: under chunked the steps leave phase "
+                             "25's")
+    dist.destroy_process_group()
+
+    # (b) the flash pair at the TP-local training shapes
+    errs = []
+    for i, (name, shp) in enumerate(TP_FLASH):
+        case = (shp["B"], shp["S"], shp["S"], shp["Hq"], shp["Hkv"],
+                shp["D"], 0, 0.0, True)
+        for dtype in (torch.bfloat16, torch.float32):
+            errs.append(check_flash_case(f"train_4k_{name}", case, dtype,
+                                         SEED + 40 + i))
+    times = {}
+    for name, shp in TP_FLASH:
+        times[name] = t = time_flash_tp(shp)
+        log(f"time flash_attention bf16 train_4k {name} B={shp['B']} "
+            f"S=T={shp['S']} Hq={shp['Hq']} Hkv={shp['Hkv']} D={shp['D']} "
+            "causal (graph_*: CUDA-graph replays; the rest eager CUDA "
+            "events) " + fields(t))
+        torch.cuda.empty_cache()
+
+    plans = check_train_plans()
+    log(f"phase 27: {time.perf_counter() - t0:.1f} s")
+    return dict(hist=hist, launches=launches, peak=peak, prof=prof,
+                chunked_same=same, chunked_diff=pd, err=errs, times=times,
+                plans=plans, wall=wall)
 
 
 # ---------------------------------------------------------------------------
@@ -3982,6 +4191,7 @@ def main() -> int:
             f"tokens_per_s={h['tokens_per_s']:.1f}")
     sh = sharded_phase(tr, smi)
     sv = sharded_serve_phase(p5, decode_device_ms, dry, smi)
+    tp = tp_train_phase(tr, sh, smi)
 
     t = timings[0]
     st = sel_times[0]
@@ -4020,7 +4230,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:28",
         "launches": tr["launches"]["flash_attention"]
         + w_launches["flash_attention"] + fleet["flash_attention"]
-        + sh["launches"]["flash_attention"],
+        + sh["launches"]["flash_attention"]
+        + tp["launches"]["flash_attention"],
         "max_abs_err": flash_err["fwd_err"], "ms": ft["fwd_ms"],
         "plain_ms": ft["plain_fwd_ms"], "bound_ms": ft["fwd_bound_ms"],
         "bound_by": ft["fwd_bound_by"], "library_ms": ft["library_fwd_ms"]}, {
@@ -4030,7 +4241,8 @@ def main() -> int:
                     "gradient; no Pallas backward)",
         "launches": tr["launches"]["flash_attention_bwd"]
         + w_launches["flash_attention_bwd"] + fleet["flash_attention_bwd"]
-        + sh["launches"]["flash_attention_bwd"],
+        + sh["launches"]["flash_attention_bwd"]
+        + tp["launches"]["flash_attention_bwd"],
         "max_abs_err": flash_err["bwd_err"], "ms": ft["bwd_ms"],
         "plain_ms": ft["plain_bwd_ms"], "bound_ms": ft["bwd_bound_ms"],
         "bound_by": ft["bwd_bound_by"],

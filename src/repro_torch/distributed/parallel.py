@@ -1,44 +1,59 @@
-"""The sharded train step's collectives: row gathers, the vocab-parallel
-loss, and the optimizer's reductions over shards.
+"""The sharded train step's collectives: tensor-parallel compute with
+gradients, the sequence-parallel residual stream, row gathers, the
+vocab-parallel loss, and the optimizer's reductions over shards.
 
 The mesh branch of ``training/trainer.py`` keeps parameters and optimizer
 slots as DTensors placed by ``sharding.param_placements`` (ZeRO-3 over
 ``data``, TP dims over ``model``).  A step gathers each sharded
-parameter whole, splits the batch over the batch axes (``pod``/``data``)
-and computes; the model ranks share their rows, and the LM head is
-vocab-parallel over ``model``: each model rank computes the logits of its
-slice of the vocabulary, and the loss's log-sum-exp and label logit are
-all-reduced over the ``model`` group.  Every rank's gradient is then a
-share whose sum over all ranks is the full gradient (see
-``ActivationMesh``), so one all-reduce gives it, and each rank keeps its
-slice.
+parameter over its FSDP axes only and keeps this rank's ``model`` slice
+as the compute weight of the blocks computed tensor-parallel, splits the
+batch over the batch axes (``pod``/``data``), and runs the blocks as XLA's
+SPMD partitioner runs the JAX package's: the attention's ``wq`` / ``wk``
+/ ``wv`` column-parallel and ``wo`` row-parallel (flash on the local
+heads), the MLP's and the MoE shared experts' ``w_gate`` / ``w_up``
+column-parallel and ``w_down`` row-parallel, E / ``model`` routed experts
+a rank, the embedding's vocabulary rows, and the LM head's vocabulary
+columns, whose loss's log-sum-exp and label logit are all-reduced over
+``model``.  A block enters through ``block_in`` (``copy_to_model``:
+identity forward, all-reduce of the gradient over ``model``) and leaves
+through ``block_out`` (``reduce_from_model``: all-reduce forward, identity
+backward).  MLA, SSD, RG-LRU and the encoder-decoder's layers keep their
+weights gathered whole over ``model`` and compute whole on every model
+rank.
 
-Two places in the model couple rows or the vocabulary and read the
-active ``ActivationMesh`` (set with ``activation_mesh``, as the JAX
-package's trainer sets its activation mesh): the MoE block gathers the
-rows of the whole microbatch across the batch group before it routes,
-so the capacity groups and the load-balancing loss are the unsharded
-ones, and ``layers.lm_logits`` computes only this rank's vocabulary
-slice.
+With ``seq_parallel`` the residual stream between blocks is (B, S/model,
+d): the norms and the residual adds run on this rank's positions,
+``gather_seq`` (all-gather on the sequence, reduce-scatter of the
+gradient) replaces ``copy_to_model`` and ``scatter_seq`` (reduce-scatter,
+all-gather of the gradient) replaces ``reduce_from_model``; a block
+computed whole gathers the sequence before (its gradient sliced back) and
+keeps this rank's positions after (their gradient gathered), and the
+sequence is gathered once more for the LM head.  Where S does not divide
+by ``model`` the stream stays whole, as the JAX package's ``constrain``
+drops an axis that does not divide.
+
+The gradient rule is in ``ActivationMesh``'s docstring.  The MoE block
+gathers the rows of the whole microbatch across the batch group before it
+routes, so the capacity groups and the load-balancing loss are the
+unsharded ones.
 
 Serving computes on the shards themselves (``ServeLayout``, set with
 ``serve_layout`` by the mesh branch of ``serving/serve_step.py``): each
 rank holds its slices of the weights (placed by the serve rules) and of
-the cache, and the layers compute on them, reading what is sharded from
-the local shapes: column-parallel projections, row-parallel outputs
-summed by one all-reduce over ``model``, attention over the local heads
-or the local length (merged by log-sum-exp), the experts of this rank,
-the LM head's vocabulary slice and a greedy argmax across the slices.
-This is the placement's compute that XLA's SPMD partitioner derives for
-the JAX package's jitted serve.  Serving runs under ``torch.no_grad``,
-so these collectives have no backward.
+the cache, and the same layer code computes on them, reading what is
+sharded from the local shapes: column-parallel projections, row-parallel
+outputs summed by one all-reduce over ``model``, attention over the local
+heads or the local length (merged by log-sum-exp), the experts of this
+rank, the LM head's vocabulary slice and a greedy argmax across the
+slices.  Serving runs under ``torch.no_grad``, so its collectives have no
+backward.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import itertools
-from typing import Dict, Iterator, Optional, Sequence, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Set, Tuple
 
 import torch
 import torch.distributed as dist
@@ -56,18 +71,47 @@ class ActivationMesh:
 
     ``rows_group`` (size ``rows``): the ranks that hold the other rows of
     the microbatch, in row order (None when this rank holds all rows).
-    ``vocab_group`` (size > 1): the ranks that split the vocabulary, this
-    one holding ``vocab_slice``; None when the logits are whole.
-    ``ce_scale`` / ``aux_scale``: the weights that make every rank's
-    gradient an additive share (1 / the ranks that repeat this rank's
-    cross-entropy term; 1 / world for the MoE loss, which every rank
-    computes whole)."""
+    ``model_group`` (size ``model``, this rank ``model_rank``): the ranks
+    that split the blocks' heads, hidden dims, experts and vocabulary;
+    ``vocab_group`` / ``vocab_slice``: the same group and this rank's
+    vocabulary slice when ``model`` > 1, else None.  ``seq``: the
+    residual stream between blocks holds this rank's S / model positions.
+
+    The gradient rule.  The loss of a microbatch is the sum over its row
+    blocks of their cross-entropy sums over the microbatch's token count,
+    plus the MoE term; no rank scales its share.  Every collective has its
+    adjoint as its backward, so after ``backward`` the gradient of every
+    activation that is whole on the model ranks is the same full gradient
+    on each of them.  A parameter's gradient is then one of two kinds:
+      * complete over ``model``: a ``model`` slice (a TP weight), or a
+        whole weight used on whole activations (the norms without
+        ``seq``, the MLA / SSD / RG-LRU weights) -- the model ranks hold
+        the same full gradient of what they hold, so it is summed over
+        the batch group only, never counted ``model`` times;
+      * partial over ``model`` (its id in ``partial``, marked by the code
+        that uses it so): a whole weight used on this rank's part of the
+        work -- ``q_norm`` / ``k_norm`` on the local heads, the router of
+        experts split over ``model``, the norms on the positions of a
+        ``seq`` shard, a whole embedding or head on this rank's
+        vocabulary slice -- summed over the batch group and ``model``.
+    The load-balancing loss is computed whole on every rank that sums its
+    router's gradient, so its gradient is scaled by one over their number
+    (``scale_grad``) where it is made."""
     rows_group: Optional[dist.ProcessGroup] = None
     rows: int = 1
     vocab_group: Optional[dist.ProcessGroup] = None
     vocab_slice: Optional[slice] = None
-    ce_scale: float = 1.0
-    aux_scale: float = 1.0
+    model_group: Optional[dist.ProcessGroup] = None
+    model: int = 1
+    model_rank: int = 0
+    seq: bool = False
+    partial: Set[int] = dataclasses.field(default_factory=set)
+
+    def gather_cols(self, x: torch.Tensor) -> torch.Tensor:
+        """A column-parallel output (..., cols / model) -> (..., cols) in
+        rank order; the gradient of this rank's columns sums every
+        rank's."""
+        return _AllGather.apply(x, -1, self.model_group, self.model)
 
 
 _ACT: Optional[ActivationMesh] = None
@@ -89,29 +133,216 @@ def activation_mesh(act: Optional[ActivationMesh]) -> Iterator[None]:
         _ACT = prev
 
 
+def _model_act() -> Optional[ActivationMesh]:
+    act = _ACT
+    return act if act is not None and act.model > 1 else None
+
+
+def seq_sharded() -> bool:
+    """Whether the residual stream holds this rank's positions only."""
+    return _ACT is not None and _ACT.seq
+
+
+def mark_partial(*weights) -> None:
+    """Record that these whole weights compute on this rank's part of the
+    work, so their gradient sums over ``model`` too (a no-op outside a
+    sharded train step)."""
+    if _ACT is not None:
+        _ACT.partial.update(id(w) for w in weights)
+
+
+def sums_over_model(act: ActivationMesh, weight: torch.Tensor) -> bool:
+    """Whether ``weight``'s gradient is partial over ``model`` (marked),
+    so the trainer sums it over ``model`` as well as the batch group."""
+    return id(weight) in act.partial
+
+
 # ---------------------------------------------------------------------------
-# rows: all-gather forward, reduce-scatter backward
+# collectives with their adjoints as gradients
 # ---------------------------------------------------------------------------
-class _GatherRows(torch.autograd.Function):
+def _gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _scatter(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """This rank's part of the sum, summed in fp32 (a bf16 partial is
+    rounded once more, not once a rank)."""
+    parts = list(x.float().chunk(n, dim=dim))
+    out = torch.empty_like(parts[0], memory_format=torch.contiguous_format)
+    _reduce_scatter(out, parts, group)
+    return out.to(x.dtype)
+
+
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The all-reduce of x into a new tensor, summed in fp32."""
+    y = x.float()
+    y = y.clone() if y is x else y
+    dist.all_reduce(y, group=group)
+    return y.to(x.dtype)
+
+
+def _own(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    return x.chunk(n, dim=dim)[dist.get_rank(group)].contiguous()
+
+
+class _AllGather(torch.autograd.Function):
+    """All-gather on ``dim`` forward, reduce-scatter backward."""
     @staticmethod
-    def forward(ctx, x, group, n):
-        ctx.group, ctx.n = group, n
-        parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts, dim=0)
+    def forward(ctx, x, dim, group, n):
+        ctx.args = (dim, group, n)
+        return _gather(x, dim, group, n)
 
     @staticmethod
     def backward(ctx, g):
-        parts = list(g.contiguous().chunk(ctx.n, dim=0))
-        out = torch.empty_like(parts[0])
-        _reduce_scatter(out, parts, ctx.group)
-        return out, None, None
+        return _scatter(g, *ctx.args), None, None, None
 
 
+class _ReduceScatter(torch.autograd.Function):
+    """Reduce-scatter on ``dim`` forward, all-gather backward."""
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.args = (dim, group, n)
+        return _scatter(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, *ctx.args), None, None, None
+
+
+class _GatherWhole(torch.autograd.Function):
+    """All-gather on ``dim`` forward; the gradient, the same on every
+    rank, is sliced back to this rank's part."""
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.args = (dim, group, n)
+        return _gather(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own(g, *ctx.args), None, None, None
+
+
+class _Split(torch.autograd.Function):
+    """This rank's part of a tensor whole on every rank; the gradient is
+    every rank's part gathered."""
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.args = (dim, group, n)
+        return _own(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, *ctx.args), None, None, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward, all-reduce of the gradient backward."""
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """All-reduce forward, identity backward."""
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
+
+
+def copy_to_model(x: torch.Tensor, act: ActivationMesh) -> torch.Tensor:
+    return _CopyToModel.apply(x, act.model_group)
+
+
+def reduce_from_model(x: torch.Tensor, act: ActivationMesh) -> torch.Tensor:
+    return _ReduceFromModel.apply(x, act.model_group)
+
+
+def gather_seq(x: torch.Tensor, act: ActivationMesh) -> torch.Tensor:
+    """(B, S / model, ...) -> (B, S, ...); reduce-scatter backward."""
+    return _AllGather.apply(x, 1, act.model_group, act.model)
+
+
+def scatter_seq(x: torch.Tensor, act: ActivationMesh) -> torch.Tensor:
+    """(B, S, ...) partial sums -> this rank's (B, S / model, ...) of
+    their sum; all-gather backward."""
+    return _ReduceScatter.apply(x, 1, act.model_group, act.model)
+
+
+def scale_grad(x: torch.Tensor, s: float) -> torch.Tensor:
+    """x forward; its gradient times ``s`` backward."""
+    return x if s == 1.0 else _ScaleGrad.apply(x, s)
+
+
+def partial_dtype(dt: torch.dtype) -> torch.dtype:
+    """The dtype of a rank's partial sum of a contraction split over
+    ``model`` (a row-parallel product, the experts' combine): fp32 in a
+    sharded train step, so the sum over ``model`` is rounded once, as
+    the whole product is (a split-K product); ``dt`` elsewhere."""
+    return torch.float32 if _model_act() is not None else dt
+
+
+def block_in(x: torch.Tensor, split: bool) -> torch.Tensor:
+    """A block's input from the residual stream.  ``split``: the block
+    computes on ``model`` slices (training: ``copy_to_model``, or
+    ``gather_seq`` under ``seq``); else, under ``seq``, the whole
+    sequence for a block computed whole.  Serving and one device pass x
+    through."""
+    act = None if _SERVE is not None else _model_act()
+    if act is None:
+        return x
+    if act.seq:
+        return gather_seq(x, act) if split else _GatherWhole.apply(
+            x, 1, act.model_group, act.model)
+    return copy_to_model(x, act) if split else x
+
+
+def block_out(y: torch.Tensor, split: bool,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A block's output back to the residual stream, in ``dtype`` (y's
+    by default): the sum of the ``model`` ranks' partial outputs when
+    ``split`` (serving: one all-reduce; training: ``reduce_from_model``,
+    or ``scatter_seq`` under ``seq``); else, under ``seq``, this rank's
+    positions of a whole output."""
+    if _SERVE is not None:
+        y = _SERVE.all_reduce_model(y) if split else y
+    elif (act := _model_act()) is not None:
+        if act.seq:
+            y = scatter_seq(y, act) if split else _Split.apply(
+                y, 1, act.model_group, act.model)
+        elif split:
+            y = reduce_from_model(y, act)
+    return y if dtype is None else y.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# rows: all-gather forward, reduce-scatter backward
+# ---------------------------------------------------------------------------
 def _reduce_scatter(out: torch.Tensor, parts, group) -> None:
     """out = sum over ranks of their ``parts[rank]`` (gloo has no
     reduce_scatter: an all-reduce of the stacked parts there)."""
-    if dist.get_backend(group) == "nccl":
+    if dist.get_backend(group) != "gloo":
         dist.reduce_scatter(out, [p.contiguous() for p in parts],
                             group=group)
         return
@@ -125,7 +356,7 @@ def gather_rows(x: torch.Tensor, act: ActivationMesh) -> torch.Tensor:
     the gradient of this rank's rows sums every rank's."""
     if act.rows_group is None:
         return x
-    return _GatherRows.apply(x, act.rows_group, act.rows)
+    return _AllGather.apply(x, 0, act.rows_group, act.rows)
 
 
 def local_rows(y: torch.Tensor, act: ActivationMesh) -> torch.Tensor:

@@ -24,10 +24,14 @@ files under ``build/dryrun_torch/``.  Usage:
 
     python -m repro_torch.launch.dryrun --arch qwen3-8b --shape decode_32k
     python -m repro_torch.launch.dryrun --all --mesh single
+    python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k \
+        --mesh single --seq-parallel
 
 ``--mesh-shape 1x1 --batch 8 --seq-len 256`` plans a cell of another
 size on another (data x model) mesh (``chip_smoke.py`` plans the card's
-served cell so).  The process must have no process group of its own: the
+served cell so).  ``--seq-parallel`` plans a train cell with the residual
+stream sharded over ``model`` on the sequence (its record's name ends in
+``__seqpar``).  The process must have no process group of its own: the
 dry run starts a fake one (``torch.testing``'s ``FakeStore``).
 """
 from __future__ import annotations
@@ -154,8 +158,10 @@ def fake_group(world: int) -> None:
 
 
 def trace_step(cfg, shape: ShapeSpec, sizes: Dict[str, int],
-               moe_impl: str = "gshard") -> Dict:
-    """``op_stats.analyze`` of rank 0's step of the cell on meta tensors."""
+               moe_impl: str = "gshard", seq_parallel: bool = False) -> Dict:
+    """``op_stats.analyze`` of rank 0's step of the cell on meta tensors
+    (``seq_parallel``: a train cell's residual stream sharded over
+    ``model`` on the sequence)."""
     from torch.distributed.device_mesh import init_device_mesh
     fake_group(math.prod(sizes.values()))
     mesh = init_device_mesh("cpu", tuple(sizes.values()),
@@ -165,7 +171,7 @@ def trace_step(cfg, shape: ShapeSpec, sizes: Dict[str, int],
     if shape.kind == "train":
         from repro_torch.training.trainer import build_trainer
         trainer = build_trainer(cfg, mesh, grad_accum=_train_grad_accum(
-            shape), device="meta")
+            shape), device="meta", seq_parallel=seq_parallel)
         state = trainer.init_state(0)
         return op_stats.analyze(trainer.train_step, state, inputs)
     fns = build_serve_fns(cfg, mesh, batch=B, max_len=S, moe_impl=moe_impl,
@@ -200,10 +206,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
              tag: str = "", sizes: Optional[Dict[str, int]] = None,
              batch: Optional[int] = None, seq_len: Optional[int] = None,
              out_dir: str = RESULTS_DIR) -> Dict:
-    if seq_parallel:
-        raise NotImplementedError("--seq-parallel: the sequence-parallel "
-                                  "residual stream is not ported yet "
-                                  "(ROADMAP Queue 1)")
     cfg = get_config(arch)
     if attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=attn_impl)
@@ -215,6 +217,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
     sizes = dict(sizes or M.production_mesh_sizes(multi_pod))
     rec: Dict = {"arch": arch, "shape": shape_name, "mesh": mesh_label(sizes),
                  "kind": shape.kind, "moe_impl": moe_impl, "tag": tag,
+                 "seq_parallel": bool(seq_parallel and shape.kind == "train"),
                  "params": param_count(cfg), "batch": shape.global_batch,
                  "seq_len": shape.seq_len,
                  "devices": math.prod(sizes.values())}
@@ -230,7 +233,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
             _save(rec, tag, out_dir)
         return rec
     t0 = time.time()
-    hs = trace_step(cfg, shape, sizes, moe_impl)
+    hs = trace_step(cfg, shape, sizes, moe_impl, seq_parallel)
     rec["trace_s"] = round(time.time() - t0, 1)
     m = rec["memory"]
     m["output_bytes"] = int(hs["output_bytes"])
@@ -249,7 +252,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
 
 def _save(rec: Dict, tag: str = "", out_dir: str = RESULTS_DIR) -> None:
     os.makedirs(out_dir, exist_ok=True)
-    suffix = f"__{tag}" if tag else ""
+    suffix = (f"__{tag}" if tag else "") + (
+        "__seqpar" if rec.get("seq_parallel") else "")
     fname = f"{rec['arch']}__{rec['shape']}__{rec['mesh']}{suffix}.json"
     with open(os.path.join(out_dir, fname), "w") as f:
         json.dump(rec, f, indent=1)
@@ -297,8 +301,7 @@ def main(argv=None) -> int:
     ap.add_argument("--moe-impl", default="gshard")
     ap.add_argument("--attn-impl", default=None)
     ap.add_argument("--seq-parallel", action="store_true",
-                    help="sequence-parallel residual stream (train cells; "
-                         "not ported yet)")
+                    help="sequence-parallel residual stream (train cells)")
     ap.add_argument("--tag", default="")
     ap.add_argument("--subprocess-per-cell", action="store_true",
                     help="isolate each cell in a fresh process")
@@ -336,6 +339,8 @@ def main(argv=None) -> int:
                 cmd += (["--mesh-shape", args.mesh_shape] if args.mesh_shape
                         else ["--mesh", "multi" if "pod" in sizes
                               else "single"])
+                if args.seq_parallel:
+                    cmd.append("--seq-parallel")
                 for flag, val in (("--attn-impl", args.attn_impl),
                                   ("--tag", args.tag),
                                   ("--out-dir", args.out_dir),

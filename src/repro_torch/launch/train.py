@@ -40,14 +40,17 @@ def run_training(cfg, *, steps: int, seq_len: int, global_batch: int,
                  grad_accum: int = 1, ckpt_dir: str = "",
                  ckpt_every: int = 50, resume: bool = False, seed: int = 0,
                  log_every: int = 10, device="cuda", mesh=None,
-                 stop: Optional[Dict] = None,
+                 seq_parallel: bool = False, stop: Optional[Dict] = None,
                  log: Callable[[str], None] = print
                  ) -> Tuple[object, List[Dict]]:
     """Train ``cfg`` for ``steps`` steps; returns (final TrainState, one
     record per logged step).  A record holds the step, its loss and grad
     norm, the host-clock seconds per step since the last log and the
     tokens per second over them.  Only a logging step reads the loss on
-    the host (which waits for the card); other steps only launch work."""
+    the host (which waits for the card); other steps only launch work.
+    ``seq_parallel`` goes to ``build_trainer`` (a mesh's sequence-sharded
+    residual stream; the command line has no flag for it, as the JAX
+    package's has none)."""
     import torch
 
     from repro_torch.serving.serve_step import require_device
@@ -57,7 +60,8 @@ def run_training(cfg, *, steps: int, seq_len: int, global_batch: int,
 
     dev = require_device(device)
     trainer = build_trainer(cfg, mesh, total_steps=steps,
-                            grad_accum=grad_accum, device=dev)
+                            grad_accum=grad_accum, device=dev,
+                            seq_parallel=seq_parallel)
     pipe = make_pipeline(cfg, seq_len, global_batch, seed=seed)
     state = trainer.init_state(seed)
 

@@ -26,6 +26,15 @@ the rank whose slice holds their index, each rank attends its slice of
 the positions, returning its log-sum-exp beside its output, and the
 ranks' results merge by log-sum-exp before this rank's heads go through
 ``wo``.
+
+A sharded train step over ``model`` (``distributed/parallel.py``)
+computes on the same slices: q, k and v from the column slices of
+``wq``/``wk``/``wv`` (whole query heads), the flash kernel on the local
+heads, ``wo`` row-parallel.  Where the kv heads do not divide over
+``model`` (8 on 16), each rank gathers the k/v columns over ``model`` and
+keeps the kv heads of its query heads; the gather's gradient sums over the
+ranks that share a head.  Attention whose query heads do not divide, and
+MLA, compute on whole weights (under ``seq``, on the whole sequence).
 """
 from __future__ import annotations
 
@@ -355,7 +364,13 @@ def attention_layer(p, x: torch.Tensor, positions: torch.Tensor,
     small (usually 1), cache required.  positions: (B,S) or (3,B,S) for
     M-RoPE."""
     if cfg.mla is not None:
-        return _mla_layer(p, x, positions, cfg, cache, cache_offset)
+        out, cache = _mla_layer(p, PAR.block_in(x, False), positions, cfg,
+                                cache, cache_offset)
+        return PAR.block_out(out, False), cache
+    # wo row-parallel: this rank's query heads (a serving or training
+    # rank's shard)
+    split = p.wo.shape[0] < cfg.q_dim
+    x = PAR.block_in(x, split)
     dt = x.dtype
     B, S, _ = x.shape
     hd = cfg.head_dim
@@ -382,8 +397,13 @@ def attention_layer(p, x: torch.Tensor, positions: torch.Tensor,
             v = srv.gather_cols(v, cfg.kv_dim)
     # the head counts are the local shapes' (a serving rank's heads)
     q = q.reshape(B, S, -1, hd)
-    k = k.reshape(B, S, -1, hd)
-    v = v.reshape(B, S, -1, hd)
+    if split and srv is None:          # a training rank's heads
+        k, v = _local_kv(p, k, v, cfg, q.shape[2])
+        if cfg.qk_norm:
+            PAR.mark_partial(p.q_norm, p.k_norm)
+    else:
+        k = k.reshape(B, S, -1, hd)
+        v = v.reshape(B, S, -1, hd)
     if cfg.qk_norm:
         q = L.rms_norm(q, p.q_norm, cfg.norm_eps)
         k = L.rms_norm(k, p.k_norm, cfg.norm_eps)
@@ -422,10 +442,36 @@ def attention_layer(p, x: torch.Tensor, positions: torch.Tensor,
     if srv is not None and rows < out.shape[-1]:
         # every head here, wo row-parallel: this rank's heads
         out = out[..., srv.model_rank * rows:(srv.model_rank + 1) * rows]
-    out = out @ p.wo.to(dt)
-    if srv is not None and rows < cfg.q_dim:
-        out = srv.all_reduce_model(out)
-    return out, cache
+    return PAR.block_out(L.row_product(out, p.wo, split), split, dt), cache
+
+
+def _local_kv(p, k, v, cfg: ModelConfig, hl: int):
+    """k/v (B,S,cols) of a training rank computing ``hl`` query heads ->
+    the kv heads those heads read, (B,S,Hkv_l,hd) each.  When the kv
+    heads divide over ``model`` the local columns are those heads.  Else
+    the columns are gathered over ``model`` (a whole ``wk`` is already
+    all of them, and its gradient is this rank's part) and the heads of
+    the local query heads taken: one slice when they group evenly, else
+    one kv head per query head."""
+    act = PAR.current()
+    B, S = k.shape[:2]
+    hd, Hkv = cfg.head_dim, cfg.num_kv_heads
+    if k.shape[-1] < cfg.kv_dim and Hkv % act.model == 0:
+        return k.reshape(B, S, -1, hd), v.reshape(B, S, -1, hd)
+    if k.shape[-1] < cfg.kv_dim:
+        k, v = act.gather_cols(k), act.gather_cols(v)
+    else:
+        PAR.mark_partial(p.wk, p.wv, *((p.bk, p.bv) if cfg.qkv_bias
+                                       else ()))
+    G = cfg.num_heads // Hkv
+    first = act.model_rank * hl
+    heads = [(first + j) // G for j in range(hl)]
+    lo, n = heads[0], heads[-1] + 1 - heads[0]
+    sel = slice(lo, lo + n) if hl % n == 0 and heads == [
+        lo + j // (hl // n) for j in range(hl)] else heads
+    # a head slice is a strided view: the flash kernel takes it contiguous
+    return (k.reshape(B, S, Hkv, hd)[:, :, sel].contiguous(),
+            v.reshape(B, S, Hkv, hd)[:, :, sel].contiguous())
 
 
 # ---------------------------------------------------------------------------

@@ -5,9 +5,9 @@ gated ``MLP`` is here, shared by the dense layers and the MoE layers'
 shared experts); the functions here are plain tensor code.  Norms, RoPE
 and softmax run in fp32; matmuls run in ``cfg.dtype`` with the weights
 (held in ``cfg.param_dtype``) cast at the point of use, as in the JAX
-package.  Under a serving layout (``distributed/parallel.py``) the
-module holds this rank's shards and the MLP, the embedding and the LM
-head compute on them.
+package.  Under a serving layout or a sharded train step
+(``distributed/parallel.py``) the module holds this rank's shards and the
+MLP, the embedding and the LM head compute on them.
 """
 from __future__ import annotations
 
@@ -102,15 +102,29 @@ def act_fn(name: str):
     raise ValueError(f"unknown activation {name}")
 
 
+def row_product(x: torch.Tensor, w: torch.Tensor,
+                partial: bool = True) -> torch.Tensor:
+    """``x @ w`` for a weight cast to x's dtype at the point of use.
+    ``partial``: w holds rows of a row-parallel weight, so the product is
+    this rank's partial sum, in ``PAR.partial_dtype`` (fp32 in a sharded
+    train step)."""
+    dt = x.dtype
+    acc = PAR.partial_dtype(dt) if partial else dt
+    if acc == dt:
+        return x @ w.to(dt)
+    return x.to(acc) @ w.to(dt).to(acc)
+
+
 def apply_mlp(w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
-              x: torch.Tensor, act: str) -> torch.Tensor:
+              x: torch.Tensor, act: str, partial: bool = False
+              ) -> torch.Tensor:
     """Gated MLP (SwiGLU / GeGLU).  On column slices of ``w_gate`` /
-    ``w_up`` and the matching row slice of ``w_down`` it gives this
-    slice's share of the output, which the shares sum to."""
+    ``w_up`` and the matching row slice of ``w_down`` (``partial``) it
+    gives this slice's share of the output, which the shares sum to."""
     dt = x.dtype
     gate = act_fn(act)(x @ w_gate.to(dt))
     up = x @ w_up.to(dt)
-    return (gate * up) @ w_down.to(dt)
+    return row_product(gate * up, w_down, partial)
 
 
 class MLP(torch.nn.Module):
@@ -127,16 +141,19 @@ class MLP(torch.nn.Module):
 
     def partial(self) -> bool:
         """Whether this module holds a slice of the hidden dim (a serving
-        rank's shard), so its output is a share to be summed over
-        ``model``."""
+        or training rank's shard), so its output is a share to be summed
+        over ``model``."""
         return self.w_down.shape[0] < self.d_ff
 
     def forward(self, x: torch.Tensor, act: str) -> torch.Tensor:
-        y = apply_mlp(self.w_gate, self.w_up, self.w_down, x, act)
-        srv = PAR.serving()
-        if srv is not None and self.partial():
-            y = srv.all_reduce_model(y)
-        return y
+        if self.partial():
+            y = apply_mlp(self.w_gate, self.w_up, self.w_down,
+                          PAR.block_in(x, True), act, partial=True)
+            return PAR.block_out(y, True, x.dtype)
+        if PAR.seq_sharded():
+            # whole weights on this rank's positions (the MLP mixes none)
+            PAR.mark_partial(self.w_gate, self.w_up, self.w_down)
+        return apply_mlp(self.w_gate, self.w_up, self.w_down, x, act)
 
 
 # ---------------------------------------------------------------------------
@@ -217,19 +234,35 @@ def sinusoidal_positions(seq_len: int, d_model: int,
 # ---------------------------------------------------------------------------
 # embedding / logits
 # ---------------------------------------------------------------------------
+def _slice_rows(table: torch.Tensor, tokens: torch.Tensor,
+                lo: int) -> torch.Tensor:
+    """The rows of the tokens that fall in a vocabulary slice starting at
+    ``lo`` (``table`` holds its rows), zero for the others."""
+    idx = tokens.long() - lo
+    inside = (idx >= 0) & (idx < table.shape[0])
+    return table[idx.clamp(0, table.shape[0] - 1)] * inside[..., None]
+
+
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
     """Rows of the embedding.  A serving rank holding a slice of the
     vocabulary's rows looks up the tokens in it (zero elsewhere), and the
     slices' rows are summed over ``model``: exactly one rank holds each
-    token."""
+    token.  A sharded train step over ``model`` > 1 always looks up so, in
+    its rows or in its vocabulary slice of a whole table, and under
+    ``seq`` keeps the sum of this rank's positions."""
     srv = PAR.serving()
-    if srv is not None and table.shape[0] < cfg.vocab_size:
-        lo = srv.vocab_slice(cfg.vocab_size).start
-        idx = tokens.long() - lo
-        inside = (idx >= 0) & (idx < table.shape[0])
-        rows = table[idx.clamp(0, table.shape[0] - 1)] * inside[..., None]
-        x = srv.all_reduce_model(rows).to(dtype_of(cfg))
+    act = PAR.current()
+    V = cfg.vocab_size
+    if srv is not None and table.shape[0] < V:
+        rows = _slice_rows(table, tokens, srv.vocab_slice(V).start)
+        x = PAR.block_out(rows, True).to(dtype_of(cfg))
+    elif srv is None and act is not None and act.vocab_group is not None:
+        if table.shape[0] == V:
+            PAR.mark_partial(table)
+            table = table[act.vocab_slice]
+        rows = _slice_rows(table, tokens, act.vocab_slice.start)
+        x = PAR.block_out(rows, True).to(dtype_of(cfg))
     else:
         x = table[tokens.long()].to(dtype_of(cfg))
     if cfg.scale_embeddings:
@@ -243,12 +276,16 @@ def lm_logits(x: torch.Tensor, embed_table: torch.Tensor,
     (``head`` (d, V)) LM head; fp32 logits, soft-capped if configured.
     Under a sharded train step with a vocab-parallel head, or a serving
     layout over ``model``, only this rank's slice of the vocabulary
-    (``distributed/parallel.py``)."""
+    (``distributed/parallel.py``); in training x enters as a
+    column-parallel block's input (under ``seq``, the whole sequence)."""
     table = embed_table.T if head is None else head
     act = PAR.current()
     srv = PAR.serving()
     if act is not None and act.vocab_group is not None:
-        table = table[:, act.vocab_slice]
+        x = PAR.block_in(x, True)
+        if table.shape[1] == cfg.vocab_size:
+            PAR.mark_partial(embed_table if head is None else head)
+            table = table[:, act.vocab_slice]
     elif srv is not None and srv.model > 1 \
             and table.shape[1] == cfg.vocab_size:
         # a whole head (the vocabulary does not divide): this rank's slice

@@ -16,6 +16,14 @@ over ``model``, its columns.  The routing and the capacity groups are
 computed whole on every rank from the whole batch's rows, each rank
 computes its experts only, and one all-reduce sums the weighted outputs,
 so the tokens that drop are the one-device ones.
+
+A sharded train step (``distributed/parallel.py``) computes the same way
+with gradients: the rows of the whole microbatch are gathered across the
+batch group, each ``model`` rank runs its E / model experts (and its
+columns of the shared experts) on them, and the ranks' outputs are summed
+over ``model``; the routing, the capacity groups and the load-balancing
+loss are the whole microbatch's.  Experts that do not split over
+``model`` compute whole on every rank.
 """
 from __future__ import annotations
 
@@ -73,16 +81,20 @@ def router_topk(p: MoE, x2d: torch.Tensor, cfg: ModelConfig
     return w, idx, aux
 
 
-def _expert_ffn(w_gate, w_up, w_down, h, act: str):
-    """h: (g, E, C, d) grouped tokens vs stacked expert weights (E, d, f)."""
+def _expert_ffn(w_gate, w_up, w_down, h, act: str, acc=None):
+    """h: (g, E, C, d) grouped tokens vs stacked expert weights (E, d, f);
+    the last product in ``acc`` (a partial sum's dtype) when given."""
     g = L.act_fn(act)(torch.einsum("gecd,edf->gecf", h, w_gate))
     u = torch.einsum("gecd,edf->gecf", h, w_up)
-    return torch.einsum("gecf,efd->gecd", g * u, w_down)
+    if acc is None or acc == h.dtype:
+        return torch.einsum("gecf,efd->gecd", g * u, w_down)
+    return torch.einsum("gecf,efd->gecd", (g * u).to(acc), w_down.to(acc))
 
 
 def apply_moe_gshard(p: MoE, x: torch.Tensor, cfg: ModelConfig,
                      capacity_factor: float = 0.0, group_size: int = 2048,
-                     expert_lo: int = 0, shared: bool = True):
+                     expert_lo: int = 0, shared: bool = True,
+                     partial: bool = False):
     """Grouped capacity-based dispatch (GShard).  x: (B,S,d) -> (B,S,d).
 
     Tokens are dispatched within groups of ``group_size`` rows: the
@@ -93,8 +105,9 @@ def apply_moe_gshard(p: MoE, x: torch.Tensor, cfg: ModelConfig,
     The last group is padded with rows of expert -1, never kept.
 
     ``p`` may hold a block of the experts, from ``expert_lo`` (a serving
-    rank's shard): the output is then their share alone; ``shared``
-    False leaves the shared experts out."""
+    or training rank's shard): the output is then their share alone, in
+    ``PAR.partial_dtype`` when ``partial``; ``shared`` False leaves the
+    shared experts out."""
     m = cfg.moe
     B, S, d = x.shape
     dt = x.dtype
@@ -135,12 +148,13 @@ def apply_moe_gshard(p: MoE, x: torch.Tensor, cfg: ModelConfig,
 
     mine = slice(expert_lo, expert_lo + p.w_gate.shape[0])
     h = torch.einsum("gtec,gtd->gecd", dispatch[:, :, mine], xg)  # (g,E,C,d)
+    acc = PAR.partial_dtype(dt) if partial else dt
     out_e = _expert_ffn(p.w_gate.to(dt), p.w_up.to(dt), p.w_down.to(dt),
-                        h, cfg.mlp_act)
-    y = torch.einsum("gtec,gecd->gtd", combine[:, :, mine], out_e)
+                        h, cfg.mlp_act, acc)
+    y = torch.einsum("gtec,gecd->gtd", combine[:, :, mine].to(acc), out_e)
     y = y.reshape(nG * Gsz, d)[:T].reshape(B, S, d)
     if m.num_shared_experts and shared:
-        y = y + p.shared(x, cfg.mlp_act)
+        y = y + _shared(p, x, cfg)
     return y, aux
 
 
@@ -171,8 +185,14 @@ def apply_moe_ragged(p: MoE, x: torch.Tensor, cfg: ModelConfig):
         0, tok, o * wsorted[:, None])
     y = y.reshape(B, S, d)
     if m.num_shared_experts:
-        y = y + p.shared(x, cfg.mlp_act)
+        y = y + _shared(p, x, cfg)
     return y, aux
+
+
+def _shared(p: MoE, x: torch.Tensor, cfg: ModelConfig,
+            partial: bool = False) -> torch.Tensor:
+    s = p.shared
+    return L.apply_mlp(s.w_gate, s.w_up, s.w_down, x, cfg.mlp_act, partial)
 
 
 def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig,
@@ -181,14 +201,43 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig,
     rows of the whole microbatch are gathered first, so the routing, the
     capacity groups and the auxiliary loss are the unsharded ones; each
     rank keeps its rows of the output."""
-    act = PAR.current()
-    if act is not None and act.rows_group is not None:
-        y, aux = _apply(p, PAR.gather_rows(x, act), cfg, impl)
-        return PAR.local_rows(y, act), aux
     srv = PAR.serving()
     if srv is not None:
         return _apply_serving(p, x, cfg, impl, srv)
+    act = PAR.current()
+    if act is not None:
+        return _apply_training(p, x, cfg, impl, act)
     return _apply(p, x, cfg, impl)
+
+
+def _apply_training(p: MoE, x: torch.Tensor, cfg: ModelConfig, impl: str,
+                    act: PAR.ActivationMesh):
+    """This rank's experts (and shared-expert columns) on the whole
+    microbatch's rows, summed over ``model``; whole experts when they do
+    not split.  The load-balancing loss is computed whole on every rank
+    whose router gradient is summed, so its gradient is scaled by one
+    over their number."""
+    m = cfg.moe
+    E_l, f_l = p.w_gate.shape[0], p.w_gate.shape[2]
+    split = E_l < m.num_experts or f_l < m.expert_d_ff
+    xm = PAR.block_in(x, split)
+    xw = PAR.gather_rows(xm, act)
+    if not split:
+        y, aux = _apply(p, xw, cfg, impl)
+        return (PAR.block_out(PAR.local_rows(y, act), False),
+                PAR.scale_grad(aux, 1.0 / act.rows))
+    if impl != "gshard":
+        raise NotImplementedError(f"moe_impl {impl!r}: the sharded train "
+                                  "step dispatches with gshard")
+    PAR.mark_partial(p.router)
+    lo = act.model_rank * E_l if E_l < m.num_experts else 0
+    y, aux = apply_moe_gshard(p, xw, cfg, shared=False, expert_lo=lo,
+                              partial=True)
+    y = PAR.local_rows(y, act)
+    if m.num_shared_experts:
+        y = y + _shared(p, xm, cfg, partial=True)
+    return (PAR.block_out(y, True, x.dtype),
+            PAR.scale_grad(aux, 1.0 / (act.rows * act.model)))
 
 
 def _apply_serving(p: MoE, x: torch.Tensor, cfg: ModelConfig, impl: str,

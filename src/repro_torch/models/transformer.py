@@ -8,6 +8,11 @@ partition so ``weights.params_from_jax`` can unstack them).  Weights are
 random, drawn from an explicit ``torch.Generator`` on the generator's
 device.  Each layer kind carries its own cache dict.  The encoder-decoder
 stack (whisper) is ``models/encdec.py``.
+
+Under a sharded train step with ``seq`` (``distributed/parallel.py``)
+the residual stream holds this rank's positions: the norms and the
+residual adds run on them, each block enters and leaves through
+``block_in`` / ``block_out``, and the LM head gathers the sequence.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import (GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD,
                                       ModelConfig)
+from repro_torch.distributed import parallel as PAR
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -123,11 +129,14 @@ class DecoderLayer(nn.Module):
     def forward(self, x, positions, cfg: ModelConfig, cache=None,
                 offsets=None, valid=None, moe_impl: str = "gshard"):
         """Returns (x, cache, MoE aux loss or None)."""
+        if PAR.seq_sharded():       # the norms see this rank's positions
+            PAR.mark_partial(*self.parameters(recurse=False))
         h = L.rms_norm(x, self.norm1, cfg.norm_eps)
-        if self.kind == SSD:
-            mix, cache = SM.ssd_block(self.mixer, h, cfg, cache, valid)
-        elif self.kind == RGLRU:
-            mix, cache = R.rglru_block(self.mixer, h, cfg, cache, valid)
+        if self.kind in (SSD, RGLRU):   # whole weights, whole sequence
+            block = SM.ssd_block if self.kind == SSD else R.rglru_block
+            mix, cache = block(self.mixer, PAR.block_in(h, False), cfg,
+                               cache, valid)
+            mix = PAR.block_out(mix, False)
         else:
             mix, cache = A.attention_layer(self.mixer, h, positions, cfg,
                                            self.kind, cache, offsets)
@@ -200,6 +209,8 @@ class Transformer(nn.Module):
                          else remat(layer, *args))
             if aux is not None:
                 aux_total = aux_total + aux
+        if PAR.seq_sharded():
+            PAR.mark_partial(self.final_norm)
         x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return (L.lm_logits(x, self.embed, self.lm_head, self.cfg),
                 aux_total, cache)

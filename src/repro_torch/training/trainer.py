@@ -14,13 +14,18 @@ CPU) the state is sharded by the train rules (``distributed/sharding.py``):
 each parameter and its optimizer slots (Adafactor's ``v_row`` / ``v_col``
 included) are DTensors, ZeRO-3 over ``data`` and the TP dims over
 ``model``.  ``train_step`` takes the global batch on every rank; each
-microbatch is split over the batch axes (``pod``/``data``), the sharded
-parameters are gathered whole for the compute, the LM head's logits are
-vocab-parallel over ``model`` (``distributed/parallel.py``), and the
-gradients are summed over the ranks and cut to each rank's slices before
-the update, whose norms and means reduce across the slices.  The model
-ranks repeat the blocks' compute on the same rows: the tensor-parallel
-compute of the blocks is not ported.
+microbatch is split over the batch axes (``pod``/``data``).  The blocks
+compute tensor-parallel over ``model`` (``distributed/parallel.py``): a
+weight of GQA attention, of the dense MLP or the MoE shared experts, of
+the routed experts, the embedding or the LM head is gathered over its
+FSDP axes only and this rank computes on its ``model`` slice; MLA, SSD,
+RG-LRU and the encoder-decoder's layers gather their weights whole and
+every model rank computes them whole.  ``seq_parallel`` (the JAX
+package's keyword) shards the residual stream over ``model`` on the
+sequence between blocks; without a mesh, or with ``model`` 1, it does
+nothing.  Each gradient is summed over the ranks that hold a part of it
+(the rule is ``ActivationMesh``'s) and cut to this rank's slices before
+the update, whose norms and means reduce across the slices.
 
 The step launches its work and returns: no value is read on the host, so
 ``metrics["loss"]`` stays a device tensor until the caller reads it.
@@ -28,7 +33,7 @@ The step launches its work and returns: no value is read on the host, so
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Set, Tuple
 
 import torch
 import torch.distributed as dist
@@ -96,6 +101,9 @@ class Trainer:
     # the sharded state's layout: {leaf id: DTensor placements}, filled by
     # init_state ("params.<name>", "opt_state.m.<name>", ...)
     placements: Optional[Dict[str, tuple]] = None
+    # state -> the module the step computes with (on a mesh, this rank's
+    # compute weights: ``model`` slices of the TP-computed ones)
+    bind: Optional[Callable] = None
 
 
 def opt_state_pspecs(cfg: ModelConfig, shapes: Dict[str, tuple],
@@ -115,12 +123,12 @@ def opt_state_pspecs(cfg: ModelConfig, shapes: Dict[str, tuple],
 
 def build_trainer(cfg: ModelConfig, mesh=None, *, total_steps: int = 10_000,
                   warmup_steps: int = 100, grad_accum: Optional[int] = None,
-                  device="cuda") -> Trainer:
+                  device="cuda", seq_parallel: bool = False) -> Trainer:
     dev = require_device(device)
     accum = grad_accum if grad_accum is not None else cfg.grad_accum
     if mesh is not None:
         return _build_sharded(cfg, mesh, dev, total_steps, warmup_steps,
-                              accum)
+                              accum, seq_parallel)
     model = build_model(cfg, moe_impl="gshard")
     opt = OPT.make_optimizer(cfg, total_steps, warmup_steps)
     loss_fn = make_loss_fn(model, cfg)
@@ -167,7 +175,8 @@ def build_trainer(cfg: ModelConfig, mesh=None, *, total_steps: int = 10_000,
 
     return Trainer(cfg=cfg, model=model, optimizer=opt, device=dev,
                    train_step=train_step, init_state=init_state,
-                   grads=lambda state, batch: _grads(state.params, batch))
+                   grads=lambda state, batch: _grads(state.params, batch),
+                   bind=lambda state: state.params)
 
 
 def _microbatch(batch, accum: int) -> int:
@@ -181,11 +190,56 @@ def _microbatch(batch, accum: int) -> int:
 # ---------------------------------------------------------------------------
 # the mesh branch
 # ---------------------------------------------------------------------------
+def tp_names(cfg: ModelConfig, model_dims: Dict[str, Optional[int]],
+             model: int) -> Set[str]:
+    """The parameters a training rank computes on as its ``model`` slice.
+    ``model_dims``: {name: the dim the ``model`` axis shards, or None}.
+    A module is computed tensor-parallel when its weights split as the
+    layers read them: GQA attention with whole query heads a rank
+    (``wq`` / ``wo``, and ``wk`` / ``wv`` where they split), the gated
+    MLP (``mlp`` and the MoE ``shared`` experts), the routed experts by
+    expert or hidden dim (with their shared experts), the embedding's
+    rows and the LM head's columns.  MLA, SSD, RG-LRU and the
+    encoder-decoder are not covered: their weights are gathered whole."""
+    if model == 1 or cfg.encoder_layers:
+        return set()
+
+    def cut(name, dim):
+        return model_dims.get(name) == dim
+    keep: Set[str] = set()
+    for n in model_dims:
+        if n.endswith("mixer.wq") and cfg.mla is None:
+            pre = n[:-2]
+            if cut(n, 1) and cut(pre + "wo", 0) \
+                    and cfg.num_heads % model == 0:
+                keep |= {n, pre + "wo"}
+                keep |= {pre + b for b in ("bq", "bk", "bv")
+                         if cut(pre + b, 0)}
+                keep |= {pre + w for w in ("wk", "wv") if cut(pre + w, 1)}
+        elif n.endswith(("mlp.w_gate", "moe.shared.w_gate")):
+            pre = n[:-len("w_gate")]
+            if cut(n, 1) and cut(pre + "w_up", 1) and cut(pre + "w_down", 0):
+                keep |= {pre + w for w in ("w_gate", "w_up", "w_down")}
+    for n in model_dims:
+        if n.endswith("moe.w_gate"):
+            pre = n[:-len("w_gate")]
+            up, down = pre + "w_up", pre + "w_down"
+            split = (cut(n, 0) and cut(up, 0) and cut(down, 0)) or (
+                cut(n, 2) and cut(up, 2) and cut(down, 1))
+            shared = {s for s in model_dims if s.startswith(pre + "shared.")}
+            if split and shared <= keep:
+                keep |= {n, up, down}
+            else:                   # the MoE block computes whole
+                keep -= shared
+    keep |= {n for n, d in (("embed", 0), ("lm_head", 1)) if cut(n, d)}
+    return keep
+
+
 def _build_sharded(cfg: ModelConfig, mesh, dev: torch.device,
                    total_steps: int, warmup_steps: int,
-                   accum: int) -> Trainer:
+                   accum: int, seq_parallel: bool) -> Trainer:
     from torch.distributed.device_mesh import DeviceMesh
-    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor import DTensor, Replicate, Shard
 
     from repro_torch.distributed import compression as C
     from repro_torch.distributed import parallel as PAR
@@ -201,16 +255,29 @@ def _build_sharded(cfg: ModelConfig, mesh, dev: torch.device,
     names = list(sizes)
     coord = mesh.get_coordinate()
     world = mesh.mesh.numel()
+    n_model = sizes.get("model", 1)
+    mdim = names.index("model") if "model" in sizes else None
     layout: Dict[str, Tuple[tuple, int]] = {}     # name -> (placements, ndim)
     red = PAR.ShardReducer(mesh, layout) if world > 1 else OPT.PLAIN
     opt = OPT.make_optimizer(cfg, total_steps, warmup_steps, red)
     placements: Dict[str, tuple] = {}
-    compute: Dict[str, torch.nn.Module] = {}
+    compute: Dict[str, object] = {}
     groups: Dict[tuple, tuple] = {}
+    acts: Dict[tuple, tuple] = {}
 
     def sharded(pls) -> bool:
         return any(isinstance(p, Shard) and s > 1
                    for p, s in zip(pls, sizes.values()))
+
+    def fsdp_only(pls) -> tuple:
+        """The placements without the ``model`` axis."""
+        return tuple(Replicate() if i == mdim else p
+                     for i, p in enumerate(pls))
+
+    def model_only(pls) -> tuple:
+        """The placements of the ``model`` axis alone."""
+        return tuple(p if i == mdim else Replicate()
+                     for i, p in enumerate(pls))
 
     def local(full: torch.Tensor, pls) -> torch.Tensor:
         if not sharded(pls):
@@ -255,47 +322,71 @@ def _build_sharded(cfg: ModelConfig, mesh, dev: torch.device,
                           else None)
 
     def bind(state: TrainState) -> torch.nn.Module:
-        """The compute module, holding every parameter whole: a replicated
-        one is this rank's tensor itself, a sharded one is gathered."""
+        """The compute module: a TP-computed parameter (``tp_names``) is
+        gathered over its FSDP axes only and holds this rank's ``model``
+        slice; any other sharded one is gathered whole; a replicated one
+        is this rank's tensor itself."""
         if "module" not in compute:
             with torch.no_grad():
                 compute["module"] = model.init(L.generator(dev, 0))
             compute["module"].requires_grad_(True)
         module = compute["module"]
+        for n, d in state.params.items():
+            layout[n] = (tuple(d.placements), d.dim())
+            placements[f"params.{n}"] = layout[n][0]
+        dims = {n: (pls[mdim].dim % nd if mdim is not None
+                    and isinstance(pls[mdim], Shard) else None)
+                for n, (pls, nd) in layout.items()}
+        compute["tp"] = tp_names(cfg, dims, n_model)
         with torch.no_grad():
             for n, p in module.named_parameters():
                 d = state.params[n]
-                layout[n] = (tuple(d.placements), d.dim())
-                placements[f"params.{n}"] = layout[n][0]
-                p.data = d.full_tensor() if sharded(d.placements) \
-                    else d.to_local()
+                pls = layout[n][0]
+                if n in compute["tp"]:
+                    keep = model_only(pls)
+                    p.data = (d if keep == pls else
+                              d.redistribute(mesh, keep)).to_local()
+                else:
+                    p.data = d.full_tensor() if sharded(pls) \
+                        else d.to_local()
         return module
 
-    def row_layout(mb: int) -> Tuple[PAR.ActivationMesh, int]:
-        """The microbatch's layout over the ranks and this rank's row
-        block."""
+    def group(axes: tuple) -> tuple:
+        if axes not in groups:
+            groups[axes] = PAR.subgroup(mesh, axes) if axes else (None, 1)
+        return groups[axes]
+
+    def row_layout(mb: int, seq: int):
+        """(the microbatch's layout over the ranks, this rank's row
+        block, the groups that sum a complete and a partial gradient)."""
+        if (mb, seq) in acts:
+            return acts[mb, seq]
         baxes = SH.batch_axes(mesh, mb)
         axes = () if baxes is None else (
             (baxes,) if isinstance(baxes, str) else tuple(baxes))
-        if axes not in groups:
-            groups[axes] = PAR.subgroup(mesh, axes) if axes else (None, 1)
-        rows_group, rows = groups[axes]
+        rows_group, rows = group(axes)
         block = 0
         for a in axes:
             block = block * sizes[a] + coord[names.index(a)]
-        vocab = sizes.get("model", 1)
-        vkw = {}
-        if vocab > 1:
-            vkw = dict(vocab_group=mesh.get_group("model"),
-                       vocab_slice=PAR.vocab_split(
-                           cfg.vocab_size, vocab, coord[names.index("model")]))
-        return PAR.ActivationMesh(rows_group=rows_group, rows=rows,
-                                  ce_scale=rows * vocab / world,
-                                  aux_scale=1.0 / world, **vkw), block
+        kw = {}
+        if n_model > 1:
+            g = mesh.get_group("model")
+            rank = coord[mdim]
+            kw = dict(vocab_group=g, model_group=g, model=n_model,
+                      model_rank=rank,
+                      vocab_slice=PAR.vocab_split(cfg.vocab_size, n_model,
+                                                  rank),
+                      seq=(seq_parallel and seq % n_model == 0
+                           and not cfg.encoder_layers))
+        act = PAR.ActivationMesh(rows_group=rows_group, rows=rows, **kw)
+        acts[mb, seq] = (act, block, (rows_group, rows),
+                         group(axes + (("model",) if n_model > 1 else ())))
+        return acts[mb, seq]
 
     def share_of(module, sub, act: PAR.ActivationMesh, block: int):
-        """(this rank's share of one microbatch's loss, its cross-entropy
-        and MoE terms, detached).  Nothing of the forward outlives this
+        """(this rank's share of one microbatch's loss: its rows'
+        cross-entropy over the microbatch's tokens, plus the MoE term;
+        both detached beside it).  Nothing of the forward outlives this
         call but the graph, so the logits go in the backward."""
         n_tok = torch.clamp(torch.sum(sub["labels"] >= 0), min=1)
         b = sub["tokens"].shape[0] // act.rows
@@ -308,10 +399,7 @@ def _build_sharded(cfg: ModelConfig, mesh, dev: torch.device,
             ce, _ = cross_entropy(logits, loc["labels"])
         ce = ce / n_tok.to(ce.dtype)
         aux_t = _aux_term(cfg, aux)
-        share = ce if act.ce_scale == 1.0 else ce * act.ce_scale
-        if aux_t is not None:
-            share = share + (aux_t if act.aux_scale == 1.0
-                             else aux_t * act.aux_scale)
+        share = ce if aux_t is None else ce + aux_t
         return share, ce.detach(), None if aux_t is None else aux_t.detach()
 
     def microbatch_loss(module, sub, act: PAR.ActivationMesh, block: int):
@@ -324,10 +412,19 @@ def _build_sharded(cfg: ModelConfig, mesh, dev: torch.device,
             dist.all_reduce(loss, group=act.rows_group)
         return loss if aux_t is None else loss + aux_t
 
+    def cut(n: str, g: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a summed gradient: of a ``model`` slice,
+        its FSDP part; of a whole one, its placements' slice."""
+        pls = layout[n][0]
+        if n in compute["tp"]:
+            pls = fsdp_only(pls)
+        return local(g, pls)
+
     def sharded_grads(state: TrainState, batch):
         module = bind(state)
         mb = _microbatch(batch, accum)
-        act, block = row_layout(mb)
+        act, block, whole, part = row_layout(mb, batch["tokens"].shape[1])
+        act.partial.clear()         # the forward marks them anew
         for p in module.parameters():
             p.grad = None
         loss_sum = 0.0
@@ -342,9 +439,10 @@ def _build_sharded(cfg: ModelConfig, mesh, dev: torch.device,
                 p.grad = None
                 if accum > 1:
                     g.div_(accum)
-                if world > 1:
-                    dist.all_reduce(g)
-                grads[n] = local(g, layout[n][0])
+                grp, size = part if PAR.sums_over_model(act, p) else whole
+                if size > 1:
+                    dist.all_reduce(g, group=grp)
+                grads[n] = cut(n, g)
         return loss, grads
 
     def train_step(state: TrainState, batch):
@@ -364,7 +462,8 @@ def _build_sharded(cfg: ModelConfig, mesh, dev: torch.device,
 
     return Trainer(cfg=cfg, model=model, optimizer=opt, device=dev,
                    train_step=train_step, init_state=init_state,
-                   grads=sharded_grads, mesh=mesh, placements=placements)
+                   grads=sharded_grads, mesh=mesh, placements=placements,
+                   bind=bind)
 
 
 def _to_local(t):

@@ -1,7 +1,7 @@
 """One rank of the port's distributed CPU tests (gloo), started by
 ``tests/_torch_dist.py``; imports torch and the port only.
 
-    python tests/_torch_dist_worker.py distributed|training OUT_DIR
+    python tests/_torch_dist_worker.py distributed|training|tp OUT_DIR
 
 ``distributed``: the collectives, compression and GPipe on seeded numpy
 inputs; every rank writes ``distributed_r<rank>.npz``.
@@ -9,6 +9,11 @@ inputs; every rank writes ``distributed_r<rank>.npz``.
 Mamba2 smoke configs on meshes (2, 2) and (4, 1) (rank 0 writes each
 run's losses, grad norms and gathered parameters), a checkpoint saved on
 (2, 2) and loaded back on (4, 1), (1, 4) and with transposed placements.
+``tp``: 3 steps of each ``TP_RUNS`` case (tensor-parallel compute, with
+and without ``seq_parallel``; rank 0 writes the losses, grad norms,
+gathered parameters and every rank's compute-module shapes), and one run
+whose gradient rule counts the replicated 1-D weights' gradients
+``model`` times (``TP_WRONG``).
 """
 import dataclasses
 import json
@@ -41,10 +46,28 @@ MESHES = {"qwen3": [(2, 2), (4, 1)], "qwen3_adafactor": [(2, 2)],
 ACCUM_CASE = ("qwen3", (2, 2), 2)      # grad accumulation 2 on (2, 2)
 
 
+# the tensor-parallel cases: (config, mesh (data, model), seq_parallel)
+TP_ARCHS = {"qwen3": ("qwen3-8b", {}),
+            "qwen3_kv2": ("qwen3-8b", {"num_kv_heads": 2}),
+            "qwen3_pallas": ("qwen3-8b", {"attn_impl": "pallas"}),
+            "qwen3_adafactor": ("qwen3-8b", {"optimizer": "adafactor",
+                                             "scan_layers": False}),
+            "deepseek": ("deepseek-v2-lite-16b", {}),
+            "mamba2": ("mamba2-370m", {})}
+TP_RUNS = ([("qwen3", s, sp) for s in ((1, 4), (2, 2))
+            for sp in (False, True)]
+           + [("qwen3_kv2", (1, 4), sp) for sp in (False, True)]
+           + [("qwen3_pallas", (1, 4), False)]
+           + [(n, (2, 2), sp) for n in ("deepseek", "mamba2",
+                                         "qwen3_adafactor")
+              for sp in (False, True)])
+TP_WRONG = ("qwen3", (1, 4), False)
+
+
 def train_cfg(name: str):
-    arch, over = ARCHS[name]
-    return dataclasses.replace(smoke_config(arch), dtype="float32",
-                               attn_impl="chunked", **over)
+    arch, over = ARCHS[name] if name in ARCHS else TP_ARCHS[name]
+    kw = {"dtype": "float32", "attn_impl": "chunked", **over}
+    return dataclasses.replace(smoke_config(arch), **kw)
 
 
 def batches(cfg, n: int = STEPS):
@@ -106,10 +129,11 @@ def _full(state):
             .detach().numpy() for k, v in CKPT.state_leaves(state).items()}
 
 
-def run_sharded(name, shape, accum=1):
+def run_sharded(name, shape, accum=1, seq_parallel=False):
     cfg = train_cfg(name)
     mesh = make_mesh(shape, ("data", "model"), "cpu")
-    tr = build_trainer(cfg, mesh, grad_accum=accum, **TRAIN_KW)
+    tr = build_trainer(cfg, mesh, grad_accum=accum,
+                       seq_parallel=seq_parallel, **TRAIN_KW)
     state = tr.init_state(0)
     losses, norms = [], []
     for b in batches(cfg):
@@ -172,11 +196,68 @@ def case_training(out: str) -> None:
             json.dump(report, f)
 
 
+def tp_tag(name, shape, sp, wrong=False) -> str:
+    return (f"tp_{name}_{shape[0]}x{shape[1]}_sp{int(sp)}"
+            + ("_wrong" if wrong else ""))
+
+
+def first_grads(name, shape, seq_parallel):
+    """The first batch's gradients at the initial state, gathered whole."""
+    from torch.distributed.tensor import DTensor
+    cfg = train_cfg(name)
+    mesh = make_mesh(shape, ("data", "model"), "cpu")
+    tr = build_trainer(cfg, mesh, seq_parallel=seq_parallel, **TRAIN_KW)
+    state = tr.init_state(0)
+    _, grads = tr.grads(state, {k: torch.from_numpy(v)
+                                for k, v in batches(cfg, 1)[0].items()})
+    return {n: DTensor.from_local(g, mesh, tr.placements[f"params.{n}"],
+                                  run_check=False).full_tensor().numpy()
+            for n, g in grads.items()}
+
+
+def _save_run(out, tag, tr, state, losses, norms, grads) -> None:
+    """Rank 0: the run's npz; every rank: its compute module's shapes."""
+    leaves = _full(state)
+    shapes = {n: list(p.shape) for n, p in
+              tr.bind(state).named_parameters()}
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, shapes)
+    if dist.get_rank() == 0:
+        np.savez(os.path.join(out, f"{tag}.npz"), losses=np.array(losses),
+                 norms=np.array(norms),
+                 **{f"leaf:{k}": v for k, v in leaves.items()},
+                 **{f"grad:{k}": v for k, v in grads.items()})
+        with open(os.path.join(out, f"{tag}.shapes.json"), "w") as f:
+            json.dump(everyone, f)
+
+
+def case_tp(out: str) -> None:
+    from repro_torch.distributed import parallel as PAR
+    for name, shape, sp in TP_RUNS:
+        grads = first_grads(name, shape, sp)
+        tr, state, losses, norms = run_sharded(name, shape, seq_parallel=sp)
+        _save_run(out, tp_tag(name, shape, sp), tr, state, losses, norms,
+                  grads)
+    # a wrong rule: the norms' gradients, complete on every model rank,
+    # summed over ``model`` as well (counted ``model`` times)
+    right = PAR.sums_over_model
+    PAR.sums_over_model = lambda act, w: w.dim() == 1 or right(act, w)
+    try:
+        name, shape, sp = TP_WRONG
+        grads = first_grads(name, shape, sp)
+        tr, state, losses, norms = run_sharded(name, shape, seq_parallel=sp)
+    finally:
+        PAR.sums_over_model = right
+    _save_run(out, tp_tag(name, shape, sp, wrong=True), tr, state, losses,
+              norms, grads)
+
+
 def main() -> int:
     case, out = sys.argv[1], sys.argv[2]
     torch.set_num_threads(1)
     init_distributed("cpu")
-    {"distributed": case_distributed, "training": case_training}[case](out)
+    {"distributed": case_distributed, "training": case_training,
+     "tp": case_tp}[case](out)
     dist.barrier()
     dist.destroy_process_group()
     return 0

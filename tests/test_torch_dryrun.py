@@ -359,6 +359,29 @@ def test_cli_skips_with_reasons_and_keeps_the_memory(tmp_path):
     assert "SSD" in rec["skipped"] and rec["memory"]["argument_bytes"] > 0
     rec = D.run_cell("qwen3-8b", "long_500k", False, save=False)
     assert "skipped" in rec and rec["memory"]["cache_bytes"] > 0
-    with pytest.raises(NotImplementedError):
-        D.run_cell("qwen3-8b", "train_4k", False, save=False,
-                   seq_parallel=True)
+
+
+def test_cli_plans_the_smoke_train_cell_with_seq_parallel(tmp_path):
+    """The Qwen3 smoke config's train cell on a (2, 4) mesh plans ``[ ok ]``
+    with ``--seq-parallel`` and without it; the sequence-sharded residual
+    stream holds fewer live bytes, and the arguments are the same."""
+    code = ("import sys\n"
+            "from repro_torch.configs import smoke_config\n"
+            "from repro_torch.launch import dryrun as D\n"
+            "D.get_config = smoke_config\n"
+            "base = ['--arch', 'qwen3-8b', '--shape', 'train_4k',\n"
+            "        '--mesh-shape', '2x4', '--batch', '8', '--seq-len',\n"
+            "        '64', '--out-dir', sys.argv[1]]\n"
+            "sys.exit(D.main(base) | D.main(base + ['--seq-parallel']))\n")
+    r = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                       capture_output=True, text=True, timeout=600)
+    out = r.stdout + r.stderr
+    assert r.returncode == 0, out
+    assert out.count("[ ok ] qwen3-8b x train_4k x 2x4") == 2, out
+    whole, sp = (json.loads((tmp_path / f"qwen3-8b__train_4k__2x4{s}.json")
+                            .read_text()) for s in ("", "__seqpar"))
+    assert (whole["seq_parallel"], sp["seq_parallel"]) == (False, True)
+    assert sp["memory"]["argument_bytes"] == whole["memory"]["argument_bytes"]
+    assert 0 < sp["memory"]["temp_bytes"] < whole["memory"]["temp_bytes"]
+    # sequence-parallel: the row-parallel outputs reduce-scatter
+    assert sp["collectives"]["reduce-scatter"]["count"] > 0
