@@ -320,6 +320,31 @@ prints no result.  Phases, each of which raises on failure:
      type against the plan of the trainer that gathered every weight
      whole (37,924,475,916 B; 432 all-reduces, 505 all-gathers); the live
      bytes must fall, and further with ``seq_parallel``.
+ 28. (run after phase 27, last) tensor-parallel compute for MLA, the SSD
+     and RG-LRU mixers and the encoder-decoder: (a) Mamba2-370M and
+     RecurrentGemma-2B (phase 17's scenario), DeepSeek-V2-Lite (phase
+     22's) and Whisper-large-v3 (phase 23's), full width and depth,
+     serve through ``ModelExecutor(mesh=)`` on a (1, 1) NCCL mesh: every
+     request done, the RunReport JSON byte-equal to the one-device
+     phase's, launches exact (ssd_scan 48 a prefill chunk, rglru_scan 18,
+     decode 8 a RecurrentGemma step and 64 a Whisper step, none for
+     DeepSeek), a profiled decode step's device time beside the
+     one-device phase's; (b) the kernels at the families' TP-local
+     shapes against their plain versions (attention 2e-5 fp32 / 2e-2
+     bf16, the scans phase 14's tolerances) and timed as CUDA-graph
+     replays beside their bounds and, for attention, SDPA: the decode
+     kernel on Whisper's 5 of 20 heads (self T 256, cross T 1500) and on
+     RecurrentGemma's 2048 ring cut into 4 and 16 length slices (10 on 1
+     of 256, stored positions, lse; the slices merged against the whole
+     ring), the flash pair on Whisper's encoder at 5 heads (B 8, S 1500,
+     non-causal), the SSD scan on 8 and 2 of Mamba2's heads and the
+     RG-LRU scan on 640 and 160 channels (one prefill chunk); (c) phase
+     23 (d)'s Whisper training through the trainer's tensor-parallel
+     compute on the mesh: flash launches exact, losses and grad norms
+     within 1e-2 of phase 23 (d)'s; (d) the dry run's decode_32k plans of
+     the four on 16 x 16 (phase 26's subprocess), each ``[ ok ]`` with
+     its argument and live bytes.  At world 1 nothing is sliced: the
+     slicing is held on gloo at world 4 by the CPU tests.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -1445,7 +1470,8 @@ def start_dryrun() -> subprocess.Popen:
     core; the card is hidden from it) overlaps the card's phases: the dry
     run of ``DRYRUN_CELLS`` on the single-pod mesh under ``pallas`` (the
     card's attention path), then the plan of (a)'s own cell (Qwen3-8B
-    decode at B 8, T 256 on the (1, 1) mesh)."""
+    decode at B 8, T 256 on the (1, 1) mesh), then phase 28 (d)'s
+    decode_32k cells of the tensor-parallel families."""
     shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
     common = ["--attn-impl", "pallas", "--out-dir", str(DRYRUN_DIR)]
     cells = [["--arch", a, "--shape", sh, "--mesh", "single"] + common
@@ -1456,6 +1482,9 @@ def start_dryrun() -> subprocess.Popen:
     cells.append(["--arch", "qwen3-8b", "--shape", "decode_32k",
                   "--mesh-shape", "1x1", "--batch", str(SERVE["B"]),
                   "--seq-len", str(SERVE["T"]), "--tag", "card"] + common)
+    # phase 28 (d): the tensor-parallel families' decode cells
+    cells += [["--arch", a, "--shape", "decode_32k", "--mesh", "single"]
+              + common for a in FAMILY_DRYRUN]
     code = "\n".join([
         "import json, sys, time",
         "import torch",
@@ -1678,7 +1707,7 @@ def time_flash_tp(shape: dict, per_graph: int = 5, replays: int = 10) -> dict:
     plus the kernels' and SDPA's forward as CUDA-graph replays."""
     r = time_flash_attention(10, shape)
     case = (shape["B"], shape["S"], shape["S"], shape["Hq"], shape["Hkv"],
-            shape["D"], 0, 0.0, True)
+            shape["D"], 0, 0.0, shape.get("causal", True))
     q, k, v, do, kw = flash_inputs(case, torch.bfloat16, 300)
     o, lse = flash_attention_cuda(q, k, v, **kw)
     lq, lk, lv = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -1688,7 +1717,8 @@ def time_flash_tp(shape: dict, per_graph: int = 5, replays: int = 10) -> dict:
         q, k, v, o, lse, do, **kw), per_graph, replays)
     r["library_graph_fwd_ms"] = graph_ms(
         lambda: F.scaled_dot_product_attention(
-            lq, lk, lv, is_causal=True, scale=kw["scale"], enable_gqa=True),
+            lq, lk, lv, is_causal=kw["causal"], scale=kw["scale"],
+            enable_gqa=True),
         per_graph, replays)
     return r
 
@@ -1826,6 +1856,284 @@ def tp_train_phase(p13: dict, p25: dict, smi: str) -> dict:
     return dict(hist=hist, launches=launches, peak=peak, prof=prof,
                 chunked_same=same, chunked_diff=pd, err=errs, times=times,
                 plans=plans, wall=wall)
+
+
+# ---------------------------------------------------------------------------
+# phase 28: tensor-parallel compute for MLA, the SSD and RG-LRU mixers and
+# the encoder-decoder: the four serves through the mesh branch at world 1,
+# the kernels at the families' TP-local shapes, Whisper's TP trainer and
+# the dry run's decode_32k plans
+# ---------------------------------------------------------------------------
+# the families' decode_32k cells planned on the single pod (16 x 16) in
+# phase 26's dry-run subprocess
+FAMILY_DRYRUN = ("mamba2-370m", "recurrentgemma-2b", "whisper-large-v3",
+                 "deepseek-v2-lite-16b")
+# the decode kernel at the TP-local shapes: Whisper's 20 heads of 64 over
+# model 4 (5 a rank; the self-attention's cache T 256, the cross K/V's
+# 1500 frames, every frame counted)
+TP28_DECODE = [("whisper_self_tp4", dict(B=8, T=256, Hq=5, Hkv=5, D=64)),
+               ("whisper_cross_tp4", dict(B=8, T=1500, Hq=5, Hkv=5, D=64))]
+# RecurrentGemma-2B's local layers: the single kv head cannot split, so
+# its 2048-entry ring's length goes over model (512 entries a rank at 4,
+# 128 at 16), every one of the 10 heads attending its slice, masked by
+# the stored positions, with the log-sum-exp (rows past the ring)
+TP28_RING = [("rg_ring_tp4", 4), ("rg_ring_tp16", 16)]
+# Whisper's encoder at model 4: non-causal, B 8, S = T 1500, 5 on 5 of 64
+TP28_FLASH = ("whisper_enc_tp4",
+              dict(B=8, S=1500, Hq=5, Hkv=5, D=64, causal=False))
+# one prefill chunk of Mamba2-370M (B 8, S 32) on 8 (model 4) and 2
+# (model 16) of its 32 heads of 64, state 128; of RecurrentGemma-2B on
+# 640 and 160 of its 2560 channels
+TP28_SSD = [("mamba2_tp4", (8, 32, 8, 64, 1, 128, 256)),
+            ("mamba2_tp16", (8, 32, 2, 64, 1, 128, 256))]
+TP28_RGLRU = [("rg_tp4", (8, 32, 640)), ("rg_tp16", (8, 32, 160))]
+
+
+def check_ring_shard(name: str, n: int, dtype) -> float:
+    """RecurrentGemma's wrapped 2048-entry ring (lengths 2049-4000, window
+    2048) cut into ``n`` slices of its length: each slice's output and
+    lse against the plain version's (phase 4's tolerance; lse 1e-5 fp32,
+    1e-2 bf16), and the slices merged by their lse against the kernel on
+    the whole ring.  Returns the slices' max |kernel - plain|."""
+    shp = dict(RG_DECODE, T=2048)
+    B, T, Hq, Hkv, D = (shp[k] for k in ("B", "T", "Hq", "Hkv", "D"))
+    Tl = T // n
+    q, k, v, lens = attn_inputs(B, T, Hq, Hkv, D, RG_RING_LENGTHS, dtype,
+                                SEED + 50 + n)
+    pos = ring_positions(RG_RING_LENGTHS, T, SEED)
+    kw = dict(scale=1.0 / math.sqrt(D), window=2048)
+    lse_tol = 1e-5 if dtype == torch.float32 else 1e-2
+    err = lse_err = 0.0
+    parts = []
+    for r in range(n):
+        sl = slice(r * Tl, (r + 1) * Tl)
+        ks, vs = k[:, sl].contiguous(), v[:, sl].contiguous()
+        ps = pos[:, sl].contiguous()
+        o, lse = decode_attention_cuda(q, ks, vs, lens, positions=ps,
+                                       return_lse=True, **kw)
+        wo, wl = decode_attention_ref(q, ks, vs, lens, positions=ps,
+                                      return_lse=True, **kw)
+        torch.cuda.synchronize()
+        if not torch.isfinite(o).all():
+            raise AssertionError(f"decode_attention {name}: not finite")
+        err = max(err, (o.float() - wo.float()).abs().max().item())
+        lse_err = max(lse_err, (lse - wl).abs().max().item())
+        parts.append((o, lse))
+    os_ = torch.stack([o.float() for o, _ in parts])
+    ls = torch.stack([lse for _, lse in parts])[:, :, None, :]
+    w = torch.exp(ls - ls.amax(dim=0))
+    merged = (w[..., None] * os_).sum(0) / w.sum(0)[..., None]
+    whole = decode_attention_cuda(q, k, v, lens, positions=pos, **kw)
+    merge_err = (merged - whole.float()).abs().max().item()
+    log(f"check decode_attention {name} {str(dtype):<15} {n} slices of "
+        f"{Tl}: max_abs_err={err:.3e} tol={TOL[dtype]:g} lse_max_abs_err="
+        f"{lse_err:.3e} tol={lse_tol:g}; merged by lse against the whole "
+        f"ring: max_abs_err={merge_err:.3e}")
+    if err > TOL[dtype] or lse_err > lse_tol or merge_err > TOL[dtype]:
+        raise AssertionError(f"decode_attention {name} {dtype}: the kernel "
+                             "or its lse disagrees")
+    return err
+
+
+def serve_family_mesh(arch: str, one: dict, mesh, smi: str) -> dict:
+    """Phase 28 (a) for one family: full width and depth through
+    ``ModelExecutor(mesh=)`` on the (1, 1) NCCL mesh, random weights from
+    SEED, its one-device phase's ``serve_mixed_slo``: every request done,
+    the launches exact, the RunReport JSON byte-equal to the one-device
+    phase's; a profiled decode step's device time beside that phase's."""
+    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
+    spec = serve_spec(cfg, SEED)
+    torch.cuda.empty_cache()
+    rt, init_s = sync_time(lambda: ServeRuntime.from_spec(
+        spec, executor=lambda e: ModelExecutor(cfg, e, rng_seed=SEED,
+                                               device="cuda", mesh=mesh)))
+    ex = rt.engine.exe
+    if ex.fns.layout is None:
+        raise AssertionError(f"phase 28 {arch}: no mesh branch")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    rep, wall = sync_time(lambda: rt.run(spec).validate())
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    done = rt.engine.done
+    pc, ds = rep.extras["prefill_chunks"], rep.extras["decode_steps"]
+    kinds = cfg.pattern_for_layers()
+    attn = kinds.count(LOCAL_ATTN) + kinds.count(GLOBAL_ATTN)
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want.update(
+        decode_attention=(0 if cfg.mla is not None else
+                          2 * cfg.num_layers if cfg.is_encoder_decoder
+                          else attn) * ds,
+        ssd_scan=kinds.count(SSD) * pc, rglru_scan=kinds.count(RGLRU) * pc)
+    generated = sum(len(r.generated) for r in done)
+    log(f"phase 28 serve {arch} ({smi}): layers={cfg.num_layers} "
+        f"init_s={init_s:.2f} prefill_chunks={pc} decode_steps={ds} "
+        f"wall_s={wall:.3f} generated_tokens={generated} "
+        f"tokens_per_s={generated / wall:.2f} max_memory_allocated={peak} "
+        f"launches={launches} (want {want})")
+    if len(done) != 12 or any(r.status != RequestStatus.DONE for r in done):
+        raise AssertionError(f"phase 28 {arch}: not every request ended done")
+    if launches != want:
+        raise AssertionError(f"phase 28 {arch}: launches {launches}, want "
+                             f"{want}")
+    if rep.to_json() != one["json"]:
+        raise AssertionError(f"phase 28 {arch}: the RunReport differs from "
+                             "the one-device phase's")
+    log(f"check: phase 28's {arch} RunReport JSON equals its one-device "
+        "phase's")
+    B = 8
+    dev_ms = profile_step(
+        f"{arch} full-width decode step, (1, 1) NCCL mesh", lambda: ex.decode(
+            np.ones(B, np.int32), np.full(B, 128, np.int32),
+            np.ones(B, bool)),
+        kernel="" if cfg.mla is not None else "decode_attention")
+    log(f"phase 28 {arch} decode step device time {dev_ms:.3f} ms against "
+        f"the one-device phase's {one['dec_ms']:.3f} ms (ratio "
+        f"{dev_ms / one['dec_ms']:.4f}; {smi})")
+    del rt, ex
+    torch.cuda.empty_cache()
+    return dict(launches=launches, dev_ms=dev_ms, wall=wall, peak=peak)
+
+
+def whisper_tp_train(mesh, hist23: list, smi: str) -> dict:
+    """Phase 28 (c): phase 23 (d)'s cell (Whisper's widths at 2 + 2
+    layers, its batch, 2 steps under ``pallas``) through the trainer's
+    tensor-parallel compute on the (1, 1) NCCL mesh: the flash launches
+    exact, the losses and grad norms within phase 23 (d)'s tolerance
+    (1e-2) of its kernel steps (the flash backward's atomics spread a
+    rerun by ~1e-5)."""
+    from repro_torch.training.trainer import build_trainer
+    base, batch = whisper_train_batch()
+    cfg = dataclasses.replace(base, attn_impl="pallas")
+    trainer = build_trainer(cfg, mesh, total_steps=10, device="cuda")
+    state = trainer.init_state(SEED)
+    ops.reset_launches()
+    hist = []
+    for _ in range(2):
+        (state, m), wall = sync_time(lambda: trainer.train_step(state, batch))
+        hist.append(dict(loss=m["loss"].item(),
+                         grad_norm=m["grad_norm"].item(), step_s=wall))
+    launches = dict(ops.LAUNCHES)
+    want = whisper_want(base)
+    diffs = rel_diffs(hist, hist23, "loss") \
+        + rel_diffs(hist, hist23, "grad_norm")
+    log(f"phase 28 whisper tp train ({smi}): losses "
+        f"{[h['loss'] for h in hist]} vs phase 23 (d) "
+        f"{[h['loss'] for h in hist23]}, grad norms "
+        f"{[h['grad_norm'] for h in hist]} vs "
+        f"{[h['grad_norm'] for h in hist23]}: max rel diff {max(diffs):.2e} "
+        f"(tol 1e-2); step_s {[round(h['step_s'], 4) for h in hist]}; "
+        f"launches {launches} (want {want})")
+    del state, trainer
+    torch.cuda.empty_cache()
+    if launches != want or max(diffs) > 1e-2 \
+            or not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError("phase 28: Whisper's TP trainer leaves phase 23 "
+                             "(d)'s steps or its launches")
+    return dict(hist=hist, launches=launches, diff=max(diffs))
+
+
+def family_plans() -> dict:
+    """Phase 28 (d): the families' decode_32k plans on the single pod,
+    from phase 26's dry-run subprocess; each must plan ``[ ok ]``."""
+    plans = {}
+    for a in FAMILY_DRYRUN:
+        rec = json.loads((DRYRUN_DIR / f"{a}__decode_32k__singlepod.json")
+                         .read_text())
+        if "skipped" in rec or rec["cost"]["flops"] <= 0:
+            raise AssertionError(f"phase 28: no plan of {a} x decode_32k")
+        m, c = rec["memory"], rec["collectives"]
+        plans[a] = rec
+        log(f"phase 28 dry run [ ok ] {a} x decode_32k x singlepod: argument "
+            f"bytes {m['argument_bytes']} B (params {m['param_bytes']}, cache "
+            f"{m['cache_bytes']}), live bytes {m['temp_bytes']} B, flops "
+            f"{rec['cost']['flops']:.4e}, collectives " + ", ".join(
+                f"{k} {v['count']}x {v['bytes']:.4e} B" for k, v in c.items()
+                if isinstance(v, dict) and v["count"]))
+    return plans
+
+
+def family_tp_phase(one: dict, hist23: list, smi: str) -> dict:
+    """Phase 28: (a) Mamba2-370M, RecurrentGemma-2B, DeepSeek-V2-Lite and
+    Whisper-large-v3 serve through ``ModelExecutor(mesh=)`` on a (1, 1)
+    NCCL mesh, byte-equal to their one-device phases (17, 22, 23); (b)
+    the decode, flash, SSD and RG-LRU kernels at the families' TP-local
+    shapes against their plain versions, timed as CUDA-graph replays
+    beside their bounds (and SDPA for attention); (c) Whisper's trainer
+    through its tensor-parallel compute on the mesh; (d) the dry run's
+    decode_32k plans.  At world 1 nothing is sliced: (a) and (c) run the
+    mesh branch's plumbing; the slicing is held on gloo at world 4
+    (tests/test_torch_serve_mesh_families.py,
+    tests/test_torch_tp_training_families.py)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    log(f"phase 28: {dist.get_backend()} world {dist.get_world_size()}, "
+        f"mesh {mesh.mesh_dim_names} {tuple(mesh.mesh.shape)}")
+    serves = {a: serve_family_mesh(a, one[a], mesh, smi) for a in
+              ("mamba2-370m", "recurrentgemma-2b", "deepseek-v2-lite-16b",
+               WHISPER)}
+    train = whisper_tp_train(mesh, hist23, smi)
+    dist.destroy_process_group()
+
+    # (b) the kernels at the TP-local shapes
+    errs = {"decode_attention": [], "flash_attention": [], "ssd_scan": [],
+            "rglru_scan": []}
+    times = {}
+    for i, (name, shp) in enumerate(TP28_DECODE):
+        lens = [shp["T"], 1, 0, 7, 100, 129, 64, shp["T"] - 1]
+        for dtype in (torch.bfloat16, torch.float32):
+            errs["decode_attention"].append(check_decode_case(
+                name, shp, lens, 0, 0.0, False, None, dtype=dtype,
+                seed=SEED + 60 + i))
+        times[name] = time_decode_attention(shp["T"], 100, shape=shp)
+    ring = ring_positions(RG_RING_LENGTHS, 2048, SEED)
+    for name, n in TP28_RING:
+        for dtype in (torch.bfloat16, torch.float32):
+            errs["decode_attention"].append(check_ring_shard(name, n, dtype))
+        Tl = 2048 // n
+        times[name] = time_decode_attention(
+            Tl, 100, shape=dict(RG_DECODE, T=Tl), window=2048,
+            positions=ring[:, :Tl].contiguous(), lengths=RG_RING_LENGTHS,
+            lse=True)
+    for name, t in times.items():
+        log(f"time decode_attention bf16 {name} (ms, library_ms: CUDA-graph "
+            f"replays; eager_ms, library_eager_ms, plain_ms: launched from "
+            f"Python; {smi}) " + fields(t))
+    name, shp = TP28_FLASH
+    case = (shp["B"], shp["S"], shp["S"], shp["Hq"], shp["Hkv"], shp["D"],
+            0, 0.0, shp["causal"])
+    for dtype in (torch.bfloat16, torch.float32):
+        e, g, _ = check_flash_case(name, case, dtype, SEED + 70)
+        errs["flash_attention"].append(max(e, g))
+    times[name] = t = time_flash_tp(shp)
+    log(f"time flash_attention bf16 {name} B=8 S=T=1500 Hq=Hkv=5 D=64 "
+        f"non-causal (graph_*: CUDA-graph replays; the rest eager CUDA "
+        f"events; {smi}) " + fields(t))
+    torch.cuda.empty_cache()
+    for i, (name, case) in enumerate(TP28_SSD):
+        for dtype in (torch.bfloat16, torch.float32):
+            for state in (False, True):
+                errs["ssd_scan"].append(check_ssd_case(
+                    name, case, dtype, dtype, state, SEED + 80 + i))
+        times[name] = t = time_ssd_scan(case, True, 200, 10)
+        log(f"time ssd_scan bf16 {name} (ms, plain_ms: CUDA-graph replays; "
+            f"eager_ms: launched from Python; {smi}) " + fields(t))
+    for i, (name, case) in enumerate(TP28_RGLRU):
+        for h0 in (False, True):
+            errs["rglru_scan"].append(check_rglru_case(
+                name, case, h0, False, SEED + 90 + i))
+        times[name] = t = time_rglru_scan(case, 200)
+        log(f"time rglru_scan fp32 {name} (ms, plain_ms: CUDA-graph "
+            f"replays; eager_ms: launched from Python; {smi}) " + fields(t))
+
+    plans = family_plans()
+    log(f"phase 28: {time.perf_counter() - t0:.1f} s")
+    launches = {k: sum(v["launches"][k] for v in serves.values())
+                + train["launches"][k] for k in ops.LAUNCHES}
+    return dict(serves=serves, train=train, errs=errs, times=times,
+                plans=plans, launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -2332,32 +2640,38 @@ def check_ssd_scan() -> float:
                    (torch.float32,) + ((dtype,) if dtype == torch.bfloat16
                                        else ()))
             for bc, state in ((bc, state) for bc in bcs for state in states):
-                args, st = ssd_inputs(case, dtype, bc, state, SEED + i)
-                y, last = ssd_scan_cuda(*args, chunk=case[-1],
-                                        init_state=st)
-                torch.cuda.synchronize()
-                wy, wlast = ssd_scan_ref(*args, init_state=st)
-                tol = SCAN_TOL[dtype]
-                ey = (y.float() - wy.float()).abs().max().item()
-                es = (last - wlast).abs().max().item()
-                ok = (torch.allclose(y.float(), wy.float(), atol=tol,
-                                     rtol=tol)
-                      and torch.allclose(last, wlast, atol=tol, rtol=tol)
-                      and bool(torch.isfinite(y).all())
-                      and bool(torch.isfinite(last).all()))
-                log(f"check ssd_scan {name:<11} {str(dtype):<15} "
-                    f"B/C {str(args[3].dtype):<15} init_state={state!s:<5} "
-                    f"y max_abs_err={ey:.3e} state max_abs_err={es:.3e} "
-                    f"(max |y| {wy.float().abs().max().item():.3g}) "
-                    f"tol={tol:g}")
-                if not ok:
-                    raise AssertionError(f"ssd_scan {name} {dtype}: kernel "
-                                         "disagrees with plain version")
+                err = check_ssd_case(name, case, dtype, bc, state, SEED + i)
                 if name == "serve" and dtype == torch.bfloat16:
-                    serve_err = max(serve_err, ey, es)
-                if dtype == torch.bfloat16 and bc == torch.bfloat16:
-                    check_ssd_rounding(name, args, st, case[-1], y, last)
+                    serve_err = max(serve_err, err)
     return serve_err
+
+
+def check_ssd_case(name, case, dtype, bc, state: bool, seed: int) -> float:
+    """The SSD kernel against its plain version on one case (x in
+    ``dtype``, B/C in ``bc``, with or without an initial state) and, where
+    x and B/C are bf16, against its own rounding; returns max |kernel -
+    plain| of y and the state."""
+    args, st = ssd_inputs(case, dtype, bc, state, seed)
+    y, last = ssd_scan_cuda(*args, chunk=case[-1], init_state=st)
+    torch.cuda.synchronize()
+    wy, wlast = ssd_scan_ref(*args, init_state=st)
+    tol = SCAN_TOL[dtype]
+    ey = (y.float() - wy.float()).abs().max().item()
+    es = (last - wlast).abs().max().item()
+    ok = (torch.allclose(y.float(), wy.float(), atol=tol, rtol=tol)
+          and torch.allclose(last, wlast, atol=tol, rtol=tol)
+          and bool(torch.isfinite(y).all())
+          and bool(torch.isfinite(last).all()))
+    log(f"check ssd_scan {name:<11} {str(dtype):<15} "
+        f"B/C {str(args[3].dtype):<15} init_state={state!s:<5} "
+        f"y max_abs_err={ey:.3e} state max_abs_err={es:.3e} "
+        f"(max |y| {wy.float().abs().max().item():.3g}) tol={tol:g}")
+    if not ok:
+        raise AssertionError(f"ssd_scan {name} {dtype}: kernel disagrees "
+                             "with plain version")
+    if dtype == torch.bfloat16 and bc == torch.bfloat16:
+        check_ssd_rounding(name, args, st, case[-1], y, last)
+    return max(ey, es)
 
 
 def check_ssd_rounding(name, args, st, chunk, y, last) -> None:
@@ -2500,27 +2814,35 @@ def check_rglru_scan() -> float:
     for i, (name, case) in enumerate(RGLRU_CASES):
         strided = (False, True) if name in ("serve", "w33") else (False,)
         for h0, split in ((h0, sp) for h0 in (False, True) for sp in strided):
-            a, b, h = rglru_inputs(case, h0, SEED + i)
-            if split:
-                W = case[2]
-                ab = torch.cat([a, b], dim=-1)
-                a, b = ab[..., :W], ab[..., W:]
-            got, got_last = rglru_scan_cuda(a, b, h)
-            torch.cuda.synchronize()
-            want, want_last = rglru_scan_ref(a, b, h)
-            err = max((got - want).abs().max().item(),
-                      (got_last - want_last).abs().max().item())
-            ok = (torch.allclose(got, want, atol=RGLRU_TOL, rtol=RGLRU_TOL)
-                  and torch.allclose(got_last, want_last, atol=RGLRU_TOL,
-                                     rtol=RGLRU_TOL))
-            log(f"check rglru_scan {name:<8} h0={h0!s:<5} a/b row stride "
-                f"{a.stride(1)} max_abs_err={err:.3e} tol={RGLRU_TOL:g}")
-            if not ok:
-                raise AssertionError(f"rglru_scan {name}: kernel disagrees "
-                                     "with plain version")
+            err = check_rglru_case(name, case, h0, split, SEED + i)
             if name == "serve":
                 serve_err = max(serve_err or 0.0, err)
     return serve_err
+
+
+def check_rglru_case(name, case, h0: bool, split: bool, seed: int) -> float:
+    """The RG-LRU kernel against its plain version on one case (with or
+    without h0; ``split``: a and b read as halves of one (B, S, 2W)
+    buffer); returns max |kernel - plain|."""
+    a, b, h = rglru_inputs(case, h0, seed)
+    if split:
+        W = case[2]
+        ab = torch.cat([a, b], dim=-1)
+        a, b = ab[..., :W], ab[..., W:]
+    got, got_last = rglru_scan_cuda(a, b, h)
+    torch.cuda.synchronize()
+    want, want_last = rglru_scan_ref(a, b, h)
+    err = max((got - want).abs().max().item(),
+              (got_last - want_last).abs().max().item())
+    ok = (torch.allclose(got, want, atol=RGLRU_TOL, rtol=RGLRU_TOL)
+          and torch.allclose(got_last, want_last, atol=RGLRU_TOL,
+                             rtol=RGLRU_TOL))
+    log(f"check rglru_scan {name:<8} h0={h0!s:<5} a/b row stride "
+        f"{a.stride(1)} max_abs_err={err:.3e} tol={RGLRU_TOL:g}")
+    if not ok:
+        raise AssertionError(f"rglru_scan {name}: kernel disagrees with "
+                             "plain version")
+    return err
 
 
 def time_rglru_scan(case, calls: int) -> dict:
@@ -2658,13 +2980,14 @@ def serve_recurrent(arch: str) -> dict:
                  lambda: ex.prefill(tokens, zeros, full),
                  kernel="ssd_scan" if kinds.count(SSD) else "rglru_scan")
     active = np.ones(B, bool)
-    profile_step(f"{arch} full-width decode step",
-                 lambda: ex.decode(tokens[:, 0], full, active),
-                 kernel="decode_attention")
+    dec_ms = profile_step(f"{arch} full-width decode step",
+                          lambda: ex.decode(tokens[:, 0], full, active),
+                          kernel="decode_attention")
     del rt, ex
     torch.cuda.empty_cache()
     return dict(launches=launches, peak=peak, wall=wall,
-                spec=serve_spec(cfg, SEED), summary=rep.summary())
+                spec=serve_spec(cfg, SEED), summary=rep.summary(),
+                json=rep.to_json(), dec_ms=dec_ms)
 
 
 def rg_cache_free_phase() -> dict:
@@ -3248,7 +3571,8 @@ def serve_family(arch: str, depth: int, smi: str) -> dict:
     kernel exactly once a layer a decode step (never for MLA, whose
     absorbed decode takes the plain path), the full-width logits check,
     wall, tokens/s, peak memory and one profiled decode step.  Returns
-    the serve's kernel launches."""
+    the serve's kernel launches, its RunReport JSON and the decode step's
+    device time."""
     cfg = dataclasses.replace(get_config(arch), attn_impl="pallas",
                               num_layers=depth)
     mla = cfg.mla is not None
@@ -3280,12 +3604,12 @@ def serve_family(arch: str, depth: int, smi: str) -> dict:
     else:
         check_full_width(ex.params, cfg)
     B = 8
-    profile_step(f"{arch} full-width decode step", lambda: ex.decode(
+    dec_ms = profile_step(f"{arch} full-width decode step", lambda: ex.decode(
         np.ones(B, np.int32), np.full(B, 128, np.int32), np.ones(B, bool)),
         kernel="" if mla else "decode_attention")
     del rt, ex
     torch.cuda.empty_cache()
-    return launches
+    return dict(launches=launches, json=rep.to_json(), dec_ms=dec_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -3377,16 +3701,10 @@ def whisper_encoder_leg(module, cfg) -> dict:
     return launches
 
 
-def whisper_train_leg() -> dict:
-    """Phase 23 (d): Whisper's published widths at 2 encoder + 2 decoder
-    layers, AdamW, batches of 2 x 448 tokens with 2 x 1500 random frames,
-    2 steps under ``pallas`` and under ``chunked`` from the same seed:
-    losses and grad norms within 1e-2, the flash launches exact (under
-    full remat every layer's forward runs twice a step: the encoder's
-    non-causal and the decoder's causal self-attention; the
-    cross-attention, 448 queries over 1500 frames, takes the plain
-    path).  Returns the pallas leg's launches."""
-    from repro_torch.training.trainer import build_trainer
+def whisper_train_batch():
+    """Phase 23 (d)'s config (Whisper's widths at 2 encoder + 2 decoder
+    layers) and its batch: 2 x 448 tokens and labels, 2 x 1500 random
+    frames, from SEED + 6."""
     W = WHISPER_TRAIN
     base = dataclasses.replace(get_config(WHISPER), num_layers=W["layers"],
                                encoder_layers=W["layers"])
@@ -3400,6 +3718,32 @@ def whisper_train_leg() -> dict:
                                 dtype=torch.int32),
         "frames": torch.randn((W["B"], base.num_audio_frames, base.d_model),
                               generator=g, device="cuda")}
+    return base, batch
+
+
+def whisper_want(base) -> dict:
+    """The flash launches of 2 training steps of ``base`` (under full
+    remat every layer's forward runs twice a step)."""
+    n_attn = base.encoder_layers + base.num_layers
+    passes = 2 if base.remat != "none" else 1
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want.update(flash_attention=2 * passes * n_attn,
+                flash_attention_bwd=2 * n_attn)
+    return want
+
+
+def whisper_train_leg() -> dict:
+    """Phase 23 (d): Whisper's published widths at 2 encoder + 2 decoder
+    layers, AdamW, batches of 2 x 448 tokens with 2 x 1500 random frames,
+    2 steps under ``pallas`` and under ``chunked`` from the same seed:
+    losses and grad norms within 1e-2, the flash launches exact (under
+    full remat every layer's forward runs twice a step: the encoder's
+    non-causal and the decoder's causal self-attention; the
+    cross-attention, 448 queries over 1500 frames, takes the plain
+    path).  Returns the pallas leg (its launches and steps)."""
+    from repro_torch.training.trainer import build_trainer
+    W = WHISPER_TRAIN
+    base, batch = whisper_train_batch()
     legs = {}
     for impl in ("pallas", "chunked"):
         cfg = dataclasses.replace(base, attn_impl=impl)
@@ -3420,11 +3764,7 @@ def whisper_train_leg() -> dict:
         del state, trainer
         torch.cuda.empty_cache()
     ker, plain = legs["pallas"], legs["chunked"]
-    n_attn = base.encoder_layers + base.num_layers
-    passes = 2 if base.remat != "none" else 1
-    want = dict.fromkeys(ops.LAUNCHES, 0)
-    want.update(flash_attention=2 * passes * n_attn,
-                flash_attention_bwd=2 * n_attn)
+    want = whisper_want(base)
     diffs = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
              for a, b in zip(ker["hist"], plain["hist"])]
     gdiffs = [abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
@@ -3451,7 +3791,7 @@ def whisper_train_leg() -> dict:
             or max(diffs + gdiffs) > 1e-2:
         raise AssertionError(f"{WHISPER} training: the kernel path's losses "
                              "or grad norms disagree with chunked")
-    return ker["launches"]
+    return ker
 
 
 def whisper_phase(smi: str) -> dict:
@@ -3491,9 +3831,9 @@ def whisper_phase(smi: str) -> dict:
     B = 8
     tokens, full = np.ones(B, np.int32), np.full(B, 128, np.int32)
     active = np.ones(B, bool)
-    profile_step(f"{WHISPER} full-width decode step",
-                 lambda: ex.decode(tokens, full, active),
-                 kernel="decode_attention")
+    dec_ms = profile_step(f"{WHISPER} full-width decode step",
+                          lambda: ex.decode(tokens, full, active),
+                          kernel="decode_attention")
     profile_cross_share(f"{WHISPER} full-width decode step",
                         lambda: ex.decode(tokens, full, active))
     enc = whisper_encoder_leg(ex.params, cfg)
@@ -3508,8 +3848,9 @@ def whisper_phase(smi: str) -> dict:
     enc_t = time_flash_attention(10, WHISPER_ENC)
     log(f"time flash_attention bf16 whisper encoder B=8 S=T=1500 Hq=Hkv=20 "
         f"D=64 non-causal ({smi}) " + fields(enc_t))
-    return dict(serve=launches, encoder=enc, train=train, cross_t=cross_t,
-                enc_t=enc_t)
+    return dict(serve=launches, encoder=enc, train=train["launches"],
+                train_hist=train["hist"], cross_t=cross_t, enc_t=enc_t,
+                json=rep.to_json(), dec_ms=dec_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -4192,6 +4533,11 @@ def main() -> int:
     sh = sharded_phase(tr, smi)
     sv = sharded_serve_phase(p5, decode_device_ms, dry, smi)
     tp = tp_train_phase(tr, sh, smi)
+    fam = family_tp_phase({"mamba2-370m": mamba, "recurrentgemma-2b": rgemma,
+                           "deepseek-v2-lite-16b":
+                           families["deepseek-v2-lite-16b"],
+                           WHISPER: whisper}, whisper["train_hist"], smi)
+    fl = fam["launches"]
 
     t = timings[0]
     st = sel_times[0]
@@ -4202,9 +4548,9 @@ def main() -> int:
         "launches": launches["decode_attention"]
         + rgemma["launches"]["decode_attention"]
         + planes["launches"]["decode_attention"]
-        + sum(f["decode_attention"] for f in families.values())
+        + sum(f["launches"]["decode_attention"] for f in families.values())
         + w_launches["decode_attention"] + fleet["decode_attention"]
-        + sv["launches"]["decode_attention"],
+        + sv["launches"]["decode_attention"] + fl["decode_attention"],
         "max_abs_err": err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]}, {
@@ -4231,7 +4577,7 @@ def main() -> int:
         "launches": tr["launches"]["flash_attention"]
         + w_launches["flash_attention"] + fleet["flash_attention"]
         + sh["launches"]["flash_attention"]
-        + tp["launches"]["flash_attention"],
+        + tp["launches"]["flash_attention"] + fl["flash_attention"],
         "max_abs_err": flash_err["fwd_err"], "ms": ft["fwd_ms"],
         "plain_ms": ft["plain_fwd_ms"], "bound_ms": ft["fwd_bound_ms"],
         "bound_by": ft["fwd_bound_by"], "library_ms": ft["library_fwd_ms"]}, {
@@ -4242,7 +4588,7 @@ def main() -> int:
         "launches": tr["launches"]["flash_attention_bwd"]
         + w_launches["flash_attention_bwd"] + fleet["flash_attention_bwd"]
         + sh["launches"]["flash_attention_bwd"]
-        + tp["launches"]["flash_attention_bwd"],
+        + tp["launches"]["flash_attention_bwd"] + fl["flash_attention_bwd"],
         "max_abs_err": flash_err["bwd_err"], "ms": ft["bwd_ms"],
         "plain_ms": ft["plain_bwd_ms"], "bound_ms": ft["bwd_bound_ms"],
         "bound_by": ft["bwd_bound_by"],
@@ -4251,14 +4597,16 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:22",
         "launches": mamba["launches"]["ssd_scan"]
-        + cli["launches"]["ssd_scan"], "max_abs_err": ssd_err,
+        + cli["launches"]["ssd_scan"] + fl["ssd_scan"],
+        "max_abs_err": ssd_err,
         "ms": ssd_t["ms"], "plain_ms": ssd_t["plain_ms"],
         "bound_ms": ssd_t["bound_ms"], "bound_by": ssd_t["bound_by"],
         "library_ms": None}, {
         "name": "rglru_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:20",
-        "launches": rgemma["launches"]["rglru_scan"], "max_abs_err": rg_err,
+        "launches": rgemma["launches"]["rglru_scan"] + fl["rglru_scan"],
+        "max_abs_err": rg_err,
         "ms": rg_t["ms"], "plain_ms": rg_t["plain_ms"],
         "bound_ms": rg_t["bound_ms"], "bound_by": rg_t["bound_by"],
         "library_ms": None}]}))

@@ -14,12 +14,18 @@ heads), the MLP's and the MoE shared experts' ``w_gate`` / ``w_up``
 column-parallel and ``w_down`` row-parallel, E / ``model`` routed experts
 a rank, the embedding's vocabulary rows, and the LM head's vocabulary
 columns, whose loss's log-sum-exp and label logit are all-reduced over
-``model``.  A block enters through ``block_in`` (``copy_to_model``:
-identity forward, all-reduce of the gradient over ``model``) and leaves
-through ``block_out`` (``reduce_from_model``: all-reduce forward, identity
-backward).  MLA, SSD, RG-LRU and the encoder-decoder's layers keep their
-weights gathered whole over ``model`` and compute whole on every model
-rank.
+``model``; MLA on its local heads (``wq``, ``w_uk``, ``w_uv`` column- and
+``wo`` row-parallel), the SSD mixer on its local heads and the RG-LRU on
+its local channels (their projections, convs and gates on the slice,
+``out_proj`` / ``w_out`` row-parallel; the SSD's gated norm sums its
+squares over ``model`` with ``model_sum``), and the encoder-decoder's
+self-attention, cross-attention and MLPs as the decoder's.  A block
+enters through ``block_in`` (``copy_to_model``: identity forward,
+all-reduce of the gradient over ``model``) and leaves through
+``block_out`` (``reduce_from_model``: all-reduce forward, identity
+backward).  A block whose weights do not split as it reads them (query
+heads that do not divide ``model``) keeps them gathered whole and
+computes whole on every model rank.
 
 With ``seq_parallel`` the residual stream between blocks is (B, S/model,
 d): the norms and the residual adds run on this rank's positions,
@@ -45,7 +51,10 @@ sharded from the local shapes: column-parallel projections, row-parallel
 outputs summed by one all-reduce over ``model``, attention over the local
 heads or the local length (merged by log-sum-exp), the experts of this
 rank, the LM head's vocabulary slice and a greedy argmax across the
-slices.  Serving runs under ``torch.no_grad``, so its collectives have no
+slices.  The recurrent mixers' conv windows and RG-LRU's ``h`` are whole
+on every model rank (the cache rule keeps them off ``model``): a rank
+reads its channels of them and gathers the new ones over ``model``.
+Serving runs under ``torch.no_grad``, so its collectives have no
 backward.
 """
 from __future__ import annotations
@@ -85,12 +94,14 @@ class ActivationMesh:
     on each of them.  A parameter's gradient is then one of two kinds:
       * complete over ``model``: a ``model`` slice (a TP weight), or a
         whole weight used on whole activations (the norms without
-        ``seq``, the MLA / SSD / RG-LRU weights) -- the model ranks hold
+        ``seq``, a block computed whole) -- the model ranks hold
         the same full gradient of what they hold, so it is summed over
         the batch group only, never counted ``model`` times;
       * partial over ``model`` (its id in ``partial``, marked by the code
         that uses it so): a whole weight used on this rank's part of the
-        work -- ``q_norm`` / ``k_norm`` on the local heads, the router of
+        work -- ``q_norm`` / ``k_norm`` on the local heads, MLA's
+        ``w_dkv`` / ``kv_norm`` and the SSD's ``w_B`` / ``w_C`` and their
+        convs feeding the local heads, the router of
         experts split over ``model``, the norms on the positions of a
         ``seq`` shard, a whole embedding or head on this rank's
         vocabulary slice -- summed over the batch group and ``model``.
@@ -293,6 +304,21 @@ def scatter_seq(x: torch.Tensor, act: ActivationMesh) -> torch.Tensor:
 def scale_grad(x: torch.Tensor, s: float) -> torch.Tensor:
     """x forward; its gradient times ``s`` backward."""
     return x if s == 1.0 else _ScaleGrad.apply(x, s)
+
+
+def model_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the ``model`` ranks of their parts x (a norm's sum
+    of squares over channels split over ``model``): serving's all-reduce
+    (in place); in a sharded train step an all-reduce whose gradient is
+    all-reduced too, as every rank's use of the sum feeds each part
+    (``copy_to_model`` after ``reduce_from_model`` backward); x itself
+    elsewhere."""
+    if _SERVE is not None:
+        return _SERVE.all_reduce_model(x)
+    act = _model_act()
+    if act is None:
+        return x
+    return reduce_from_model(copy_to_model(x, act), act)
 
 
 def partial_dtype(dt: torch.dtype) -> torch.dtype:

@@ -17,10 +17,9 @@ ranks, or 2 x 16 x 16 = 512), runs one step, and records:
   * ``cost`` -- the step's flops and bytes accessed (``op_stats``).
   * ``collectives`` -- each collective's count and operand bytes.
 
-A cell that ``cell_supported`` rejects, or whose family has no tensor-
-parallel serving compute, records ``skipped`` with the reason; its
-``memory`` needs no trace and is written all the same.  Records are JSON
-files under ``build/dryrun_torch/``.  Usage:
+A cell that ``cell_supported`` rejects records ``skipped`` with the
+reason; its ``memory`` needs no trace and is written all the same.
+Records are JSON files under ``build/dryrun_torch/``.  Usage:
 
     python -m repro_torch.launch.dryrun --arch qwen3-8b --shape decode_32k
     python -m repro_torch.launch.dryrun --all --mesh single
@@ -56,7 +55,7 @@ from repro_torch.launch import mesh as M
 from repro_torch.launch import op_stats
 from repro_torch.models import layers as L
 from repro_torch.models.registry import build_model
-from repro_torch.serving.serve_step import build_serve_fns, tp_unsupported
+from repro_torch.serving.serve_step import build_serve_fns
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "build", "dryrun_torch")
@@ -223,10 +222,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
                  "devices": math.prod(sizes.values())}
     rec["memory"] = plan_memory(cfg, shape, sizes, moe_impl)
     ok, reason = cell_supported(cfg, shape)
-    what = tp_unsupported(cfg)
-    if ok and shape.kind != "train" and what and sizes.get("model", 1) > 1:
-        ok, reason = False, (f"{what} has no tensor-parallel serving "
-                             "compute yet (ROADMAP Queue 1)")
     if not ok:
         rec["skipped"] = reason
         if save:

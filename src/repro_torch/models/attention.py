@@ -25,7 +25,15 @@ instead, q, k and v are gathered whole, the new entries are written by
 the rank whose slice holds their index, each rank attends its slice of
 the positions, returning its log-sum-exp beside its output, and the
 ranks' results merge by log-sum-exp before this rank's heads go through
-``wo``.
+``wo``.  The cache-free encoder gathers q, k and v whole where the heads
+do not divide.  MLA computes its query heads, ``w_uk`` and ``w_uv`` on
+this rank's heads (``w_dkv`` and ``kv_norm`` whole); its latent cache's
+length goes over ``model``, so the absorbed decode gathers the latent
+queries of every head, attends this rank's slice and merges by
+log-sum-exp before this rank's heads go through ``w_uv`` and ``wo``.
+The cross-attention reads its K/V where the cache holds them: this
+rank's heads, or every head over this rank's frames (merged by
+log-sum-exp), or every head whole.
 
 A sharded train step over ``model`` (``distributed/parallel.py``)
 computes on the same slices: q, k and v from the column slices of
@@ -33,8 +41,11 @@ computes on the same slices: q, k and v from the column slices of
 heads, ``wo`` row-parallel.  Where the kv heads do not divide over
 ``model`` (8 on 16), each rank gathers the k/v columns over ``model`` and
 keeps the kv heads of its query heads; the gather's gradient sums over the
-ranks that share a head.  Attention whose query heads do not divide, and
-MLA, compute on whole weights (under ``seq``, on the whole sequence).
+ranks that share a head.  MLA's expanded path and the cross-attention
+compute on the local heads too (MLA's whole ``w_dkv`` / ``kv_norm`` then
+compute a part of the work, so their gradients sum over ``model``).
+Attention whose query heads do not divide computes on whole weights
+(under ``seq``, on the whole sequence).
 """
 from __future__ import annotations
 
@@ -44,7 +55,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig, LOCAL_ATTN
+from repro_torch.configs.base import GLOBAL_ATTN, LOCAL_ATTN, ModelConfig
 from repro_torch.distributed import parallel as PAR
 from repro_torch.models import layers as L
 
@@ -325,27 +336,28 @@ def _write_sharded(srv, cache: dict, new: dict, offsets, positions, T: int,
     return cache["pos"]
 
 
-def _length_sharded(cfg: ModelConfig, srv, axis: str, q, cache: dict,
-                    pos2d, *, scale: float, window: int) -> torch.Tensor:
-    """Attention of whole q (B,S,Hq,D) over this rank's slice of a cache
+def _length_sharded(cfg: ModelConfig, srv, axis: str, q, k, v, kpos,
+                    pos2d, *, scale: float, window: int, cap: float
+                    ) -> torch.Tensor:
+    """Attention of whole q (B,S,Hq,Dk) over this rank's slice k (B,Tl,
+    Hkv,Dk) / v (B,Tl,Hkv,Dv), stored positions kpos (B,Tl), of a cache
     whose length goes over mesh axis ``axis`` (the decode kernel with its
-    log-sum-exp under ``pallas``, the chunked path otherwise), merged
-    with the other ranks' by log-sum-exp."""
-    kpos = cache["pos"]
-    if cfg.attn_impl == "pallas" and q.shape[1] == 1:
+    log-sum-exp under ``pallas`` where Dk == Dv, the chunked path
+    otherwise), merged with the other ranks' by log-sum-exp."""
+    if cfg.attn_impl == "pallas" and q.shape[1] == 1 \
+            and k.shape[-1] == v.shape[-1]:
         from repro_torch.kernels import ops as kops
         # a slice holds arbitrary indices: mask by the stored positions,
         # with the global fill q_pos + 1
         o, lse = kops.decode_attention(
-            q, cache["k"], cache["v"], (pos2d[:, 0] + 1).to(torch.int32),
-            scale=scale, window=window, cap=cfg.attn_softcap,
-            positions=kpos, return_lse=True)
+            q, k, v, (pos2d[:, 0] + 1).to(torch.int32), scale=scale,
+            window=window, cap=cap, positions=kpos, return_lse=True)
         lse = lse[:, None]
     else:
         o, lse = _chunked_attention(
-            q, cache["k"], cache["v"], pos2d, kpos, scale=scale,
-            causal=True, window=window, cap=cfg.attn_softcap,
-            chunk=cfg.attn_chunk, k_valid=kpos >= 0, return_lse=True)
+            q, k, v, pos2d, kpos, scale=scale, causal=True, window=window,
+            cap=cap, chunk=cfg.attn_chunk, k_valid=kpos >= 0,
+            return_lse=True)
     return srv.merge_lse(o, lse, axis)
 
 
@@ -364,9 +376,7 @@ def attention_layer(p, x: torch.Tensor, positions: torch.Tensor,
     small (usually 1), cache required.  positions: (B,S) or (3,B,S) for
     M-RoPE."""
     if cfg.mla is not None:
-        out, cache = _mla_layer(p, PAR.block_in(x, False), positions, cfg,
-                                cache, cache_offset)
-        return PAR.block_out(out, False), cache
+        return _mla_layer(p, x, positions, cfg, cache, cache_offset)
     # wo row-parallel: this rank's query heads (a serving or training
     # rank's shard)
     split = p.wo.shape[0] < cfg.q_dim
@@ -391,10 +401,15 @@ def attention_layer(p, x: torch.Tensor, positions: torch.Tensor,
         # ``pos`` has no head dim: the rule puts its length over ``model``
         # when the kv heads take that axis of k and v
         pos_axis = srv.cache_spec("pos", (srv.batch, T))[1]
-        if spec[2] is None:     # the cache holds every head: whole q/k/v
-            q = srv.gather_cols(q, cfg.q_dim)
-            k = srv.gather_cols(k, cfg.kv_dim)
-            v = srv.gather_cols(v, cfg.kv_dim)
+        whole = spec[2] is None     # the cache holds every head
+    else:
+        # cache-free (the encoder): heads that do not divide compute whole
+        whole = srv is not None and bool(
+            cfg.num_heads % srv.model or cfg.num_kv_heads % srv.model)
+    if whole:
+        q = srv.gather_cols(q, cfg.q_dim)
+        k = srv.gather_cols(k, cfg.kv_dim)
+        v = srv.gather_cols(v, cfg.kv_dim)
     # the head counts are the local shapes' (a serving rank's heads)
     q = q.reshape(B, S, -1, hd)
     if split and srv is None:          # a training rank's heads
@@ -430,8 +445,9 @@ def attention_layer(p, x: torch.Tensor, positions: torch.Tensor,
                                   cache_offset, pos2d, T, len_axis,
                                   pos_axis)
         if len_axis is not None:
-            out = _length_sharded(cfg, srv, len_axis, q, cache, pos2d,
-                                  scale=scale, window=window)
+            out = _length_sharded(cfg, srv, len_axis, q, cache["k"],
+                                  cache["v"], kpos, pos2d, scale=scale,
+                                  window=window, cap=cfg.attn_softcap)
         else:
             out = _run_attention(cfg, q, cache["k"], cache["v"], pos2d,
                                  kpos, scale=scale, causal=causal,
@@ -478,49 +494,85 @@ def _local_kv(p, k, v, cfg: ModelConfig, hl: int):
 # MLA (DeepSeek-V2): expanded without a cache, absorbed-MQA with one
 # ---------------------------------------------------------------------------
 def _mla_layer(p, x, positions, cfg: ModelConfig, cache, cache_offset):
+    """MLA on this rank's heads: the column slices of ``wq``, ``w_uk``
+    and ``w_uv`` and the row slice of ``wo`` (all of them on one
+    device).  Returns (output, cache)."""
     m = cfg.mla
+    H, nope, rope = cfg.num_heads, m.qk_nope_head_dim, m.qk_rope_head_dim
+    hl = p.wo.shape[0] // m.v_head_dim
+    split = hl < H
+    if split and (H % hl or p.wq.shape[1] != hl * (nope + rope)
+                  or p.w_uk.shape[1] != hl * nope
+                  or p.w_uv.shape[1] != hl * m.v_head_dim):
+        raise ValueError(f"{cfg.name}: MLA's {H} heads do not split into "
+                         "whole heads over model")
+    x = PAR.block_in(x, split)
+    if split:       # the latent, whole, feeds this rank's heads only
+        PAR.mark_partial(p.w_dkv, p.kv_norm)
     B, S, _ = x.shape
-    H, dt = cfg.num_heads, x.dtype
+    dt = x.dtype
     pos2d = positions if positions.dim() == 2 else positions[0]
     # the query/key head dim is nope + rope (192 for V2-Lite), not head_dim
-    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
-    q = (x @ p.wq.to(dt)).reshape(B, S, H,
-                                  m.qk_nope_head_dim + m.qk_rope_head_dim)
-    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
-    angles = L.rope_angles(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    scale = 1.0 / math.sqrt(nope + rope)
+    q = (x @ p.wq.to(dt)).reshape(B, S, hl, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    angles = L.rope_angles(positions, rope, cfg.rope_theta)
     q_rope = L.apply_rope(q_rope, angles)
     ckr = x @ p.w_dkv.to(dt)
     ckv, k_rope = ckr[..., :m.kv_lora_rank], ckr[..., m.kv_lora_rank:]
     ckv = L.rms_norm(ckv, p.kv_norm, cfg.norm_eps)
     k_rope = L.apply_rope(k_rope[:, :, None, :], angles)[:, :, 0, :]
 
-    w_uk = p.w_uk.to(dt).reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
-    w_uv = p.w_uv.to(dt).reshape(m.kv_lora_rank, H, m.v_head_dim)
+    w_uk = p.w_uk.to(dt).reshape(m.kv_lora_rank, hl, nope)
+    w_uv = p.w_uv.to(dt).reshape(m.kv_lora_rank, hl, m.v_head_dim)
 
     if cache is None:
         # expanded path: per-head k/v materialized from the latent
         k_nope = torch.einsum("btr,rhd->bthd", ckv, w_uk)
         v = torch.einsum("btr,rhd->bthd", ckv, w_uv)
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-            B, S, H, m.qk_rope_head_dim)], dim=-1)
+            B, S, hl, rope)], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
         out = _run_attention(cfg, q, k, v, pos2d, pos2d, scale=scale,
                              causal=True, window=0, cap=0.0)
     else:
         # absorbed path: attention in latent space == MQA with Dk = rank +
         # rope, Dv = rank; the cache holds only (ckv, krope)
-        cache = update_cache(cache, {"ckv": ckv, "krope": k_rope},
-                             cache_offset, pos2d)
         q_lat = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)
         q_abs = torch.cat([q_lat, q_rope], dim=-1)
+        srv = PAR.serving()
+        new = {"ckv": ckv, "krope": k_rope}
+        len_axis = None
+        if srv is None:
+            cache = update_cache(cache, new, cache_offset, pos2d)
+            kpos = cache["pos"]
+        else:
+            T = cache_len(cfg, GLOBAL_ATTN, srv.max_len)
+            len_axis = srv.cache_spec("ckv", (srv.batch, T,
+                                              m.kv_lora_rank))[1]
+            kpos = _write_sharded(
+                srv, cache, new, cache_offset, pos2d, T, len_axis,
+                srv.cache_spec("pos", (srv.batch, T))[1])
         k_abs = torch.cat([cache["ckv"], cache["krope"]], dim=-1)[:, :, None]
         v_abs = cache["ckv"][:, :, None]
-        ctx = _run_attention(cfg, q_abs, k_abs, v_abs, pos2d, cache["pos"],
-                             scale=scale, causal=True, window=0, cap=0.0,
-                             k_valid=cache["pos"] >= 0)
+        if len_axis is None:
+            ctx = _run_attention(cfg, q_abs, k_abs, v_abs, pos2d, kpos,
+                                 scale=scale, causal=True, window=0,
+                                 cap=0.0, k_valid=kpos >= 0)
+        else:
+            # a slice of the length: every head attends it (the latent
+            # queries gathered when the heads go over the same axis)
+            every = len_axis == "model" and split
+            if every:
+                q_abs = srv.all_gather(q_abs, ("model",), dim=2)
+            ctx = _length_sharded(cfg, srv, len_axis, q_abs, k_abs, v_abs,
+                                  kpos, pos2d, scale=scale, window=0,
+                                  cap=0.0)
+            if every:
+                ctx = ctx[:, :, srv.model_rank * hl:(srv.model_rank + 1) * hl]
         out = torch.einsum("bshr,rhd->bshd", ctx, w_uv)
-    out = out.reshape(B, S, H * m.v_head_dim)
-    return out @ p.wo.to(dt), cache
+    out = out.reshape(B, S, hl * m.v_head_dim)
+    return PAR.block_out(L.row_product(out, p.wo, split), split, dt), cache
 
 
 # ---------------------------------------------------------------------------
@@ -539,17 +591,36 @@ class CrossAttention(nn.Module):
         self.wo = L.param(L.dense_init(gen, cfg.q_dim, d, pd))
 
 
+def _cross_axis(srv, cfg: ModelConfig, T: int):
+    """(heads over model, the mesh axis of the frames or None) of the
+    cross K/V cache of T frames under the serving layout ``srv``."""
+    spec = srv.cache_spec("xk", (srv.batch, T, cfg.num_heads,
+                                 cfg.head_dim))
+    return spec[2] is not None, spec[1]
+
+
 def cross_attention_layer(p, x: torch.Tensor, enc_kv, cfg: ModelConfig
                           ) -> torch.Tensor:
     """x: (B,S,d); enc_kv: (k, v) precomputed from the encoder output,
-    (B,T,H,D) each.  Every query sees every frame."""
+    (B,T,H,D) each (this rank's heads, or its frames, in a shard).  Every
+    query sees every frame."""
+    split = p.wo.shape[0] < cfg.q_dim
+    x = PAR.block_in(x, split)
     dt = x.dtype
     B, S, _ = x.shape
     k, v = enc_kv
     T = k.shape[1]
-    q = (x @ p.wq.to(dt)).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    q = x @ p.wq.to(dt)
+    srv = PAR.serving()
+    axis = None
+    if srv is not None:
+        heads, axis = _cross_axis(srv, cfg, cfg.num_audio_frames)
+        if not heads:       # the cache holds every head: whole q
+            q = srv.gather_cols(q, cfg.q_dim)
+    q = q.reshape(B, S, -1, cfg.head_dim)
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    if cfg.attn_impl == "pallas" and S == 1:
+    pallas_decode = cfg.attn_impl == "pallas" and S == 1
+    if pallas_decode:
         from repro_torch.kernels import ops as kops
         # Every frame counts: the fill is T in every row, inactive slots
         # included (their output is dropped, as under ``chunked``, which
@@ -557,25 +628,60 @@ def cross_attention_layer(p, x: torch.Tensor, enc_kv, cfg: ModelConfig
         # here, so its kernel attends no frame and the cross term is 0;
         # ``_run_attention``'s q_pos + 1 would attend frame 0 alone.
         fill = torch.full((B,), T, dtype=torch.int32, device=x.device)
+    else:
+        pos_q = torch.zeros((B, S), dtype=torch.int32, device=x.device)
+        pos_k = torch.zeros((B, T), dtype=torch.int32, device=x.device)
+    if axis is not None:
+        # this rank's frames, every head: merged by log-sum-exp
+        if pallas_decode:
+            o, lse = kops.decode_attention(q, k, v, fill, scale=scale,
+                                           return_lse=True)
+            lse = lse[:, None]
+        else:
+            o, lse = _chunked_attention(q, k, v, pos_q, pos_k, scale=scale,
+                                        causal=False, chunk=cfg.attn_chunk,
+                                        return_lse=True)
+        out = srv.merge_lse(o, lse, axis)
+    elif pallas_decode:
         out = kops.decode_attention(q, k, v, fill, scale=scale)
     else:
         # a chunk of T queries is cache-free and takes the flash kernel
         # (non-causal) under ``pallas``; other lengths the plain paths
-        pos_q = torch.zeros((B, S), dtype=torch.int32, device=x.device)
-        pos_k = torch.zeros((B, T), dtype=torch.int32, device=x.device)
         out = _run_attention(cfg, q, k, v, pos_q, pos_k, scale=scale,
                              causal=False, window=0, cap=0.0)
-    return out.reshape(B, S, cfg.q_dim) @ p.wo.to(dt)
+    out = out.reshape(B, S, -1)
+    rows = p.wo.shape[0]
+    if rows < out.shape[-1]:
+        # every head here, wo row-parallel: this rank's heads
+        out = out[..., srv.model_rank * rows:(srv.model_rank + 1) * rows]
+    return PAR.block_out(L.row_product(out, p.wo, split), split, dt)
 
 
 def encode_cross_kv(p, enc_out: torch.Tensor, cfg: ModelConfig
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decoder layer's cross K/V from the encoder output: (B,T,H,D)
     each, contiguous (the decode kernel reads them through their
-    strides)."""
+    strides).  On the column slices of ``wk`` / ``wv``: this rank's heads;
+    under a serving layout, laid out as the cache rule places them (this
+    rank's heads, or every head over this rank's frames, or whole)."""
+    split = p.wk.shape[1] < cfg.q_dim
+    enc_out = PAR.block_in(enc_out, split)
     dt = enc_out.dtype
     B, T, _ = enc_out.shape
-    shape = (B, T, cfg.num_heads, cfg.head_dim)
-    k = (enc_out @ p.wk.to(dt)).reshape(shape)
-    v = (enc_out @ p.wv.to(dt)).reshape(shape)
-    return k, v
+    k = enc_out @ p.wk.to(dt)
+    v = enc_out @ p.wv.to(dt)
+    srv = PAR.serving()
+    if srv is not None:
+        if T != cfg.num_audio_frames:
+            raise ValueError(f"{cfg.name}: a mesh serves "
+                             f"{cfg.num_audio_frames} encoder frames, not {T}")
+        heads, axis = _cross_axis(srv, cfg, T)
+        if not heads:
+            k = srv.gather_cols(k, cfg.q_dim)
+            v = srv.gather_cols(v, cfg.q_dim)
+        if axis is not None:
+            n = srv.sizes[axis]
+            lo = srv.coord[axis] * (T // n)
+            k, v = k[:, lo:lo + T // n], v[:, lo:lo + T // n]
+    shape = (B, k.shape[1], -1, cfg.head_dim)
+    return k.reshape(shape).contiguous(), v.reshape(shape).contiguous()

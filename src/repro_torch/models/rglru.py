@@ -7,6 +7,12 @@ CPU tensors), under ``chunked`` as a plain-torch parallel prefix scan
 (the JAX package's ``associative_scan`` path, ``Bc + A h0``).  Decode is
 the O(1) update, plain torch, as in the JAX package.  Gates are diagonal
 (per channel), as in the JAX package.
+
+On a serving or training rank's shard (``distributed/parallel.py``) the
+block computes its channels (``w_x`` / ``w_gate``, the conv, the gates
+and the scan on the slice, ``w_out`` row-parallel).  The cache's conv
+window and ``h`` are whole on every model rank: the rank reads its
+channels of them and gathers the new ones over ``model``.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import parallel as PAR
 from repro_torch.models import layers as L
 from repro_torch.models.ssm import causal_conv
 
@@ -85,10 +92,23 @@ def rglru_block(p: RGLRU, x: torch.Tensor, cfg: ModelConfig,
     """x: (B,S,d) -> (B,S,d).  ``valid`` (B,S): pad tokens get a=1, b=0
     (identity recurrence) so ragged chunk tails are exactly inert.  The
     cache dict's entries are replaced by the new conv window and h."""
+    # w_out row-parallel: this rank's channels (a serving or training
+    # rank's shard)
+    w, wl = cfg.lru_width or cfg.d_model, p.w_out.shape[0]
+    split = wl < w
+    x = PAR.block_in(x, split)
     dt = x.dtype
     gate = F.gelu(x @ p.w_gate.to(dt), approximate="tanh")
     u = x @ p.w_x.to(dt)
-    conv_state = cache["conv"] if cache is not None else None
+    conv_state = h0 = None
+    if cache is not None:
+        conv_state, h0 = cache["conv"], cache["h"]
+        if split:               # whole on every model rank: this slice
+            srv = PAR.serving()
+            lo = srv.model_rank * wl
+            conv_state = conv_state[..., lo:lo + wl]
+            # the kernel takes h0 contiguous
+            h0 = h0[:, lo:lo + wl].contiguous()
     vn = valid.sum(-1).to(torch.int32) if valid is not None else None
     u, new_conv = causal_conv(u, p.conv_w, p.conv_b, conv_state, act=False,
                               valid_n=vn)
@@ -98,7 +118,6 @@ def rglru_block(p: RGLRU, x: torch.Tensor, cfg: ModelConfig,
         a = torch.where(v, a, 1.0)
         b = torch.where(v, b, 0.0)
 
-    h0 = cache["h"] if cache is not None else None
     if cache is not None and x.shape[1] == 1:
         h_last = a[:, 0] * h0 + b[:, 0]
         hs = h_last[:, None]
@@ -111,7 +130,10 @@ def rglru_block(p: RGLRU, x: torch.Tensor, cfg: ModelConfig,
             hs = hs + A * h0[:, None, :]
         h_last = hs[:, -1].contiguous()
     if cache is not None:
+        if split:
+            new_conv = srv.gather_cols(new_conv, w)
+            h_last = srv.gather_cols(h_last, w)
         cache["conv"] = new_conv
         cache["h"] = h_last
-    out = (gate * hs.to(dt)) @ p.w_out.to(dt)
-    return out, cache
+    out = L.row_product(gate * hs.to(dt), p.w_out, split)
+    return PAR.block_out(out, split, dt), cache

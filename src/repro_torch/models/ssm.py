@@ -9,6 +9,15 @@ recurrent update, plain torch, as in the JAX package.
 Projections are kept separate (w_z / w_x / w_B / w_C / w_dt + per-stream
 depthwise convs) with the JAX package's names, so its parameter tree
 loads 1:1 (``weights.params_from_jax``).
+
+On a serving or training rank's shard (``distributed/parallel.py``) the
+block computes its heads: ``w_z`` / ``w_x`` / ``w_dt``, the x conv,
+``A_log`` / ``D`` / ``dt_bias`` and ``gate_norm`` on the slice, ``w_B`` /
+``w_C`` and their convs whole (one group), ``out_proj`` row-parallel.
+The gated norm's sum of squares runs over every channel
+(``PAR.model_sum``).  The cache's ``state`` holds this rank's heads; its
+x conv window is whole on every model rank, so the rank reads its
+channels and gathers the new window over ``model``.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import parallel as PAR
 from repro_torch.models import layers as L
 
 
@@ -169,6 +179,18 @@ def init_ssd_cache(cfg: ModelConfig, batch: int, device) -> dict:
     }
 
 
+def gated_norm(y: torch.Tensor, scale: torch.Tensor, eps: float,
+               width: int) -> torch.Tensor:
+    """``L.rms_norm`` over all ``width`` channels of y (..., c) that holds
+    c of them (this rank's slice when c < width): the sum of squares is
+    summed over ``model`` before the slice is scaled."""
+    if y.shape[-1] == width:
+        return L.rms_norm(y, scale, eps)
+    yf = y.float()
+    var = PAR.model_sum(yf.square().sum(dim=-1, keepdim=True)) / width
+    return (yf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(y.dtype)
+
+
 def ssd_block(p: SSD, x: torch.Tensor, cfg: ModelConfig,
               cache: Optional[dict] = None,
               valid: Optional[torch.Tensor] = None
@@ -180,6 +202,17 @@ def ssd_block(p: SSD, x: torch.Tensor, cfg: ModelConfig,
     The cache dict's entries are replaced by the new conv windows and
     state."""
     s, d_in, nheads, gn = _dims(cfg)
+    # out_proj row-parallel: this rank's heads (a serving or training
+    # rank's shard)
+    dl, hl = p.out_proj.shape[0], p.A_log.shape[0]
+    split = dl < d_in
+    if split and (dl != hl * s.head_dim or s.n_groups != 1):
+        raise ValueError(f"{cfg.name}: the SSD's {nheads} heads in "
+                         f"{s.n_groups} groups do not split over model")
+    x = PAR.block_in(x, split)
+    if split:       # whole, feeding this rank's heads only
+        PAR.mark_partial(p.w_B, p.w_C, p.conv_B_w, p.conv_B_b, p.conv_C_w,
+                         p.conv_C_b)
     B, S, d = x.shape
     dt_ = x.dtype
     z = x @ p.w_z.to(dt_)
@@ -188,14 +221,18 @@ def ssd_block(p: SSD, x: torch.Tensor, cfg: ModelConfig,
     C_in = x @ p.w_C.to(dt_)
     dt_raw = x @ p.w_dt.to(dt_)
 
+    srv = PAR.serving()
+    lo = srv.model_rank * dl if split and srv is not None else 0
     vn = valid.sum(-1).to(torch.int32) if valid is not None else None
     convs = {}
     for name, u in (("x", xs_), ("B", B_in), ("C", C_in)):
         c = cache[f"conv_{name}"] if cache is not None else None
+        if c is not None and name == "x" and split:
+            c = c[..., lo:lo + dl]          # the window is whole
         convs[name] = causal_conv(u, getattr(p, f"conv_{name}_w"),
                                   getattr(p, f"conv_{name}_b"), c,
                                   valid_n=vn)
-    xs = convs["x"][0].reshape(B, S, nheads, s.head_dim)
+    xs = convs["x"][0].reshape(B, S, hl, s.head_dim)
     B_mat = convs["B"][0].reshape(B, S, s.n_groups, s.state_dim)
     C_mat = convs["C"][0].reshape(B, S, s.n_groups, s.state_dim)
     dt = F.softplus(dt_raw.float() + p.dt_bias[None, None, :])
@@ -221,8 +258,11 @@ def ssd_block(p: SSD, x: torch.Tensor, cfg: ModelConfig,
         cache["state"] = new_state
         for name in ("x", "B", "C"):
             cache[f"conv_{name}"] = convs[name][1]
+        if split:
+            cache["conv_x"] = srv.gather_cols(convs["x"][1], d_in)
 
     y = y + xs * p.D[None, None, :, None].to(dt_)
-    y = y.reshape(B, S, d_in)
-    y = L.rms_norm(y * F.silu(z), p.gate_norm, cfg.norm_eps)
-    return y @ p.out_proj.to(dt_), cache
+    y = y.reshape(B, S, dl)
+    y = gated_norm(y * F.silu(z), p.gate_norm, cfg.norm_eps, d_in)
+    return PAR.block_out(L.row_product(y, p.out_proj, split), split,
+                         dt_), cache

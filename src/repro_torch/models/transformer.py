@@ -132,11 +132,9 @@ class DecoderLayer(nn.Module):
         if PAR.seq_sharded():       # the norms see this rank's positions
             PAR.mark_partial(*self.parameters(recurse=False))
         h = L.rms_norm(x, self.norm1, cfg.norm_eps)
-        if self.kind in (SSD, RGLRU):   # whole weights, whole sequence
+        if self.kind in (SSD, RGLRU):
             block = SM.ssd_block if self.kind == SSD else R.rglru_block
-            mix, cache = block(self.mixer, PAR.block_in(h, False), cfg,
-                               cache, valid)
-            mix = PAR.block_out(mix, False)
+            mix, cache = block(self.mixer, h, cfg, cache, valid)
         else:
             mix, cache = A.attention_layer(self.mixer, h, positions, cfg,
                                            self.kind, cache, offsets)

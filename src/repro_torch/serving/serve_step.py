@@ -4,9 +4,11 @@ over a mesh.
 ``build_serve_fns(cfg, mesh=None, batch=, max_len=, device=)`` returns
 the data-plane functions the engine (and the dry run) calls:
 
-  * ``prefill_chunk(module, cache, tokens(B,C), lengths(B,), valid_n(B,))``
-      -> (next_token (B,), last_logits (B,V), cache)
+  * ``prefill_chunk(module, cache, tokens(B,C), lengths(B,), valid_n(B,),
+    frames=None)`` -> (next_token (B,), last_logits (B,V), cache)
     Ragged tails are exact: pad entries are written with position -1.
+    ``frames`` (B, T_enc, d): an encoder-decoder encodes them and fills
+    every layer's cross K/V first (the engine passes none).
   * ``decode(module, cache, tokens(B,), lengths(B,), active(B,))``
       -> (next_token (B,), cache)
   * ``reset_slots(cache, keep_mask(B,))`` — invalidate freed slots' cache
@@ -27,11 +29,12 @@ batch rows of its block of the cache's batch axis.  The functions still
 take and return whole (B,) / (B, V) tensors: each rank takes its rows,
 computes on its shards under the serving layout
 (``distributed/parallel.py``), and gathers the sampled tokens (and
-prefill's last logits) back, so every rank returns the same.  Families
-whose mixers have no tensor-parallel compute (MLA, SSD, RG-LRU, the
-encoder-decoder) serve on a mesh only with ``model`` 1, their rows over
-``data``.  The pod axis repeats the step: the cache rule keeps it off
-the cache.
+prefill's last logits) back, so every rank returns the same.  Every
+family computes tensor-parallel over ``model``: attention and MLA on
+their heads (or on a length shard of the cache), the SSD and RG-LRU
+mixers on their heads and channels, the encoder-decoder's encoder,
+decoder and cross-attention as the decoder-only layers.  The pod axis
+repeats the step: the cache rule keeps it off the cache.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import RGLRU, SSD, ModelConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.registry import Model, build_model
 from repro_torch.serving.sampler import sample
@@ -109,12 +112,12 @@ def build_serve_fns(cfg: ModelConfig, mesh=None, *, batch: int,
                               prefill_chunk, temperature, shard_cache_length)
 
     @torch.no_grad()
-    def _prefill(module, cache, tokens, lengths, valid_n):
+    def _prefill(module, cache, tokens, lengths, valid_n, frames=None):
         B, C = tokens.shape
         valid = torch.arange(C, device=tokens.device)[None, :] \
             < valid_n[:, None]
         logits, cache = model.prefill(module, tokens, cache, lengths,
-                                      valid=valid)
+                                      valid=valid, frames=frames)
         idx = torch.clamp(valid_n.long() - 1, min=0)
         last = logits[torch.arange(B, device=logits.device), idx]  # (B, V)
         nxt = sample(last, temperature=temperature)
@@ -142,20 +145,6 @@ def build_serve_fns(cfg: ModelConfig, mesh=None, *, batch: int,
 # ---------------------------------------------------------------------------
 # the mesh branch
 # ---------------------------------------------------------------------------
-def tp_unsupported(cfg: ModelConfig) -> Optional[str]:
-    """The part of ``cfg`` that has no tensor-parallel compute, or None."""
-    kinds = set(cfg.pattern_for_layers())
-    if cfg.is_encoder_decoder:
-        return "the encoder-decoder stack"
-    if cfg.mla is not None:
-        return "MLA attention"
-    if SSD in kinds:
-        return "the SSD mixer"
-    if RGLRU in kinds:
-        return "the RG-LRU mixer"
-    return None
-
-
 def _build_sharded(cfg: ModelConfig, mesh, model: Model, dev: torch.device,
                    batch: int, max_len: int, chunk: int, temperature: float,
                    shard_length: bool) -> ServeFns:
@@ -170,12 +159,6 @@ def _build_sharded(cfg: ModelConfig, mesh, model: Model, dev: torch.device,
     if dev.type != "meta" and mesh.device_type != dev.type:
         raise ValueError(f"a {mesh.device_type} mesh cannot serve on {dev}")
     sizes = SH.mesh_sizes(mesh)
-    what = tp_unsupported(cfg)
-    if what is not None and sizes.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: {what} has no tensor-parallel compute yet "
-            "(ROADMAP Queue 1: TP compute for MLA, SSM, RG-LRU and "
-            "encoder-decoder serving); serve it on a mesh with model 1")
     rules = SH.rules_for(cfg, "serve", sizes)
     srv = PAR.ServeLayout(mesh, batch=batch, max_len=max_len,
                           shard_length=shard_length, ep=rules.ep)
@@ -217,15 +200,17 @@ def _build_sharded(cfg: ModelConfig, mesh, model: Model, dev: torch.device,
         return srv.gather_rows(tok, always=True)
 
     @torch.no_grad()
-    def _prefill(module, cache, tokens, lengths, valid_n):
+    def _prefill(module, cache, tokens, lengths, valid_n, frames=None):
         tokens, lengths, valid_n = map(srv.local_rows,
                                        (tokens, lengths, valid_n))
+        if frames is not None:
+            frames = srv.local_rows(frames)
         B, C = tokens.shape
         valid = torch.arange(C, device=tokens.device)[None, :] \
             < valid_n[:, None]
         with PAR.serve_layout(srv):
             logits, cache = model.prefill(module, tokens, cache, lengths,
-                                          valid=valid)
+                                          valid=valid, frames=frames)
             idx = torch.clamp(valid_n.long() - 1, min=0)
             last = logits[torch.arange(B, device=logits.device), idx]
             nxt = pick(last)

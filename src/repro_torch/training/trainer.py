@@ -16,16 +16,20 @@ included) are DTensors, ZeRO-3 over ``data`` and the TP dims over
 ``model``.  ``train_step`` takes the global batch on every rank; each
 microbatch is split over the batch axes (``pod``/``data``).  The blocks
 compute tensor-parallel over ``model`` (``distributed/parallel.py``): a
-weight of GQA attention, of the dense MLP or the MoE shared experts, of
-the routed experts, the embedding or the LM head is gathered over its
-FSDP axes only and this rank computes on its ``model`` slice; MLA, SSD,
-RG-LRU and the encoder-decoder's layers gather their weights whole and
-every model rank computes them whole.  ``seq_parallel`` (the JAX
-package's keyword) shards the residual stream over ``model`` on the
-sequence between blocks; without a mesh, or with ``model`` 1, it does
-nothing.  Each gradient is summed over the ranks that hold a part of it
-(the rule is ``ActivationMesh``'s) and cut to this rank's slices before
-the update, whose norms and means reduce across the slices.
+weight of GQA attention or MLA, of the SSD or RG-LRU mixer, of the dense
+MLP or the MoE shared experts, of the routed experts, of the
+encoder-decoder's attention, cross-attention and MLPs, the embedding or
+the LM head is gathered over its FSDP axes only and this rank computes
+on its ``model`` slice (``tp_names``); a block whose weights do not
+split as it reads them gathers them whole and every model rank computes
+it whole.  ``seq_parallel`` (the JAX package's keyword) shards the
+residual stream over ``model`` on the sequence between blocks (each
+block gathers the sequence on entry and reduce-scatters on exit; the
+encoder-decoder's stream stays whole); without a mesh, or with
+``model`` 1, it does nothing.  Each gradient is summed over the ranks
+that hold a part of it (the rule is ``ActivationMesh``'s) and cut to
+this rank's slices before the update, whose norms and means reduce
+across the slices.
 
 The step launches its work and returns: no value is read on the host, so
 ``metrics["loss"]`` stays a device tensor until the caller reads it.
@@ -190,32 +194,62 @@ def _microbatch(batch, accum: int) -> int:
 # ---------------------------------------------------------------------------
 # the mesh branch
 # ---------------------------------------------------------------------------
+# the weights of a block computed on its ``model`` slices: name -> the
+# dim the ``model`` axis must shard (MLA on its heads; the SSD mixer on its
+# heads; the RG-LRU on its channels)
+MLA_SLICES = {"wq": 1, "w_uk": 1, "w_uv": 1, "wo": 0}
+SSD_SLICES = {"w_z": 1, "w_x": 1, "w_dt": 1, "conv_x_w": 1, "conv_x_b": 0,
+              "A_log": 0, "D": 0, "dt_bias": 0, "gate_norm": 0,
+              "out_proj": 0}
+RGLRU_SLICES = {"w_gate": 1, "w_x": 1, "conv_w": 1, "conv_b": 0,
+                "lambda_": 0, "a_gate_w": 0, "a_gate_b": 0, "i_gate_w": 0,
+                "i_gate_b": 0, "w_out": 0}
+CROSS_SLICES = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
+
+
 def tp_names(cfg: ModelConfig, model_dims: Dict[str, Optional[int]],
              model: int) -> Set[str]:
     """The parameters a training rank computes on as its ``model`` slice.
     ``model_dims``: {name: the dim the ``model`` axis shards, or None}.
     A module is computed tensor-parallel when its weights split as the
     layers read them: GQA attention with whole query heads a rank
-    (``wq`` / ``wo``, and ``wk`` / ``wv`` where they split), the gated
-    MLP (``mlp`` and the MoE ``shared`` experts), the routed experts by
-    expert or hidden dim (with their shared experts), the embedding's
-    rows and the LM head's columns.  MLA, SSD, RG-LRU and the
-    encoder-decoder are not covered: their weights are gathered whole."""
-    if model == 1 or cfg.encoder_layers:
+    (``wq`` / ``wo``, and ``wk`` / ``wv`` where they split), MLA with
+    whole heads a rank (``wq``, ``w_uk``, ``w_uv``, ``wo``), the
+    encoder-decoder's cross-attention with whole heads a rank, the SSD
+    mixer with whole heads a rank in one group, the RG-LRU mixer, the
+    gated MLP (``mlp`` and the MoE ``shared`` experts), the routed
+    experts by expert or hidden dim (with their shared experts), the
+    embedding's rows and the LM head's columns."""
+    if model == 1:
         return set()
 
     def cut(name, dim):
         return model_dims.get(name) == dim
+
+    def block(pre, slices, ok=True):
+        return {pre + w for w in slices} if ok and all(
+            cut(pre + w, d) for w, d in slices.items()) else set()
+    heads = cfg.num_heads % model == 0
     keep: Set[str] = set()
     for n in model_dims:
-        if n.endswith("mixer.wq") and cfg.mla is None:
+        if n.endswith("mixer.wq") and cfg.mla is not None:
+            keep |= block(n[:-2], MLA_SLICES, heads)
+        elif n.endswith("mixer.wq"):
             pre = n[:-2]
-            if cut(n, 1) and cut(pre + "wo", 0) \
-                    and cfg.num_heads % model == 0:
+            if cut(n, 1) and cut(pre + "wo", 0) and heads:
                 keep |= {n, pre + "wo"}
                 keep |= {pre + b for b in ("bq", "bk", "bv")
                          if cut(pre + b, 0)}
                 keep |= {pre + w for w in ("wk", "wv") if cut(pre + w, 1)}
+        elif n.endswith("cross.wq"):
+            keep |= block(n[:-2], CROSS_SLICES, heads)
+        elif n.endswith("mixer.out_proj"):
+            s = cfg.ssm
+            keep |= block(n[:-len("out_proj")], SSD_SLICES,
+                          s.n_groups == 1 and (s.expand * cfg.d_model
+                                               // s.head_dim) % model == 0)
+        elif n.endswith("mixer.w_out"):
+            keep |= block(n[:-len("w_out")], RGLRU_SLICES)
         elif n.endswith(("mlp.w_gate", "moe.shared.w_gate")):
             pre = n[:-len("w_gate")]
             if cut(n, 1) and cut(pre + "w_up", 1) and cut(pre + "w_down", 0):

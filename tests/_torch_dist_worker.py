@@ -1,7 +1,9 @@
 """One rank of the port's distributed CPU tests (gloo), started by
 ``tests/_torch_dist.py``; imports torch and the port only.
 
-    python tests/_torch_dist_worker.py distributed|training|tp OUT_DIR
+    python tests/_torch_dist_worker.py CASE OUT_DIR
+
+CASE is one of distributed, training, tp and tp_families.
 
 ``distributed``: the collectives, compression and GPipe on seeded numpy
 inputs; every rank writes ``distributed_r<rank>.npz``.
@@ -14,10 +16,20 @@ and without ``seq_parallel``; rank 0 writes the losses, grad norms,
 gathered parameters and every rank's compute-module shapes), and one run
 whose gradient rule counts the replicated 1-D weights' gradients
 ``model`` times (``TP_WRONG``).
+``tp_families``: the same for each ``TP_FAMILY_RUNS`` case (MLA, the SSD
+and RG-LRU mixers and the encoder-decoder computed tensor-parallel), and
+one run whose SSD gated norm normalises this rank's channels alone
+(``GATE_NORM_WRONG``).
+
+The one-device references the tests hold these runs to are here too
+(``one_device_run``, ``one_device_grads``), with the pattern of the
+weight names the blocks compute on as ``model`` slices (``TP_WEIGHTS``).
 """
 import dataclasses
+import functools
 import json
 import os
+import re
 import sys
 
 import numpy as np
@@ -62,17 +74,80 @@ TP_RUNS = ([("qwen3", s, sp) for s in ((1, 4), (2, 2))
                                          "qwen3_adafactor")
               for sp in (False, True)])
 TP_WRONG = ("qwen3", (1, 4), False)
+# the tensor-parallel families: MLA (with the routed experts), the SSD
+# mixer, the RG-LRU mixer with its local attention, the encoder-decoder
+FAMILY_ARCHS = {"deepseek": ("deepseek-v2-lite-16b", {}),
+                "mamba2": ("mamba2-370m", {}),
+                "rgemma": ("recurrentgemma-2b", {}),
+                "whisper": ("whisper-large-v3", {})}
+TP_FAMILY_RUNS = [(n, s, sp) for n in FAMILY_ARCHS
+                  for s in ((2, 2), (1, 4)) for sp in (False, True)]
+GATE_NORM_WRONG = ("mamba2", (1, 4), False)
+# the weights the blocks compute on as model slices, where the rules
+# shard them over ``model``
+TP_WEIGHTS = re.compile(
+    r"((mixer|cross)\.w[qkvo]|mixer\.b[qkv]|mixer\.w_u[kv]|"
+    r"mixer\.(w_[zx]|w_dt|conv_x_[wb]|A_log|D|dt_bias|gate_norm|out_proj)|"
+    r"mixer\.(w_gate|conv_[wb]|lambda_|[ai]_gate_[wb]|w_out)|"
+    r"(mlp|shared)\.w_(gate|up|down)|moe\.w_(gate|up|down)|^embed|"
+    r"^lm_head)$")
 
 
 def train_cfg(name: str):
-    arch, over = ARCHS[name] if name in ARCHS else TP_ARCHS[name]
+    arch, over = {**TP_ARCHS, **FAMILY_ARCHS, **ARCHS}[name]
     kw = {"dtype": "float32", "attn_impl": "chunked", **over}
     return dataclasses.replace(smoke_config(arch), **kw)
 
 
 def batches(cfg, n: int = STEPS):
+    """``n`` SyntheticLM batches (an encoder-decoder's with seeded random
+    frames)."""
     src = SyntheticLM(cfg, SEQ, BATCH, seed=0)
-    return [next(src) for _ in range(n)]
+    out = [next(src) for _ in range(n)]
+    if cfg.is_encoder_decoder:
+        rng = np.random.default_rng(5)
+        for b in out:
+            b["frames"] = rng.standard_normal(
+                (BATCH, cfg.num_audio_frames, cfg.d_model)).astype(
+                    np.float32)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def one_device_grads(name):
+    """The first batch's gradients of the one-device trainer."""
+    cfg = train_cfg(name)
+    tr = build_trainer(cfg, **TRAIN_KW)
+    _, grads = tr.grads(tr.init_state(0), {
+        k: torch.from_numpy(v) for k, v in batches(cfg, 1)[0].items()})
+    return {n: g.detach().numpy().copy() for n, g in grads.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def one_device_run(name):
+    """(losses, grad norms, final parameters) of ``STEPS`` one-device
+    steps."""
+    cfg = train_cfg(name)
+    tr = build_trainer(cfg, **TRAIN_KW)
+    state = tr.init_state(0)
+    losses, norms = [], []
+    for b in batches(cfg):
+        state, m = tr.train_step(state, {k: torch.from_numpy(v)
+                                         for k, v in b.items()})
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return losses, norms, {n: p.detach().numpy().copy()
+                           for n, p in state.named_params().items()}
+
+
+def agrees(got, name) -> bool:
+    """Whether a sharded run's losses, grad norms (1e-5 relative) and
+    parameters (1e-5 absolute) are the one-device run's."""
+    losses, norms, params = one_device_run(name)
+    return (np.allclose(got["losses"], losses, rtol=1e-5, atol=0)
+            and np.allclose(got["norms"], norms, rtol=1e-5, atol=0)
+            and all(np.allclose(got[f"leaf:params.{n}"], p, rtol=0,
+                                atol=1e-5) for n, p in params.items()))
 
 
 def inputs(seed: int = 0):
@@ -252,12 +327,33 @@ def case_tp(out: str) -> None:
               norms, grads)
 
 
+def case_tp_families(out: str) -> None:
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as SM
+    for name, shape, sp in TP_FAMILY_RUNS:
+        grads = first_grads(name, shape, sp)
+        tr, state, losses, norms = run_sharded(name, shape, seq_parallel=sp)
+        _save_run(out, tp_tag(name, shape, sp), tr, state, losses, norms,
+                  grads)
+    # a wrong gated norm: each rank normalises its channels alone
+    right = SM.gated_norm
+    SM.gated_norm = lambda y, scale, eps, width: L.rms_norm(y, scale, eps)
+    try:
+        name, shape, sp = GATE_NORM_WRONG
+        grads = first_grads(name, shape, sp)
+        tr, state, losses, norms = run_sharded(name, shape, seq_parallel=sp)
+    finally:
+        SM.gated_norm = right
+    _save_run(out, tp_tag(name, shape, sp, wrong=True), tr, state, losses,
+              norms, grads)
+
+
 def main() -> int:
     case, out = sys.argv[1], sys.argv[2]
     torch.set_num_threads(1)
     init_distributed("cpu")
     {"distributed": case_distributed, "training": case_training,
-     "tp": case_tp}[case](out)
+     "tp": case_tp, "tp_families": case_tp_families}[case](out)
     dist.barrier()
     dist.destroy_process_group()
     return 0

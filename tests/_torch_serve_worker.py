@@ -1,6 +1,8 @@
 """One rank of the port's sharded-serving CPU tests (gloo), started by
-``tests/test_torch_serve_mesh.py`` and ``tests/test_torch_dryrun.py``
-through ``tests/_torch_dist.py``; imports torch and the port only.
+``tests/test_torch_serve_mesh.py``,
+``tests/test_torch_serve_mesh_families.py`` and
+``tests/test_torch_dryrun.py`` through ``tests/_torch_dist.py``; imports
+torch and the port only.
 
     python tests/_torch_serve_worker.py IN_DIR OUT_DIR
     python tests/_torch_serve_worker.py opstats OUT_DIR
@@ -11,9 +13,9 @@ reference's, carried into the port by the test).  For every case and
 mesh every rank serves ``serve_mixed_slo`` through
 ``ModelExecutor(mesh=)``, runs a ragged prefill and greedy decode steps
 through the mesh branch's ``prefill_chunk`` / ``decode`` (the decode
-logits from one-token chunks on a second cache), resets slots, and
-writes ``<name>__<mesh>__r<rank>.json`` / ``.npz``.  Last, a ``model``
-4 mesh for mamba2-370m must raise; rank 0 writes what it raised.
+logits from one-token chunks on a second cache; an encoder-decoder's
+first prefill encodes the case's ``frames``), resets slots, and writes
+``<name>__<mesh>__r<rank>.json`` / ``.npz``.
 
 ``opstats``: one decode step of the Qwen3 smoke config (fp32,
 ``chunked``) on the (1, 4) mesh under ``launch/op_stats.analyze``;
@@ -61,10 +63,11 @@ def serve_report(cfg, weights, mesh):
 
 
 def logits_run(cfg, module, mesh, inp):
-    """Ragged prefill and greedy decode steps, with a reset of the slots
-    ``keep`` drops before step ``reset_at``; every logit (B, V) and token
-    the serve functions return (one device when ``mesh`` is None), the
-    cache's local shapes and whether the reset left the dropped rows'
+    """Ragged prefill (given ``frames``, encoding them first) and greedy
+    decode steps, with a reset of the slots ``keep`` drops before step
+    ``reset_at``; every logit (B, V) and token the serve functions return
+    (one device when ``mesh`` is None), the cache's local shapes (at init
+    and at the end) and whether the reset left the dropped rows'
     positions at -1."""
     B, T = inp["batch"], inp["max_len"]
     fns = build_serve_fns(cfg, mesh, batch=B, max_len=T, device="cpu")
@@ -74,9 +77,12 @@ def logits_run(cfg, module, mesh, inp):
     toks = torch.tensor(inp["prompt"], dtype=torch.int32)
     lens = torch.zeros(B, dtype=torch.int32)
     vn = torch.tensor(inp["valid_n"], dtype=torch.int32)
+    frames = (torch.tensor(inp["frames"], dtype=torch.float32)
+              if "frames" in inp else None)
     out = {}
-    nxt, last, _ = fns.prefill_chunk(module, cache, toks, lens, vn)
-    fns.prefill_chunk(module, cache2, toks, lens, vn)
+    nxt, last, _ = fns.prefill_chunk(module, cache, toks, lens, vn,
+                                     frames=frames)
+    fns.prefill_chunk(module, cache2, toks, lens, vn, frames=frames)
     out["prefill"], out["prefill_tokens"] = last, nxt
     lens = lens + vn
     ones = torch.ones(B, dtype=torch.int32)
@@ -88,8 +94,11 @@ def logits_run(cfg, module, mesh, inp):
         if i == inp["reset_at"]:
             fns.reset_slots(cache, keep)
             fns.reset_slots(cache2, keep)
-            cleared = all(bool((layer["pos"][dropped] == -1).all())
-                          for layer in cache)
+            cleared = all(bool((t[dropped] == (-1 if k == "pos" else 0))
+                               .all()) for layer in cache
+                          for k, t in layer.items()
+                          if k in ("pos", "state", "h")
+                          or k.startswith("conv"))
             lens = torch.where(keep, lens, 0)
         _, logit, _ = fns.prefill_chunk(module, cache, nxt[:, None], lens,
                                         ones)
@@ -97,7 +106,9 @@ def logits_run(cfg, module, mesh, inp):
         out[f"decode{i}"], out[f"decode{i}_tokens"] = logit, dec
         nxt = dec
         lens = lens + 1
-    return {k: v.numpy() for k, v in out.items()}, shapes, cleared
+    after = [{k: list(t.shape) for k, t in layer.items()} for layer in cache]
+    return ({k: v.numpy() for k, v in out.items()}, dict(init=shapes,
+                                                         end=after), cleared)
 
 
 def main(in_dir: str, out_dir: str) -> None:
@@ -116,20 +127,11 @@ def main(in_dir: str, out_dir: str) -> None:
             np.savez(os.path.join(out_dir, tag + ".npz"), **arrays)
             with open(os.path.join(out_dir, tag + ".json"), "w") as f:
                 json.dump(dict(report=report, tokens=toks,
-                               cache_shapes=shapes, reset_cleared=cleared,
+                               cache_shapes=shapes["init"],
+                               cache_shapes_end=shapes["end"],
+                               reset_cleared=cleared,
                                coord=mesh.get_coordinate(),
                                sizes=SH.mesh_sizes(mesh)), f)
-    mesh = make_mesh((1, 4), ("data", "model"), "cpu")
-    try:
-        build_serve_fns(dataclasses.replace(smoke_config("mamba2-370m"),
-                                            dtype="float32"), mesh,
-                        batch=8, max_len=64, device="cpu")
-        raised = ""
-    except NotImplementedError as e:
-        raised = str(e)
-    if rank == 0:
-        with open(os.path.join(out_dir, "mamba2.json"), "w") as f:
-            json.dump({"raised": raised}, f)
 
 
 def opstats(out_dir: str) -> None:

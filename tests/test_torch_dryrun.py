@@ -43,7 +43,7 @@ from repro.configs import list_archs  # noqa: E402
 from repro.distributed import sharding as JSH  # noqa: E402
 from repro.launch import mesh as JM  # noqa: E402
 from repro.models.registry import build_model as jbuild_model  # noqa: E402
-from repro_torch.configs import SHAPES, get_config  # noqa: E402
+from repro_torch.configs import SHAPES, get_config, smoke_config  # noqa: E402
 from repro_torch.launch import dryrun as D  # noqa: E402
 from repro_torch.launch import mesh as M  # noqa: E402
 from repro_torch.weights import named_arrays  # noqa: E402
@@ -350,15 +350,40 @@ def test_cli_plans_one_decode_cell(tmp_path):
 
 
 def test_cli_skips_with_reasons_and_keeps_the_memory(tmp_path):
-    rc, out = _cli(tmp_path, "--arch", "mamba2-370m", "--shape",
-                   "decode_32k", "--mesh", "single")
+    rc, out = _cli(tmp_path, "--arch", "gemma-7b", "--shape",
+                   "long_500k", "--mesh", "single")
     assert rc == 0, out
-    assert "[skip] mamba2-370m x decode_32k x singlepod" in out
-    rec = json.loads((tmp_path / "mamba2-370m__decode_32k__singlepod.json")
+    assert "[skip] gemma-7b x long_500k x singlepod" in out
+    rec = json.loads((tmp_path / "gemma-7b__long_500k__singlepod.json")
                      .read_text())
-    assert "SSD" in rec["skipped"] and rec["memory"]["argument_bytes"] > 0
+    assert "full-attention" in rec["skipped"] \
+        and rec["memory"]["argument_bytes"] > 0
     rec = D.run_cell("qwen3-8b", "long_500k", False, save=False)
     assert "skipped" in rec and rec["memory"]["cache_bytes"] > 0
+
+
+def test_cli_plans_a_smoke_ssd_serve_cell_on_a_model_axis(tmp_path):
+    """The Mamba2 smoke config's decode cell on a (2, 4) mesh plans
+    ``[ ok ]``: the SSD computes on its heads (8 over model 4, the state
+    over heads), its out_proj summed by one all-reduce a layer."""
+    code = ("import sys\n"
+            "from repro_torch.configs import smoke_config\n"
+            "from repro_torch.launch import dryrun as D\n"
+            "D.get_config = smoke_config\n"
+            "sys.exit(D.main(['--arch', 'mamba2-370m', '--shape',\n"
+            "                 'decode_32k', '--mesh-shape', '2x4',\n"
+            "                 '--batch', '8', '--seq-len', '64',\n"
+            "                 '--out-dir', sys.argv[1]]))\n")
+    r = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                       capture_output=True, text=True, timeout=600)
+    out = r.stdout + r.stderr
+    assert r.returncode == 0, out
+    assert "[ ok ] mamba2-370m x decode_32k x 2x4" in out, out
+    rec = json.loads((tmp_path / "mamba2-370m__decode_32k__2x4.json")
+                     .read_text())
+    cfg = smoke_config("mamba2-370m")
+    assert rec["collectives"]["all-reduce"]["count"] >= cfg.num_layers
+    assert rec["cost"]["flops"] > 0 and rec["memory"]["cache_bytes"] > 0
 
 
 def test_cli_plans_the_smoke_train_cell_with_seq_parallel(tmp_path):

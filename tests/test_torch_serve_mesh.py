@@ -14,10 +14,12 @@ its experts over ``data``, their hidden dim over ``model``).  Held: the
 byte, the prefill and decode logits within 1e-5 (f32) of the one-device
 port's and of the reference's ``build_serve_fns``, the greedy tokens,
 ``reset_slots`` on the sharded cache, each rank's cache shapes against
-the reference's ``cache_pspecs`` on a JAX mesh of the same shape, and
-the refusal of a ``model`` axis for Mamba2.  The reference's own sharded
-serve cannot be the oracle: on jax 0.9 its ``with_sharding_constraint``
-refuses the mesh's Explicit axes.
+the reference's ``cache_pspecs`` on a JAX mesh of the same shape.  Last,
+the mesh branch builds and runs a decode step for every architecture's
+smoke config on a ``model`` 4 mesh of the dry run's fake process group
+(the families' own parity is ``tests/test_torch_serve_mesh_families.py``).
+The reference's own sharded serve cannot be the oracle: on jax 0.9 its
+``with_sharding_constraint`` refuses the mesh's Explicit axes.
 """
 import dataclasses
 import json
@@ -219,8 +221,34 @@ def test_cache_shapes_are_the_reference_specs_local_shapes(runs, name,
         assert got == want, f"rank {r}"
 
 
-def test_a_model_axis_refuses_mamba2(runs):
-    _, outd = runs
-    with open(outd / "mamba2.json") as f:
-        raised = json.load(f)["raised"]
-    assert "SSD" in raised and "ROADMAP" in raised, raised
+@pytest.fixture
+def fake_world_of_four():
+    """This process as rank 0 of the dry run's fake process group of 4
+    (collectives return at once), torn down after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    dryrun.fake_group(4)
+    yield
+    dist.destroy_process_group()
+
+
+def test_a_model_axis_serves_every_architecture(fake_world_of_four):
+    """Every architecture of ``list_archs()``, at its smoke config, builds
+    its serve functions on a (1, 4) mesh and runs a decode step on the
+    meta device: no family refuses a ``model`` axis."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import list_archs, smoke_config
+    from repro_torch.serving.serve_step import build_serve_fns
+    mesh = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+    B = 8
+    for arch in list_archs():
+        fns = build_serve_fns(smoke_config(arch), mesh, batch=B, max_len=64,
+                              device="meta")
+        assert fns.layout.model == 4, arch
+        module, cache = fns.init_params(0), fns.init_cache()
+        ids = torch.empty(B, dtype=torch.int32, device="meta")
+        nxt, _ = fns.decode(module, cache, ids, ids,
+                            torch.empty(B, dtype=torch.bool, device="meta"))
+        assert tuple(nxt.shape) == (B,), arch

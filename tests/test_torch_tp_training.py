@@ -7,7 +7,8 @@ on meshes (data, model) = (1, 4) and (2, 2), with 2 kv heads on (1, 4)
 (they do not divide over ``model``: each rank gathers the k/v columns and
 keeps the head of its query head), with Adafactor and
 ``scan_layers=False`` on (2, 2); DeepSeek-V2-Lite (the routed experts
-split over ``model``, MLA whole) and Mamba2 (SSD whole) on (2, 2); each
+split over ``model``, MLA on its heads) and Mamba2 (the SSD on its
+heads) on (2, 2); each
 with and without ``seq_parallel``; and under ``pallas`` on (1, 4) (the
 flash ``autograd.Function`` on one local head a rank; its plain versions
 on the CPU).  Here the one-device port trains the same configs from the
@@ -22,9 +23,7 @@ the JAX package by ``tests/test_torch_training.py``; the reference's own
 sharded legs fail on jax 0.9, so they are no oracle here.
 """
 import dataclasses
-import functools
 import json
-import re
 
 import numpy as np
 import pytest
@@ -39,11 +38,6 @@ from repro_torch.training.trainer import build_trainer
 
 IDS = [f"{n}-{s[0]}x{s[1]}-{'seq' if sp else 'noseq'}"
        for n, s, sp in W.TP_RUNS]
-# the weights the blocks compute on as model slices, where the rules
-# shard them over ``model``
-TP_WEIGHTS = re.compile(r"(mixer\.w[qkvo]|mixer\.b[qkv]|(mlp|shared)\."
-                        r"w_(gate|up|down)|moe\.w_(gate|up|down)|^embed|"
-                        r"^lm_head)$")
 
 
 @pytest.fixture(scope="module")
@@ -53,42 +47,10 @@ def tp_runs(tmp_path_factory):
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _first_grads(name):
-    cfg = W.train_cfg(name)
-    tr = build_trainer(cfg, **W.TRAIN_KW)
-    _, grads = tr.grads(tr.init_state(0), {
-        k: torch.from_numpy(v) for k, v in W.batches(cfg, 1)[0].items()})
-    return {n: g.detach().numpy().copy() for n, g in grads.items()}
-
-
-@functools.lru_cache(maxsize=None)
-def _one_device(name):
-    cfg = W.train_cfg(name)
-    tr = build_trainer(cfg, **W.TRAIN_KW)
-    state = tr.init_state(0)
-    losses, norms = [], []
-    for b in W.batches(cfg):
-        state, m = tr.train_step(state, {k: torch.from_numpy(v)
-                                         for k, v in b.items()})
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
-    return losses, norms, {n: p.detach().numpy().copy()
-                           for n, p in state.named_params().items()}
-
-
-def _agrees(got, name) -> bool:
-    losses, norms, params = _one_device(name)
-    return (np.allclose(got["losses"], losses, rtol=1e-5, atol=0)
-            and np.allclose(got["norms"], norms, rtol=1e-5, atol=0)
-            and all(np.allclose(got[f"leaf:params.{n}"], p, rtol=0,
-                                atol=1e-5) for n, p in params.items()))
-
-
 @pytest.mark.parametrize("name,shape,sp", W.TP_RUNS, ids=IDS)
 def test_tp_steps_equal_the_one_device_port(tp_runs, name, shape, sp):
     got = np.load(tp_runs / f"{W.tp_tag(name, shape, sp)}.npz")
-    losses, norms, params = _one_device(name)
+    losses, norms, params = W.one_device_run(name)
     np.testing.assert_allclose(got["losses"], losses, rtol=1e-5)
     np.testing.assert_allclose(got["norms"], norms, rtol=1e-5)
     for n, p in params.items():
@@ -104,7 +66,7 @@ def test_tp_gradients_equal_the_one_device_port(tp_runs, name, shape, sp):
     update of a gradient near its eps, 1e-8, magnifies rounding; the
     gradients do not)."""
     got = np.load(tp_runs / f"{W.tp_tag(name, shape, sp)}.npz")
-    for n, g in _first_grads(name).items():
+    for n, g in W.one_device_grads(name).items():
         np.testing.assert_allclose(got[f"grad:{n}"], g, rtol=0,
                                    atol=1e-5 * np.abs(g).max(), err_msg=n)
 
@@ -125,17 +87,12 @@ def test_the_compute_module_holds_model_slices(tp_runs, name, shape, sp):
         assert set(shapes) == {n for n, _ in full.named_parameters()}
         for n, p in full.named_parameters():
             want = tuple(p.shape)
-            tp = TP_WEIGHTS.search(n) and not (cfg.mla is not None
-                                                and ".mixer." in n)
-            if tp:
+            if W.TP_WEIGHTS.search(n):
                 only = tuple(e if e == "model" else None for e in specs[n])
                 want = SH.local_shape(p.shape, only, sizes)
             sliced += want != tuple(p.shape)
             assert tuple(shapes[n]) == want, (n, shapes[n], want)
-    if name != "mamba2":    # SSD and the 257-row embedding stay whole
-        assert sliced > 0
-    else:
-        assert sliced == 0
+    assert sliced > 0
 
 
 def test_counting_a_replicated_gradient_model_times_fails(tp_runs):
@@ -148,12 +105,12 @@ def test_counting_a_replicated_gradient_model_times_fails(tp_runs):
     right = np.load(tp_runs / f"{W.tp_tag(name, shape, sp)}.npz")
     wrong = np.load(tp_runs / f"{W.tp_tag(name, shape, sp, wrong=True)}"
                     ".npz")
-    assert _agrees(right, name)
-    assert not _agrees(wrong, name)
-    losses, norms, _ = _one_device(name)
+    assert W.agrees(right, name)
+    assert not W.agrees(wrong, name)
+    losses, norms, _ = W.one_device_run(name)
     assert abs(wrong["losses"][0] - losses[0]) <= 1e-5 * abs(losses[0])
     assert not np.allclose(wrong["norms"][0], norms[0], rtol=1e-5, atol=0)
-    g = _first_grads(name)["layers.0.norm1"]
+    g = W.one_device_grads(name)["layers.0.norm1"]
     np.testing.assert_allclose(wrong["grad:layers.0.norm1"], shape[1] * g,
                                rtol=1e-4, atol=1e-5 * np.abs(g).max())
 
@@ -174,7 +131,7 @@ def test_seq_parallel_on_a_mesh_of_one_is_bit_for_bit_one_device(
     trainer, bit for bit; without a mesh too."""
     mesh = MESH.make_mesh((1, 1), ("data", "model"), "cpu")
     cfg = W.train_cfg(name)
-    want_losses, _, want = _one_device(name)
+    want_losses, _, want = W.one_device_run(name)
     for m in (mesh, None):
         tr = build_trainer(cfg, m, seq_parallel=True, **W.TRAIN_KW)
         state = tr.init_state(0)
