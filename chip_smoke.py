@@ -345,6 +345,17 @@ prints no result.  Phases, each of which raises on failure:
      the four on 16 x 16 (phase 26's subprocess), each ``[ ok ]`` with
      its argument and live bytes.  At world 1 nothing is sliced: the
      slicing is held on gloo at world 4 by the CPU tests.
+ 29. (run after phase 28, last) the port's static analysis: (a) ``python
+     -m repro_torch.analysis.check --json`` on this checkout must be ok
+     (no JAX on the card's machine); (b) every function of
+     ``tests/data/analysis_torch/sync_bad.py`` that ``host-sync`` flags
+     runs on CUDA tensors under ``torch.cuda.set_sync_debug_mode("error")``
+     and must raise there, but the three the debug mode cannot show
+     (``SYNC_NOT_SHOWN``: ``.numpy()`` and numpy on a CUDA tensor raise
+     TypeError before any copy; ``torch.cuda.synchronize()`` bypasses the
+     hook); every function of ``sync_good.py`` in the rule's scope runs
+     there without a raise, then replays from a CUDA graph equal to its
+     eager run (outputs and in-place writes).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -353,6 +364,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
+import inspect
 import io
 import json
 import math
@@ -371,6 +384,8 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.analysis import RepoIndex  # noqa: E402
+from repro_torch.analysis.purity import HostSyncRule  # noqa: E402
 from repro_torch.api import (ArrivalSpec, RunReport, ScenarioSpec,  # noqa: E402
                              ServeRuntime, SweepAxis, SweepSpec, TenantSpec,
                              WorkloadSpec, build_traces, get_scenario,
@@ -2134,6 +2149,153 @@ def family_tp_phase(one: dict, hist23: list, smi: str) -> dict:
                 + train["launches"][k] for k in ops.LAUNCHES}
     return dict(serves=serves, train=train, errs=errs, times=times,
                 plans=plans, launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 29: the port's static analysis, and host-sync held to the card
+# ---------------------------------------------------------------------------
+SYNC_FIXTURES = ROOT / "tests" / "data" / "analysis_torch"
+SYNC_ERROR = "called a synchronizing CUDA operation"
+# sync_bad functions whose finding the sync debug mode cannot show, and
+# why: their findings are held on the CPU only (tests/test_torch_analysis.py)
+SYNC_NOT_SHOWN = {
+    "numpy_torch": "a CUDA tensor's .numpy() raises TypeError before any "
+                   "copy: no sync happens",
+    "numpy_call_torch": "numpy refuses a CUDA tensor (TypeError): no sync "
+                        "happens",
+    "synchronize_torch": "torch.cuda.synchronize() waits for the whole "
+                         "device without the debug mode's hook: no raise",
+}
+
+
+def sync_inputs(seed: int) -> dict:
+    """The fixtures' parameters by name (``x``, ``s``, ``mask``, ``out``,
+    ``idx``, ``ring``, ``ptr``), on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {"x": torch.randn(8, device="cuda", generator=g),
+            "s": torch.rand((), device="cuda", generator=g),
+            "mask": torch.rand(8, device="cuda", generator=g) > 0.5,
+            "out": torch.randn(8, device="cuda", generator=g),
+            "idx": torch.randperm(8, device="cuda", generator=g),
+            "ring": torch.randn(4, 8, device="cuda", generator=g),
+            "ptr": torch.tensor(5, dtype=torch.int32, device="cuda")}
+
+
+def fixture_call(mod, qual: str, inputs: dict):
+    """``qual`` of the fixture module (a method on a fresh instance of
+    its class) and fresh copies of the inputs its parameters name."""
+    fn = mod
+    for part in qual.split("."):
+        fn = getattr(fn, part)
+        if isinstance(fn, type):
+            fn = fn()
+    kw = {n: inputs[n].clone()
+          for n, p in inspect.signature(fn).parameters.items()
+          if p.default is p.empty}
+    return fn, kw
+
+
+def under_sync_error(fn, kw):
+    """``fn(**kw)`` with ``torch.cuda.set_sync_debug_mode("error")``: a
+    host sync inside it raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(**kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def same(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and torch.equal(a, b))
+    if isinstance(a, (tuple, list, dict)):
+        if isinstance(a, dict):
+            a, b = list(a.items()), list(b.items())
+        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def analysis_phase() -> dict:
+    """Phase 29: (a) ``python -m repro_torch.analysis.check --json`` on
+    this checkout must be ok (the card's machine has no JAX: the checker
+    needs none); (b) every ``sync_bad`` function ``host-sync`` flags
+    raises under the sync debug mode on CUDA tensors (but those in
+    ``SYNC_NOT_SHOWN``), and every ``sync_good`` function in its scope
+    runs there without a raise and replays from a CUDA graph equal to
+    its eager result."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.check", "--json"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=300)
+    gate_s = time.perf_counter() - t0
+    gate = json.loads(r.stdout)
+    if r.returncode != 0 or not gate["ok"]:
+        raise AssertionError(f"phase 29: the port's gate failed "
+                             f"(rc {r.returncode}): {r.stdout[-2000:]}"
+                             f"{r.stderr[-2000:]}")
+    log(f"phase 29 gate: ok, modules_scanned={gate['modules_scanned']} "
+        f"findings={len(gate['findings'])} baselined={gate['baselined']} "
+        f"new={len(gate['new'])} stale={len(gate['stale_baseline'])} "
+        f"gate_s={gate_s:.3f}")
+
+    rule = HostSyncRule(scope=("*",), sync_free=("*",))
+    inputs = sync_inputs(SEED)
+    mods, bad = {}, {}
+    for name in ("sync_bad", "sync_good"):
+        spec = importlib.util.spec_from_file_location(
+            name, SYNC_FIXTURES / f"{name}.py")
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    index = RepoIndex.load(str(SYNC_FIXTURES), paths=["sync_bad.py"],
+                           excludes=())
+    for f in rule.run(index):
+        bad.setdefault(f.symbol, f.message.split(" (")[0])
+    shown = []
+    for qual, msg in sorted(bad.items()):
+        fn, kw = fixture_call(mods["sync_bad"], qual, inputs)
+        try:
+            under_sync_error(fn, kw)
+            got = "no raise"
+        except (RuntimeError, TypeError) as e:
+            got = f"{type(e).__name__}: {str(e).splitlines()[0][:80]}"
+        torch.cuda.synchronize()
+        raised = got.startswith("RuntimeError") and SYNC_ERROR in got
+        note = SYNC_NOT_SHOWN.get(qual)
+        log(f"phase 29 sync_bad {qual} [{msg}]: {got}"
+            + (f" (not shown on the card: {note})" if note else ""))
+        if note is None and not raised:
+            raise AssertionError(f"phase 29: sync_bad {qual} ({msg}) did not "
+                                 f"raise under the sync debug mode: {got}")
+        if note is not None and raised:
+            raise AssertionError(f"phase 29: sync_bad {qual} raised under the "
+                                 "sync debug mode: drop it from SYNC_NOT_SHOWN")
+        shown += [qual] if raised else []
+    index = RepoIndex.load(str(SYNC_FIXTURES), paths=["sync_good.py"],
+                           excludes=())
+    if rule.run(index):
+        raise AssertionError("phase 29: host-sync flags sync_good.py")
+    good = sorted(q for _, q in rule.in_scope(index))
+    for qual in good:
+        fn, kw = fixture_call(mods["sync_good"], qual, inputs)
+        eager = under_sync_error(fn, kw)
+        gfn, gkw = fixture_call(mods["sync_good"], qual, inputs)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = gfn(**gkw)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not (same(out, eager) and same(gkw, kw)):
+            raise AssertionError(f"phase 29: sync_good {qual}'s graph replay "
+                                 "differs from its eager run")
+    log(f"phase 29 sync_good: {len(good)} functions ({', '.join(good)}) "
+        "ran under the sync debug mode without a raise, and their CUDA-graph "
+        "replays equal their eager results (outputs and in-place writes)")
+    log(f"phase 29: {len(shown)} of {len(bad)} flagged sync_bad functions "
+        f"raised under the sync debug mode; {time.perf_counter() - t0:.1f} s")
+    return dict(gate=gate, gate_s=gate_s, shown=shown, good=good)
 
 
 # ---------------------------------------------------------------------------
@@ -4538,6 +4700,7 @@ def main() -> int:
                            families["deepseek-v2-lite-16b"],
                            WHISPER: whisper}, whisper["train_hist"], smi)
     fl = fam["launches"]
+    analysis_phase()
 
     t = timings[0]
     st = sel_times[0]

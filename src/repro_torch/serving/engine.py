@@ -105,7 +105,8 @@ class ModelExecutor:
                  device="cuda", mesh=None):
         self.fns = build_serve_fns(
             model_cfg, mesh, batch=ecfg.max_slots, max_len=ecfg.max_len,
-            temperature=temperature, device=device)
+            prefill_chunk=ecfg.prefill_chunk, temperature=temperature,
+            device=device)
         self.device = self.fns.device
         self.params = (self.fns.place(params) if params is not None
                        else self.fns.init_params(rng_seed))

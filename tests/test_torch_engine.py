@@ -53,6 +53,42 @@ def test_model_engine_generated_tokens_match(model_runs):
         assert t.generated == j.generated, f"rid {j.rid}"
 
 
+class _Built(Exception):
+    """Raised by the stand-in ``build_serve_fns`` once it has the call."""
+
+
+def test_model_executor_passes_the_reference_keywords(monkeypatch):
+    """Both executors hand ``build_serve_fns`` the same keywords, the
+    engine config's ``prefill_chunk`` among them (the port adds only
+    ``device``); the stand-in stops before a model is built."""
+    import repro.serving.serve_step as jax_serve_step
+    import repro_torch.serving.engine as torch_engine
+    from repro.configs import smoke_config as jax_smoke_config
+    from repro.serving.engine import EngineConfig as JaxEngineConfig
+    from repro.serving.engine import ModelExecutor as JaxModelExecutor
+    from repro_torch.configs import smoke_config
+    from repro_torch.serving.engine import EngineConfig, ModelExecutor
+    calls = {}
+
+    def stand_in(side):
+        def build(cfg, mesh=None, **kw):
+            calls[side] = kw
+            raise _Built
+        return build
+
+    monkeypatch.setattr(jax_serve_step, "build_serve_fns", stand_in("jax"))
+    monkeypatch.setattr(torch_engine, "build_serve_fns", stand_in("torch"))
+    ecfg = dict(max_slots=2, max_len=32, prefill_chunk=8)
+    with pytest.raises(_Built):
+        JaxModelExecutor(jax_smoke_config("qwen3-8b"), JaxEngineConfig(**ecfg))
+    with pytest.raises(_Built):
+        ModelExecutor(smoke_config("qwen3-8b"), EngineConfig(**ecfg),
+                      device="cpu")
+    assert calls["torch"].pop("device") == "cpu"
+    assert calls["torch"] == calls["jax"]
+    assert calls["torch"]["prefill_chunk"] == 8
+
+
 @pytest.fixture(scope="module", params=["mamba2-370m", "recurrentgemma-2b"])
 def recurrent_runs(request):
     # 6 slots for 9 requests: slots are reassigned, so a slot's recurrent
