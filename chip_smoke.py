@@ -12,8 +12,8 @@ prints no result.  Phases, each of which raises on failure:
      head-dim-256 kernel, its registers and spills; count the HGMMA
      (``wgmma``) instructions of the flash libraries with ``cuobjdump
      --dump-sass`` and fail if a bf16 flash kernel has none (the forward
-     at head dims 16-256, the backward at 16-128: at 256 the bf16
-     backward is the scalar kernel); count the HMMA (``mma.sync``)
+     and the backward at every head dim, 16-256: at 256 the backward is
+     ``flash_bwd_sm90_wide``); count the HMMA (``mma.sync``)
      instructions of the SSD library's bf16 kernels (``ssd_scan_tc``,
      chunks of 32 and 64 rows) and fail if one has none;
   3. hold each kernel against its plain PyTorch version on the card:
@@ -84,7 +84,9 @@ prints no result.  Phases, each of which raises on failure:
      head dims 16 to 128, a window shorter than a tile, a cap with a
      window, non-causal T != S), head dim 256 with RecurrentGemma-2B's
      10 heads on 1 (ragged, a window, a cap with a window, and its
-     cache-free shape S 4096, window 2048), Whisper's encoder (non-causal,
+     cache-free shape S 4096, window 2048), MHA at head dim 256 (4 on 4,
+     S 100 off the bf16 backward's 64-row tiles, and Gemma-7B's training
+     shape: B 4, S 1024, 16 on 16), Whisper's encoder (non-causal,
      S = T 1500, 20 on 20 of 64), q/k/v as slices of one fused
      buffer, and Qwen3-8B's heads (32 on 8 KV heads of dim 128) at S
      1024, in bf16
@@ -98,7 +100,8 @@ prints no result.  Phases, each of which raises on failure:
      forward, backward and forward + backward of the kernels, the plain
      versions and ``scaled_dot_product_attention`` (timed here only),
      each beside its least time, with the achieved TFLOP/s and the share
-     of the bound;
+     of the bound, and the kernel's backward and SDPA's in three
+     alternating pairs (SDPA's backward moves from call to call);
  13. the training path: Qwen3-8B's published widths with the depth cut
      to 8 of 36 layers, random weights from seed 0, f32 parameters and
      bf16 compute, AdamW, full remat, ``SyntheticLM`` batches of 4 x 1024,
@@ -345,7 +348,7 @@ prints no result.  Phases, each of which raises on failure:
      the four on 16 x 16 (phase 26's subprocess), each ``[ ok ]`` with
      its argument and live bytes.  At world 1 nothing is sliced: the
      slicing is held on gloo at world 4 by the CPU tests.
- 29. (run after phase 28, last) the port's static analysis: (a) ``python
+ 29. (run after phase 28) the port's static analysis: (a) ``python
      -m repro_torch.analysis.check --json`` on this checkout must be ok
      (no JAX on the card's machine); (b) every function of
      ``tests/data/analysis_torch/sync_bad.py`` that ``host-sync`` flags
@@ -355,7 +358,24 @@ prints no result.  Phases, each of which raises on failure:
      TypeError before any copy; ``torch.cuda.synchronize()`` bypasses the
      hook); every function of ``sync_good.py`` in the rule's scope runs
      there without a raise, then replays from a CUDA graph equal to its
-     eager run (outputs and in-place writes).
+     eager run (outputs and in-place writes);
+ 30. (run after phase 29, last) Gemma-7B trained on the card under the
+     kernels: its published widths (d_model 3072, 16 on 16 heads of 256,
+     GeGLU d_ff 24576, vocab 256,000, tied and scaled embeddings) cut to
+     8 of 28 layers, phase 13's run otherwise (AdamW, full remat, 4 x
+     1024 tokens, 5 steps, then 2 under ``chunked`` from the same seed);
+     launches exact (2 x 8 forward, 8 backward a step: the bf16 backward
+     at head dim 256 is ``flash_bwd_sm90_wide``), the first loss within
+     0.25 of its expectation (``gemma_first_loss``: a plain forward
+     written here, on weights drawn anew from the initial weights'
+     distributions; with scaled embeddings a token's own logit
+     dominates), losses and grad norms
+     within 1e-2 of the ``chunked`` twin's; step wall, tokens/s, peak
+     memory and one profiled step; then the flash pair timed at its shape
+     (B 4, S 1024, 16 / 16 of 256, causal) as phase 12 times Qwen3's, and
+     the bf16 backward's clock64 cycles by phase at that shape and at
+     phase 12's RecurrentGemma shape (``flash_bwd_phases``: a build with
+     ``-DFLASH_BWD_PHASE_TRACE``).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -840,6 +860,10 @@ FLASH_CASES = [
     ("g10_d256_win", (2, 300, 300, 10, 1, 256, 100, 0.0, True)),
     ("g10_d256_cap_win", (1, 260, 260, 10, 1, 256, 64, 30.0, True)),
     ("rg_cache_free", (1, 4096, 4096, 10, 1, 256, 2048, 0.0, True)),
+    # head dim 256 with one query head a KV head (the bf16 backward's rows
+    # by TMA): S off the 64-row tiles, and Gemma-7B's training shape
+    ("mha_d256", (2, 100, 100, 4, 4, 256, 0, 0.0, True)),
+    ("gemma7b", (4, 1024, 1024, 16, 16, 256, 0, 0.0, True)),
     # Whisper's encoder: non-causal, S = T = 1500 (the last 128-row tile
     # holds 92 rows, the last 128-key tile 92 keys), 20 on 20 of 64
     ("whisper_enc", (2, 1500, 1500, 20, 20, 64, 0, 0.0, False)),
@@ -850,6 +874,8 @@ TRAIN = dict(B=4, S=1024, Hq=32, Hkv=8, D=128)
 RG_FLASH = dict(B=1, S=4096, Hq=10, Hkv=1, D=256, window=2048)
 # Whisper's encoder attention at phase 23's batch: non-causal, B 8
 WHISPER_ENC = dict(B=8, S=1500, Hq=20, Hkv=20, D=64, causal=False)
+# Gemma-7B's attention at phase 30's batch: MHA, 16 heads of 256
+GEMMA_FLASH = dict(B=4, S=1024, Hq=16, Hkv=16, D=256)
 assert FLASH_CASES[-1][1] == (TRAIN["B"], TRAIN["S"], TRAIN["S"], TRAIN["Hq"],
                               TRAIN["Hkv"], TRAIN["D"], 0, 0.0, True)
 
@@ -1035,6 +1061,13 @@ def time_flash_attention(iters: int, shape=None) -> dict:
         r[f"{name}_bound_share"] = r[f"{name}_bound_ms"] / r[f"{name}_ms"]
         r[f"library_{name}_tflops"] = flops / r[f"library_{name}_ms"] / 1e9
     r["library_max_abs_diff"] = lib_err
+    # SDPA's backward moves from call to call: the kernel's and its in
+    # alternating pairs
+    pairs = [(event_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                        **kw), [()], iters),
+              event_ms(lib_bwd, [()], iters)) for _ in range(3)]
+    r["paired_bwd_ms"] = "/".join(f"{a:.6g}" for a, _ in pairs)
+    r["paired_library_bwd_ms"] = "/".join(f"{b:.6g}" for _, b in pairs)
     if shape is not None:
         return r
     # the same shape without the causal mask: every block walks all 8 KV
@@ -1087,9 +1120,8 @@ def check_tensor_cores() -> dict:
         log(f"tensor cores: {lib} HGMMA instructions, bf16 {kernel} by "
             f"head dim {dict(sorted(ours.items()))}, every other function "
             f"{others}")
-        # the backward runs the scalar kernel at D 256 (flash_attention_bwd.cu)
-        dims = [16, 32, 64, 128] + ([256] if lib == "flash_attention" else [])
-        if sorted(ours) != dims or min(ours.values()) == 0:
+        # the backward at D 256 is flash_bwd_sm90_wide (flash_attention_bwd.cu)
+        if sorted(ours) != [16, 32, 64, 128, 256] or min(ours.values()) == 0:
             raise AssertionError(f"{lib}: a bf16 kernel has no HGMMA "
                                  f"instruction: {ours}")
         counts[lib] = sum(ours.values())
@@ -1169,24 +1201,43 @@ def profile_train_step(cfg, state, seq_len: int = 1024, batch: int = 4,
 def train_phase() -> dict:
     """Phase 13: Qwen3-8B's widths at 8 layers, 5 steps on the kernels,
     then 2 steps on the plain chunked attention from the same seed."""
-    base = dataclasses.replace(get_config("qwen3-8b"), num_layers=8,
-                               remat="full")
+    return train_cell("qwen3-8b", 8, "train", qwen3_first_loss)
+
+
+def qwen3_first_loss(cfg) -> tuple:
+    """Random init: the final hidden has unit RMS and the tied embedding
+    std 0.02, so the logits have variance d_model * 0.02^2 and the
+    expected loss is ln V + var / 2 (+ the z-loss, ~0.016)."""
+    return (math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2,
+            "ln V + d_model * 0.02^2 / 2")
+
+
+def train_cell(arch: str, layers: int, label: str, first_loss) -> dict:
+    """``arch``'s published widths cut to ``layers``, full remat: 5 steps
+    on the kernels (``attn_impl="pallas"``) through ``run_training``, a
+    profiled step, then 2 steps on the plain chunked attention from the
+    same seed.  ``first_loss(cfg)`` gives the first loss's expectation
+    and how it was reached; the first loss must lie within 0.25 of it."""
+    full = get_config(arch)
+    base = dataclasses.replace(full, num_layers=layers, remat="full")
     run = dict(seq_len=1024, global_batch=4, seed=SEED, log_every=1,
                device="cuda", log=log)
     cfg = dataclasses.replace(base, attn_impl="pallas")
-    log(f"train qwen3-8b widths: layers={cfg.num_layers} (of 36) "
-        f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads}x"
-        f"{cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
-        f"param_dtype={cfg.param_dtype} dtype={cfg.dtype} "
-        f"optimizer={cfg.optimizer} remat={cfg.remat} batch 4x1024")
+    log(f"train {arch} widths: layers={cfg.num_layers} (of "
+        f"{full.num_layers}) d_model={cfg.d_model} heads={cfg.num_heads}/"
+        f"{cfg.num_kv_heads}x{cfg.head_dim} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab_size} param_dtype={cfg.param_dtype} "
+        f"dtype={cfg.dtype} optimizer={cfg.optimizer} remat={cfg.remat} "
+        f"batch 4x1024")
+    want_first, how = first_loss(cfg)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     (state, hist), wall = sync_time(lambda: run_training(cfg, steps=5, **run))
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     n_params = sum(p.numel() for p in state.params.parameters())
-    profile_train_step(cfg, state)
-    log(f"train: params={n_params} wall_s={wall:.3f} "
+    prof = profile_train_step(cfg, state, label=label)
+    log(f"{label}: params={n_params} wall_s={wall:.3f} "
         f"max_memory_allocated={peak} launches flash_attention="
         f"{launches['flash_attention']} flash_attention_bwd="
         f"{launches['flash_attention_bwd']} (per step "
@@ -1195,21 +1246,17 @@ def train_phase() -> dict:
         f"{cfg.num_layers})")
     del state
     torch.cuda.empty_cache()
-    # random init: the final hidden has unit RMS and the tied embedding
-    # std 0.02, so the logits have variance d_model * 0.02^2 and the
-    # expected loss is ln V + var / 2 (+ the z-loss, ~0.016)
     first = hist[0]["loss"]
-    ln_v = math.log(cfg.vocab_size)
-    want_first = ln_v + cfg.d_model * 0.02 ** 2 / 2
-    log(f"check train first loss {first:.4f}: ln V = {ln_v:.4f}, ln V + "
-        f"d_model * 0.02^2 / 2 = {want_first:.4f} (tol 0.25)")
+    log(f"check {label} first loss {first:.4f}: ln V = "
+        f"{math.log(cfg.vocab_size):.4f}, {how} = {want_first:.4f} "
+        f"(tol 0.25)")
     if not (all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
                 for h in hist) and abs(first - want_first) < 0.25):
-        raise AssertionError(f"train: losses {[h['loss'] for h in hist]}, "
+        raise AssertionError(f"{label}: losses {[h['loss'] for h in hist]}, "
                              f"first should be near {want_first:.3f}")
     if (launches["flash_attention"] != 2 * cfg.num_layers * 5
             or launches["flash_attention_bwd"] != cfg.num_layers * 5):
-        raise AssertionError(f"train: launches {launches}, want 2 x "
+        raise AssertionError(f"{label}: launches {launches}, want 2 x "
                              f"{cfg.num_layers} forward and "
                              f"{cfg.num_layers} backward per step")
     plain_cfg = dataclasses.replace(base, attn_impl="chunked")
@@ -1226,7 +1273,7 @@ def train_phase() -> dict:
     # losses hold the forward; the grad norms hold the backward kernel
     gdiffs = [abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
               for a, b in zip(hist[:2], phist)]
-    log(f"check train kernels vs chunked: losses "
+    log(f"check {label} kernels vs chunked: losses "
         f"{[h['loss'] for h in hist[:2]]} vs {[h['loss'] for h in phist]} "
         f"rel diff {[f'{d:.2e}' for d in diffs]} (tol 1e-2); grad norms "
         f"{[h['grad_norm'] for h in hist[:2]]} vs "
@@ -1234,13 +1281,171 @@ def train_phase() -> dict:
         f"{[f'{d:.2e}' for d in gdiffs]} (tol 1e-2); chunked "
         f"wall_s={pwall:.3f} step_s {[round(h['step_s'], 4) for h in phist]}")
     if max(diffs) > 1e-2:
-        raise AssertionError("train: the kernel path's losses disagree with "
-                             "the chunked path's")
-    if max(gdiffs) > 1e-2:
-        raise AssertionError("train: the kernel path's grad norms disagree "
+        raise AssertionError(f"{label}: the kernel path's losses disagree "
                              "with the chunked path's")
+    if max(gdiffs) > 1e-2:
+        raise AssertionError(f"{label}: the kernel path's grad norms "
+                             "disagree with the chunked path's")
     return dict(hist=hist, launches=launches, peak=peak, wall=wall,
-                plain_hist=phist)
+                plain_hist=phist, profile=prof)
+
+
+# ---------------------------------------------------------------------------
+# phase 30: Gemma-7B trained under the kernels (the bf16 flash backward at
+# head dim 256)
+# ---------------------------------------------------------------------------
+GEMMA_LAYERS = 8
+
+
+def gemma_first_loss(cfg, device: str = "cuda") -> tuple:
+    """The first loss's expectation for Gemma's tied embedding scaled by
+    sqrt(d_model), reached without the port's model: a plain fp32 forward
+    of the architecture written here (the scaled embedding, pre-norm
+    layers of RoPE attention and a GeGLU MLP, the final norm, logits on
+    the tied table; the trainer's loss, z-loss included) on phase 30's
+    first batch, with weights drawn anew, from a seed of their own, out of
+    the initial weights' distributions: embedding N(0, 0.02^2), each
+    dense N(0, 1 / fan-in), every norm's scale 0 (so 1 + 0).  Phase 13's
+    ln V + d_model * 0.02^2 / 2 does not hold here: scaled, a token's own
+    row is a large part of its residual stream, so its own logit (~30)
+    rules the softmax.  The loss is a mean over 4,096 tokens of weights
+    that concentrate, so two draws agree to a few hundredths."""
+    from repro_torch.training.data import make_pipeline
+    from repro_torch.training.trainer import Z_LOSS
+    d, H, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    batch = next(make_pipeline(cfg, 1024, 4, seed=SEED))
+    tok, lab = (torch.from_numpy(batch[k]).long().to(device)
+                for k in ("tokens", "labels"))
+    B, S = tok.shape
+    g = torch.Generator(device=device).manual_seed(SEED + 1)
+
+    def draw(*shape, std):
+        return torch.randn(shape, generator=g, device=device) * std
+
+    def norm(x):
+        return x * torch.rsqrt(x.square().mean(-1, keepdim=True)
+                               + cfg.norm_eps)
+
+    half = hd // 2
+    freqs = cfg.rope_theta ** (-torch.arange(half, device=device) / half)
+    ang = torch.arange(S, device=device)[:, None, None] * freqs
+    cos, sin = ang.cos(), ang.sin()
+
+    def rope(x):                        # (B, S, H, hd), rotate-half
+        a, b = x[..., :half], x[..., half:]
+        return torch.cat([a * cos - b * sin, b * cos + a * sin], -1)
+
+    causal = torch.ones(S, S, dtype=torch.bool, device=device).tril()
+    with torch.no_grad():
+        table = draw(cfg.vocab_size, d, std=0.02)
+        # Gemma's normalizer is sqrt(d_model) in the compute dtype
+        x = table[tok] * torch.tensor(math.sqrt(d),
+                                      dtype=getattr(torch, cfg.dtype)).item()
+        for _ in range(cfg.num_layers):
+            h = norm(x)
+            q, k, v = (h @ draw(d, H * hd, std=d ** -0.5) for _ in range(3))
+            q, k = (rope(t.view(B, S, H, hd)).transpose(1, 2) for t in (q, k))
+            v = v.view(B, S, H, hd).transpose(1, 2)
+            att = (q @ k.transpose(-1, -2) * hd ** -0.5).masked_fill(
+                ~causal, float("-inf")).softmax(-1)
+            o = (att @ v).transpose(1, 2).reshape(B, S, H * hd)
+            x = x + o @ draw(H * hd, d, std=(H * hd) ** -0.5)
+            h = norm(x)
+            gate = F.gelu(h @ draw(d, cfg.d_ff, std=d ** -0.5),
+                          approximate="tanh")
+            up = h @ draw(d, cfg.d_ff, std=d ** -0.5)
+            x = x + (gate * up) @ draw(cfg.d_ff, d, std=cfg.d_ff ** -0.5)
+        logits = norm(x) @ table.T
+        lse = logits.logsumexp(-1)
+        z_self = logits.gather(-1, tok[..., None])[..., 0]
+        z_lab = logits.gather(-1, lab[..., None])[..., 0]
+        want = (lse - z_lab + Z_LOSS * lse.square()).mean().item()
+        zs = z_self.mean().item()
+    del table, x, logits
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return want, (f"a plain fp32 forward on weights drawn anew (seed "
+                  f"{SEED + 1}; its own-token logit mean {zs:.4f})")
+
+
+@contextlib.contextmanager
+def traced_library(name: str, macro: str, reader: str):
+    """``csrc/<name>.cu`` built with ``-D<macro>`` (a library of its own,
+    through ``kbuild``'s cache) and loaded in place of the kernel's
+    library while the block runs; yields it, with ``reader(out, blocks)``
+    bound, the function that copies the trace to the host."""
+    import ctypes
+    flags = (f"-D{macro}",)
+    kbuild.build([name], flags)
+    lib = ctypes.CDLL(str(kbuild.lib_path(name, flags)))
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    getattr(lib, reader).argtypes = [ctypes.c_void_p, ctypes.c_int]
+    getattr(lib, reader).restype = ctypes.c_int
+    saved = kbuild._LOADED.get(name)
+    kbuild._LOADED[name] = lib
+    try:
+        yield lib
+    finally:
+        if saved is None:
+            del kbuild._LOADED[name]
+        else:
+            kbuild._LOADED[name] = saved
+
+
+BWD_PHASES = ("ring wait", "score product", "exchange",
+              "dV, dK, dQ products", "dQ staged and reduced")
+
+
+def flash_bwd_phases() -> None:
+    """clock64 cycles a tile of each phase of ``flash_bwd_sm90_wide`` (the
+    bf16 backward at head dim 256), by consumer warpgroup, at Gemma-7B's
+    training shape and RecurrentGemma-2B's cache-free one:
+    ``csrc/flash_attention_bwd.cu`` built with ``-DFLASH_BWD_PHASE_TRACE``
+    into a library of its own, whose kernel sums thread 0's cycles of
+    each warpgroup by phase over a block's tiles."""
+    from repro_torch.kernels import flash_attention as kflash
+    with traced_library(kflash.BWD_NAME, "FLASH_BWD_PHASE_TRACE",
+                        "flash_bwd_phase_read") as lib:
+        for label, shp in (("gemma-7b", GEMMA_FLASH), ("rg", RG_FLASH)):
+            case = (shp["B"], shp["S"], shp["S"], shp["Hq"], shp["Hkv"],
+                    shp["D"], shp.get("window", 0), 0.0, True)
+            q, k, v, do, kw = flash_inputs(case, torch.bfloat16, 200)
+            o, lse = flash_attention_cuda(q, k, v, **kw)
+            for _ in range(3):          # the last launch is the one read
+                flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            blocks = shp["B"] * shp["Hkv"] * -(-shp["S"] // 64)
+            clk = np.zeros((blocks, 2, len(BWD_PHASES) + 1), np.int64)
+            code = lib.flash_bwd_phase_read(clk.ctypes.data, blocks)
+            if code:
+                raise RuntimeError(f"flash_bwd_phase_read: cudaError {code}")
+            tiles = clk[:, 0, -1].sum()
+            for w in (0, 1):
+                per = clk[:, w, :-1].sum(axis=0) / tiles
+                log(f"flash_attention_bwd phases {label} warpgroup {w} "
+                    f"(clock64 cycles a tile, {tiles} tiles in {blocks} "
+                    f"blocks): " + ", ".join(
+                        f"{n} {c:.0f}" for n, c in zip(BWD_PHASES, per))
+                    + f"; total {per.sum():.0f}")
+
+
+def gemma_train_phase(smi: str) -> dict:
+    """Phase 30: Gemma-7B's widths at ``GEMMA_LAYERS`` layers through
+    ``train_cell``, then the flash pair timed at its shape."""
+    t0 = time.perf_counter()
+    out = train_cell("gemma-7b", GEMMA_LAYERS, "gemma-7b train",
+                     gemma_first_loss)
+    for h in out["hist"]:
+        log(f"gemma-7b train step {h['step']}: loss={h['loss']:.6f} "
+            f"grad_norm={h['grad_norm']:.6f} step_s={h['step_s']:.4f} "
+            f"tokens_per_s={h['tokens_per_s']:.1f}")
+    out["flash"] = time_flash_attention(10, GEMMA_FLASH)
+    log(f"time flash_attention bf16 B=4 S=T=1024 Hq=16 Hkv=16 D=256 causal "
+        f"({smi}) " + fields(out["flash"]))
+    flash_bwd_phases()
+    log(f"phase 30: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2923,19 +3128,8 @@ def ssd_phases() -> None:
     built with ``-DSSD_PHASE_TRACE`` into a library of its own, whose
     kernel records the cycle count at each phase boundary of every
     block's first chunk."""
-    import ctypes
-    out = kbuild.BUILD_DIR / "ssd_scan-phases.so"
-    kbuild.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-DSSD_PHASE_TRACE",
-                    "-o", str(out), str(kbuild.CSRC / "ssd_scan.cu")],
-                   check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(out))
-    lib.kernel_error_string.argtypes = [ctypes.c_int]
-    lib.kernel_error_string.restype = ctypes.c_char_p
-    lib.ssd_phase_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    lib.ssd_phase_read.restype = ctypes.c_int
-    kbuild._LOADED[kssd.NAME] = lib
-    try:
+    with traced_library(kssd.NAME, "SSD_PHASE_TRACE",
+                        "ssd_phase_read") as lib:
         for rows in (8, 1):
             case = (rows,) + SSD_SERVE[1:]
             for state in (True, False):
@@ -2954,8 +3148,6 @@ def ssd_phases() -> None:
                     f"(clock64 cycles a block, mean of {blocks}): "
                     + ", ".join(f"{n} {c:.0f}" for n, c in zip(SSD_PHASES, d))
                     + f"; total {d.sum():.0f}")
-    finally:
-        del kbuild._LOADED[kssd.NAME]
 
 
 def rglru_inputs(case, h0: bool, seed: int):
@@ -4701,6 +4893,7 @@ def main() -> int:
                            WHISPER: whisper}, whisper["train_hist"], smi)
     fl = fam["launches"]
     analysis_phase()
+    gm = gemma_train_phase(smi)["launches"]
 
     t = timings[0]
     st = sel_times[0]
@@ -4740,7 +4933,8 @@ def main() -> int:
         "launches": tr["launches"]["flash_attention"]
         + w_launches["flash_attention"] + fleet["flash_attention"]
         + sh["launches"]["flash_attention"]
-        + tp["launches"]["flash_attention"] + fl["flash_attention"],
+        + tp["launches"]["flash_attention"] + fl["flash_attention"]
+        + gm["flash_attention"],
         "max_abs_err": flash_err["fwd_err"], "ms": ft["fwd_ms"],
         "plain_ms": ft["plain_fwd_ms"], "bound_ms": ft["fwd_bound_ms"],
         "bound_by": ft["fwd_bound_by"], "library_ms": ft["library_fwd_ms"]}, {
@@ -4751,7 +4945,8 @@ def main() -> int:
         "launches": tr["launches"]["flash_attention_bwd"]
         + w_launches["flash_attention_bwd"] + fleet["flash_attention_bwd"]
         + sh["launches"]["flash_attention_bwd"]
-        + tp["launches"]["flash_attention_bwd"] + fl["flash_attention_bwd"],
+        + tp["launches"]["flash_attention_bwd"] + fl["flash_attention_bwd"]
+        + gm["flash_attention_bwd"],
         "max_abs_err": flash_err["bwd_err"], "ms": ft["bwd_ms"],
         "plain_ms": ft["plain_bwd_ms"], "bound_ms": ft["bwd_bound_ms"],
         "bound_by": ft["bwd_bound_by"],

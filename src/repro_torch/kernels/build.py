@@ -6,8 +6,9 @@ headers they share).  It is compiled by
 use and loaded with ``ctypes``; nothing links against PyTorch, so a
 build takes seconds.  The library's file name carries a hash of its
 source and flags, so an edited source is rebuilt and never confused with
-an old build.  Callers set ``argtypes`` (``c_void_p`` for every pointer
-and the stream) on the functions they call.
+an old build; a variant built with extra flags (a ``-D`` macro) gets a
+file of its own.  Callers set ``argtypes`` (``c_void_p`` for every
+pointer and the stream) on the functions they call.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -40,28 +41,34 @@ def _nvcc() -> str:
     return path
 
 
-def lib_path(name: str) -> Path:
+def lib_path(name: str, flags: Tuple[str, ...] = ()) -> Path:
+    """The library of ``csrc/<name>.cu`` built with ``flags`` on top of
+    ``NVCC_FLAGS``."""
     # the hash covers the shared headers too: a source includes them
     src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
         p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    cmd = " ".join((*NVCC_FLAGS, *flags)).encode()
+    digest = hashlib.sha256(src + cmd).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
+def build(names: Optional[Iterable[str]] = None,
+          flags: Tuple[str, ...] = ()) -> Dict[str, str]:
     """Compile every named source (default: all) that has no current
-    library, one ``nvcc`` per source, all started together.  Returns each
-    built source's compiler output (``-Xptxas -v``: registers, shared
-    memory, spills); raises with that output if a build fails."""
+    library, with ``flags`` on top of ``NVCC_FLAGS``, one ``nvcc`` per
+    source, all started together.  Returns each built source's compiler
+    output (``-Xptxas -v``: registers, shared memory, spills); raises
+    with that output if a build fails."""
     names = sources() if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        out = lib_path(name)
+        out = lib_path(name, flags)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the bf16 kernels (flash_attention.cu,
 // flash_attention_bwd.cu, decode_attention.cu, ssd_scan.cu): swizzled
-// shared-memory tiles, wgmma descriptors and instructions, mbarriers, TMA,
-// bulk and cp.async copies, ldmatrix and mma.sync, and the host-side
-// tensor map.
+// shared-memory tiles, wgmma descriptors and instructions, mbarriers and
+// named barriers, TMA, bulk and cp.async copies, ldmatrix and mma.sync,
+// and the host-side tensor map.
 //
 // Tile layout.  A tile of R rows by D bf16 columns is NH = 2D / W column
 // panels of R rows of W = min(128, 2D) bytes, panel after panel; inside a
@@ -327,6 +327,24 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// global fp32 += shared fp32, `bytes` (a multiple of 16; both addresses
+// 16-byte aligned) added by the TMA unit, in this thread's bulk group
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst,
+                                                    const void* src,
+                                                    uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], "
+      "[%1], %2;\n" ::"l"(dst), "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// wait until this thread's bulk groups have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // 16 bytes global -> shared; zeros where !valid (src is then not read)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
@@ -378,6 +396,11 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// arrive on named barrier `id` without waiting: this thread's earlier
+// shared-memory writes are seen by the threads that wait on it (bar.sync)
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 template <int R>

@@ -12,8 +12,9 @@ gradient of its chunked attention).  Their plain versions are
 
 Both kernels dispatch on dtype: bfloat16 goes to the Hopper kernels
 (``wgmma`` on the tensor cores, K/V by TMA in the forward), float32 to the
-exact scalar kernels; at head dim 256 the bfloat16 backward also runs the
-scalar kernel (bf16 in, fp32 sums).  Every base address and byte stride of q, k and v
+exact scalar kernels; at head dim 256 the bfloat16 backward is
+``flash_bwd_sm90_wide``, whose two consumer warpgroups split D.  Every
+base address and byte stride of q, k and v
 must be a multiple of 16 (TMA and 16-byte copies); ``_check`` raises
 otherwise.
 """
@@ -33,16 +34,17 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SHAPE = [_I] * 6 + [_L] * 9 + [_F, _I, _I, _F, _P]
 _FWD_ARGTYPES = [_I, _P, _P, _P, _P, _P] + _SHAPE
 _BWD_ARGTYPES = [_I] + [_P] * 10 + _SHAPE
-_CONVERT_ARGTYPES = [_P, _P, _L, _P]
+_CONVERT_ARGTYPES = [_P, _P] + [_I] * 5 + [_P]
+_ACC_ARGTYPES = [_I] * 6
 _ALIGN = 16                       # bytes: TMA boxes and 16-byte copies
 
 
-def _lib(name: str, fn: str, argtypes) -> ctypes.CDLL:
+def _lib(name: str, fn: str, argtypes, restype=ctypes.c_int) -> ctypes.CDLL:
     lib = build.load(name)
     f = getattr(lib, fn)
     if f.argtypes is None:
         f.argtypes = argtypes
-        f.restype = ctypes.c_int
+        f.restype = restype
     return lib
 
 
@@ -139,8 +141,13 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, scale: float,
                          "fp32 (B, Hkv, S*G) tensor")
     do = do.contiguous()
     dev = q.device
+    G = Hq // Hkv
     delta = torch.empty_like(lse)
-    dq_acc = torch.zeros((B, S, Hq, D), dtype=torch.float32, device=dev)
+    # laid out as dq, but at bf16 D 256 in the kernel's 64-row tiles
+    lib = _lib(BWD_NAME, "flash_attention_dq_acc_elems", _ACC_ARGTYPES,
+               ctypes.c_longlong)
+    dq_acc = torch.zeros(lib.flash_attention_dq_acc_elems(
+        _DTYPES[q.dtype], B, S, Hkv, G, D), dtype=torch.float32, device=dev)
     dk = torch.empty((B, T, Hkv, D), dtype=q.dtype, device=dev)
     dv = torch.empty_like(dk)
     lib = _lib(BWD_NAME, "flash_attention_bwd", _BWD_ARGTYPES)
@@ -152,10 +159,10 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, scale: float,
         *_shape_args(q, k, v, scale, causal, window, cap, stream))
     build.check(lib, BWD_NAME, code)
     if q.dtype == torch.float32:
-        return dq_acc, dk, dv
+        return dq_acc.view(B, S, Hq, D), dk, dv
     dq = torch.empty((B, S, Hq, D), dtype=q.dtype, device=dev)
     lib = _lib(BWD_NAME, "flash_attention_dq_convert", _CONVERT_ARGTYPES)
     code = lib.flash_attention_dq_convert(dq_acc.data_ptr(), dq.data_ptr(),
-                                          dq.numel(), stream)
+                                          B, S, Hkv, G, D, stream)
     build.check(lib, BWD_NAME, code)
     return dq, dk, dv

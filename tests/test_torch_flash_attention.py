@@ -26,8 +26,9 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 GRAD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 # B, S, T, Hq, Hkv, D, window, cap, causal: the cases of
-# tests/test_kernels.py, then causal off and four query heads per KV head
-# at head dim 128 (Qwen3-8B's grouping)
+# tests/test_kernels.py, then causal off, four query heads per KV head
+# at head dim 128 (Qwen3-8B's grouping) and MHA at head dim 256
+# (Gemma-7B's: G = 1, S off the bf16 backward's 64-row tiles)
 CASES = [
     (2, 128, 128, 4, 4, 64, 0, 0.0, True),       # MHA
     (2, 256, 256, 8, 2, 64, 0, 0.0, True),       # GQA 4:1
@@ -37,9 +38,10 @@ CASES = [
     (2, 320, 320, 2, 2, 32, 64, 30.0, True),     # window + cap + unaligned
     (1, 64, 96, 2, 2, 32, 0, 0.0, False),        # causal off, T != S
     (1, 160, 160, 8, 2, 128, 0, 0.0, True),      # G = 4 at D 128
+    (2, 100, 100, 4, 4, 256, 0, 0.0, True),      # MHA at D 256, ragged
 ]
 IDS = ["mha", "gqa4", "mqa_unaligned", "window", "softcap", "win_cap_odd",
-       "noncausal", "g4_d128"]
+       "noncausal", "g4_d128", "mha_d256"]
 
 # On the card only: the edges of the bf16 kernels' 128-row / 128-key tiles
 # (S * G and T not multiples of 128), G = 3 and 8, head dim 16, a window
@@ -52,8 +54,9 @@ EDGE_CASES = [
     (1, 300, 200, 4, 2, 64, 0, 0.0, False),      # non-causal, T < S
     (1, 260, 260, 8, 1, 32, 50, 20.0, True),     # G = 8, cap + window
     # head dim 256 with RecurrentGemma-2B's grouping (10 heads on 1 KV
-    # head): the bf16 forward's 64-key tiles and m64n256 output, the
-    # scalar backward's 32 x 32 tiles
+    # head): the bf16 forward's 64-key tiles and m64n256 output, the bf16
+    # backward's rows by cp.async (G = 10 does not divide its 64-row
+    # tiles), the fp32 backward's 32 x 32 tiles
     (1, 200, 200, 10, 1, 256, 0, 0.0, True),     # S * G = 2000, ragged
     (2, 300, 300, 10, 1, 256, 100, 0.0, True),   # window
     (1, 260, 260, 10, 1, 256, 64, 30.0, True),   # cap + window
