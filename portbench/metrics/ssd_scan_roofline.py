@@ -1,0 +1,20 @@
+"""The SSD-scan kernel's share of its roofline over the window, %: the
+least time the card could take for the work the traffic gave it (per
+launch, the valid rows of a prefill call only; ``counts/<family>.py``),
+summed over the window's prefill calls, over the kernel's summed device
+time in the trace."""
+from portbench.counts.peaks import bound_s
+
+KERNEL = "ssd_scan"
+
+
+def read(run):
+    c, tr = run.counts, run.trace
+    if tr is None or not hasattr(c, "ssd_scan_work"):
+        return None
+    spent = tr.op_seconds(KERNEL)
+    if spent <= 0:
+        return None
+    least = sum(bound_s(*c.ssd_scan_work(run.pub, call.lengths, call.rows))
+                for call in run.calls if call.kind == "prefill")
+    return 100.0 * least * c.launches_per_call(run.pub) / spent
