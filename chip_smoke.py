@@ -197,8 +197,7 @@ prints no result.  Phases, each of which raises on failure:
      ``fig9_congestor_victim`` at 300 us on both datapaths (identical
      decision and span rows), ``launch.scenario qos_closed_loop
      --export`` against the sim golden and ``launch.telemetry_report
-     --surface sim --controller``; (c) the planes-on wall and tokens/s
-     beside the planes-off run's and phase 5's, the commits' device and
+     --surface sim --controller``; (c) the commits' device and
      host time and share, the trace's
      host time a step, spans and decisions retained, bus frames
      published and dropped, the Perfetto file's events and bytes and
@@ -217,8 +216,8 @@ prints no result.  Phases, each of which raises on failure:
      DeepSeek: MLA's absorbed decode, K dim 576 and V dim 512, takes the
      plain path), one decode step's logits against the ``chunked``
      path's (5 % of the range) or, for DeepSeek, the absorbed prefill's
-     fp32 logits against the expanded cache-free forward's (5e-3); wall,
-     tokens/s, peak memory and a profiled decode step.  Llama-4
+     fp32 logits against the expanded cache-free forward's (5e-3); peak
+     memory and a profiled decode step.  Llama-4
      Maverick (1.6 TB of f32 parameters) fits no card and is not served.
  23. (run after phase 22) the encoder-decoder, whisper-large-v3: (a) its
      fp32 smoke config with random frames, kernel path against
@@ -229,8 +228,8 @@ prints no result.  Phases, each of which raises on failure:
      serving phase 5's ``serve_mixed_slo`` over the zero cross K/V the
      engine serves with (it passes no frames, as the JAX package's):
      every request done, decode_attention exactly 2 x 32 a decode step
-     (self, then cross with fill 1500), no flash launch; wall, tokens/s,
-     peak memory, a profiled decode step with the cross launches' share;
+     (self, then cross with fill 1500), no flash launch; peak memory, a
+     profiled decode step with the cross launches' share;
      (c) ``Model.prefill(frames=...)`` on 8 x 1500 random frames, then 4
      decode steps: exactly 32 flash launches (the encoder, non-causal) in
      the prefill and 64 decode launches a step, the decode logits within
@@ -708,15 +707,17 @@ def serve_spec(cfg, seed: int):
 
 
 def serve(cfg, seed: int):
+    """``serve_spec`` served through ``ServeRuntime`` + ``ModelExecutor``
+    on the card: (runtime, validated report, kernel launches)."""
     spec = serve_spec(cfg, seed)
-    (rt, init_s) = sync_time(lambda: ServeRuntime.from_spec(
+    rt = ServeRuntime.from_spec(
         spec, executor=lambda e: ModelExecutor(cfg, e, rng_seed=seed,
-                                               device="cuda")))
+                                               device="cuda"))
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    rep, wall = sync_time(lambda: rt.run(spec).validate())
+    rep = rt.run(spec).validate()
     launches = dict(ops.LAUNCHES)
-    return rt, rep, wall, init_s, launches
+    return rt, rep, launches
 
 
 def prefill_decode_logits(cfg, module, max_len: int, prompts,
@@ -1794,27 +1795,25 @@ def sharded_serve_phase(p5: dict, decode_device_ms: float,
         f"{cfg.num_layers} layers through the mesh branch")
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
-    rt, init_s = sync_time(lambda: ServeRuntime.from_spec(
+    rt = ServeRuntime.from_spec(
         spec, executor=lambda e: ModelExecutor(cfg, e, rng_seed=SEED,
-                                               device="cuda", mesh=mesh)))
+                                               device="cuda", mesh=mesh))
+    torch.cuda.synchronize()
     held = torch.cuda.memory_allocated() - base
     ex = rt.engine.exe
     if ex.fns.layout is None:
         raise AssertionError("phase 26: the executor took no mesh branch")
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    rep, wall = sync_time(lambda: rt.run(spec).validate())
+    rep = rt.run(spec).validate()
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     done = rt.engine.done
     steps = rep.extras["decode_steps"]
     generated = sum(len(r.generated) for r in done)
-    log(f"phase 26 serve: init_s={init_s:.2f} steps={int(rep.duration)} "
+    log(f"phase 26 serve: steps={int(rep.duration)} "
         f"prefill_chunks={rep.extras['prefill_chunks']} decode_steps={steps} "
-        f"wall_s={wall:.3f} generated_tokens={generated} "
-        f"tokens_per_s={generated / wall:.2f} max_memory_allocated={peak} "
-        f"(phase 5: wall_s={p5['wall']:.3f}, "
-        f"tokens_per_s={p5['tokens'] / p5['wall']:.2f}); {smi}")
+        f"generated_tokens={generated} max_memory_allocated={peak}; {smi}")
     if len(done) != 12 or any(r.status != RequestStatus.DONE for r in done):
         raise AssertionError("phase 26: not every request ended done")
     if launches["decode_attention"] != cfg.num_layers * steps or any(
@@ -1895,8 +1894,7 @@ def sharded_serve_phase(p5: dict, decode_device_ms: float,
                              "bytes held after init by more than 1 %")
     log(f"phase 26: {time.perf_counter() - t0:.1f} s")
     return dict(launches=launches, err=max(errs), times=times, recs=recs,
-                held=held, step_peak=step_peak, plan=plan, dev_ms=dev_ms,
-                wall=wall, tokens=generated)
+                held=held, step_peak=step_peak, plan=plan, dev_ms=dev_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -2164,15 +2162,15 @@ def serve_family_mesh(arch: str, one: dict, mesh, smi: str) -> dict:
     cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
     spec = serve_spec(cfg, SEED)
     torch.cuda.empty_cache()
-    rt, init_s = sync_time(lambda: ServeRuntime.from_spec(
+    rt = ServeRuntime.from_spec(
         spec, executor=lambda e: ModelExecutor(cfg, e, rng_seed=SEED,
-                                               device="cuda", mesh=mesh)))
+                                               device="cuda", mesh=mesh))
     ex = rt.engine.exe
     if ex.fns.layout is None:
         raise AssertionError(f"phase 28 {arch}: no mesh branch")
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    rep, wall = sync_time(lambda: rt.run(spec).validate())
+    rep = rt.run(spec).validate()
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     done = rt.engine.done
@@ -2187,9 +2185,8 @@ def serve_family_mesh(arch: str, one: dict, mesh, smi: str) -> dict:
         ssd_scan=kinds.count(SSD) * pc, rglru_scan=kinds.count(RGLRU) * pc)
     generated = sum(len(r.generated) for r in done)
     log(f"phase 28 serve {arch} ({smi}): layers={cfg.num_layers} "
-        f"init_s={init_s:.2f} prefill_chunks={pc} decode_steps={ds} "
-        f"wall_s={wall:.3f} generated_tokens={generated} "
-        f"tokens_per_s={generated / wall:.2f} max_memory_allocated={peak} "
+        f"prefill_chunks={pc} decode_steps={ds} "
+        f"generated_tokens={generated} max_memory_allocated={peak} "
         f"launches={launches} (want {want})")
     if len(done) != 12 or any(r.status != RequestStatus.DONE for r in done):
         raise AssertionError(f"phase 28 {arch}: not every request ended done")
@@ -2212,7 +2209,7 @@ def serve_family_mesh(arch: str, one: dict, mesh, smi: str) -> dict:
         f"{dev_ms / one['dec_ms']:.4f}; {smi})")
     del rt, ex
     torch.cuda.empty_cache()
-    return dict(launches=launches, dev_ms=dev_ms, wall=wall, peak=peak)
+    return dict(launches=launches, dev_ms=dev_ms, peak=peak)
 
 
 def whisper_tp_train(mesh, hist23: list, smi: str) -> dict:
@@ -3300,7 +3297,7 @@ def serve_recurrent(arch: str) -> dict:
     kernels; exact launch counts; full-width check; profile of a prefill
     step."""
     cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
-    rt, rep, wall, init_s, launches = serve(cfg, SEED)
+    rt, rep, launches = serve(cfg, SEED)
     done = rt.engine.done
     pc, ds = rep.extras["prefill_chunks"], rep.extras["decode_steps"]
     generated = sum(len(r.generated) for r in done)
@@ -3315,10 +3312,9 @@ def serve_recurrent(arch: str) -> dict:
             "rglru_scan": kinds.count(RGLRU) * pc, "sweep_scan": 0}
     log(f"serve {arch}: layers={cfg.num_layers} ({kinds.count(SSD)} ssd, "
         f"{kinds.count(RGLRU)} rglru, {kinds.count(LOCAL_ATTN)} local) "
-        f"d_model={cfg.d_model} params={n_params} init_s={init_s:.2f} "
+        f"d_model={cfg.d_model} params={n_params} "
         f"steps={int(rep.duration)} prefill_chunks={pc} decode_steps={ds} "
-        f"wall_s={wall:.3f} generated_tokens={generated} "
-        f"tokens_per_s={generated / wall:.2f} max_memory_allocated={peak} "
+        f"generated_tokens={generated} max_memory_allocated={peak} "
         f"launches={launches}")
     log(rep.summary())
     if len(done) != 12 or any(r.status != RequestStatus.DONE for r in done):
@@ -3339,7 +3335,7 @@ def serve_recurrent(arch: str) -> dict:
                           kernel="decode_attention")
     del rt, ex
     torch.cuda.empty_cache()
-    return dict(launches=launches, peak=peak, wall=wall,
+    return dict(launches=launches, peak=peak,
                 spec=serve_spec(cfg, SEED), summary=rep.summary(),
                 json=rep.to_json(), dec_ms=dec_ms)
 
@@ -3511,8 +3507,8 @@ def cli_phase(mamba: dict) -> dict:
     # (b) a real model through the CLI: the main path of ssd_scan
     cfg = get_config("mamba2-370m")
     ops.reset_launches()
-    rep, wall = sync_time(lambda: scenario_cli.run_one(
-        "serve_mixed_slo", "serve", {}, arch="mamba2-370m"))
+    rep = scenario_cli.run_one("serve_mixed_slo", "serve", {},
+                               arch="mamba2-370m")
     serve_launches = dict(ops.LAUNCHES)
     pc = rep.extras["prefill_chunks"]
     n_ssd = cfg.pattern_for_layers().count(SSD)
@@ -3521,7 +3517,7 @@ def cli_phase(mamba: dict) -> dict:
     done = sum(t.completed for t in rep.tenants.values())
     lost = sum(t.killed + t.rejected + t.drops for t in rep.tenants.values())
     log(f"scenario CLI serve_mixed_slo --backend serve --arch mamba2-370m: "
-        f"wall {wall:.3f} s, prefill_chunks={pc} decode_steps="
+        f"prefill_chunks={pc} decode_steps="
         f"{rep.extras['decode_steps']} done={done}/{requests} "
         f"launches={serve_launches}")
     log(rep.summary())
@@ -3679,7 +3675,7 @@ def planes_phase(p5: dict, decode_device_ms: float, smi: str) -> dict:
     every plane on (the flight recorder, the bus with both exporters and
     a headless dashboard, the ``"torch"`` telemetry backend on the card);
     (b) the trace CLI's path, the scenario CLI's export and the telemetry
-    report on the host; (c) their costs and walls."""
+    report on the host; (c) their costs and the host legs' walls."""
     import io
     from repro_torch.launch import telemetry_report as report_cli
     from repro_torch.launch import trace as trace_cli
@@ -3696,10 +3692,10 @@ def planes_phase(p5: dict, decode_device_ms: float, smi: str) -> dict:
     spec = serve_spec(cfg, SEED)
     names = {i: t.name for i, t in enumerate(spec.tenants)}
     warm_telemetry(max(len(spec.tenants), 2))
-    (rt, init_s) = sync_time(lambda: ServeRuntime.from_spec(
+    rt = ServeRuntime.from_spec(
         spec, executor=lambda e: ModelExecutor(cfg, e, rng_seed=SEED,
                                                device="cuda"),
-        trace=True, telemetry_backend="torch"))
+        trace=True, telemetry_backend="torch")
     eng = rt.engine
     tel = eng.tel
     if tel.backend != "torch" or tel.state["hist"].device.type != "cuda":
@@ -3724,7 +3720,7 @@ def planes_phase(p5: dict, decode_device_ms: float, smi: str) -> dict:
 
     eng.trace.maybe_commit = timed_maybe_commit
     ops.reset_launches()
-    rep, wall = sync_time(lambda: rt.run(spec).validate())
+    rep = rt.run(spec).validate()
     launches = dict(ops.LAUNCHES)
     bus.close()
     rt.flush_trace()
@@ -3738,16 +3734,12 @@ def planes_phase(p5: dict, decode_device_ms: float, smi: str) -> dict:
     ex = eng.exe
     rt_off = ServeRuntime.from_spec(spec, executor=ex)
     ops.reset_launches()
-    _, wall_off = sync_time(lambda: rt_off.run(spec))
+    rt_off.run(spec)
     off_launches = ops.LAUNCHES["decode_attention"]
     del rt_off
-    log(f"serve qwen3-8b, every plane on ({smi}): init_s={init_s:.2f} "
-        f"steps={steps} decode_steps={decode_steps} wall_s={wall:.3f} "
-        f"generated_tokens={generated} tokens_per_s={generated / wall:.2f}"
-        f"; planes off right after, same weights: wall_s={wall_off:.3f} "
-        f"tokens_per_s={generated / wall_off:.2f}; phase 5, planes off: "
-        f"wall_s={p5['wall']:.3f} tokens_per_s="
-        f"{p5['tokens'] / p5['wall']:.2f} (host clock, one run each)")
+    log(f"serve qwen3-8b, every plane on ({smi}): steps={steps} "
+        f"decode_steps={decode_steps} generated_tokens={generated}; the "
+        f"planes off right after, same weights")
     log(rep.summary())
     if len(done) != 12 or any(r.status != RequestStatus.DONE for r in done):
         raise AssertionError("planes on: not every request ended done: "
@@ -3873,7 +3865,7 @@ def planes_phase(p5: dict, decode_device_ms: float, smi: str) -> dict:
         + " ".join(f"{k}={v!r}" for k, v in walls.items()))
     return dict(launches={"decode_attention": launches["decode_attention"]
                           + off_launches},
-                wall=wall, share=share)
+                share=share)
 
 
 # ---------------------------------------------------------------------------
@@ -3931,7 +3923,7 @@ def serve_family(arch: str, depth: int, smi: str) -> dict:
                               num_layers=depth)
     mla = cfg.mla is not None
     check_small(arch, 24, 16, kernels=not mla)
-    rt, rep, wall, init_s, launches = serve(cfg, SEED)
+    rt, rep, launches = serve(cfg, SEED)
     done = rt.engine.done
     pc, ds = rep.extras["prefill_chunks"], rep.extras["decode_steps"]
     generated = sum(len(r.generated) for r in done)
@@ -3943,9 +3935,9 @@ def serve_family(arch: str, depth: int, smi: str) -> dict:
     log(f"serve {arch} ({smi}): layers={cfg.num_layers} of "
         f"{get_config(arch).num_layers} d_model={cfg.d_model} "
         f"heads={cfg.num_heads}/{cfg.num_kv_heads} head_dim={cfg.head_dim} "
-        f"params={n_params} init_s={init_s:.2f} steps={int(rep.duration)} "
-        f"prefill_chunks={pc} decode_steps={ds} wall_s={wall:.3f} "
-        f"generated_tokens={generated} tokens_per_s={generated / wall:.2f} "
+        f"params={n_params} steps={int(rep.duration)} "
+        f"prefill_chunks={pc} decode_steps={ds} "
+        f"generated_tokens={generated} "
         f"max_memory_allocated={peak} launches={launches}")
     log(rep.summary())
     if len(done) != 12 or any(r.status != RequestStatus.DONE for r in done):
@@ -4159,7 +4151,7 @@ def whisper_phase(smi: str) -> dict:
     check_small(WHISPER, 16, 4)
     check_small(WHISPER, 24, 16)
     cfg = dataclasses.replace(get_config(WHISPER), attn_impl="pallas")
-    rt, rep, wall, init_s, launches = serve(cfg, SEED)
+    rt, rep, launches = serve(cfg, SEED)
     done = rt.engine.done
     pc, ds = rep.extras["prefill_chunks"], rep.extras["decode_steps"]
     generated = sum(len(r.generated) for r in done)
@@ -4172,10 +4164,9 @@ def whisper_phase(smi: str) -> dict:
         f"{cfg.num_layers} layers, d_model={cfg.d_model} "
         f"heads={cfg.num_heads}/{cfg.num_kv_heads} head_dim={cfg.head_dim} "
         f"frames={cfg.num_audio_frames} params={n_params} "
-        f"init_s={init_s:.2f} steps={int(rep.duration)} prefill_chunks={pc} "
-        f"decode_steps={ds} wall_s={wall:.3f} generated_tokens={generated} "
-        f"tokens_per_s={generated / wall:.2f} max_memory_allocated={peak} "
-        f"launches={launches}")
+        f"steps={int(rep.duration)} prefill_chunks={pc} "
+        f"decode_steps={ds} generated_tokens={generated} "
+        f"max_memory_allocated={peak} launches={launches}")
     log(rep.summary())
     if len(done) != 12 or any(r.status != RequestStatus.DONE for r in done):
         raise AssertionError(f"{WHISPER}: not every request ended done: "
@@ -4800,16 +4791,15 @@ def main() -> int:
     check_small("qwen3-8b", 16, 4, num_heads=8)
 
     cfg = dataclasses.replace(get_config("qwen3-8b"), attn_impl="pallas")
-    rt, rep, wall, init_s, launches = serve(cfg, SEED)
+    rt, rep, launches = serve(cfg, SEED)
     done = rt.engine.done
     decode_steps = rep.extras["decode_steps"]
     generated = sum(len(r.generated) for r in done)
     peak = torch.cuda.max_memory_allocated()
     log(f"serve qwen3-8b: layers={cfg.num_layers} d_model={cfg.d_model} "
-        f"init_s={init_s:.2f} steps={int(rep.duration)} "
+        f"steps={int(rep.duration)} "
         f"prefill_chunks={rep.extras['prefill_chunks']} "
-        f"decode_steps={decode_steps} wall_s={wall:.3f} "
-        f"generated_tokens={generated} tokens_per_s={generated / wall:.2f} "
+        f"decode_steps={decode_steps} generated_tokens={generated} "
         f"max_memory_allocated={peak}")
     log(rep.summary())
     if len(done) != 12 or any(r.status != RequestStatus.DONE for r in done):
@@ -4819,8 +4809,7 @@ def main() -> int:
         raise AssertionError(f"decode_attention launches "
                              f"{launches['decode_attention']} != "
                              f"{cfg.num_layers} x {decode_steps}")
-    p5 = dict(json=rep.to_json(), snap=rt.engine.tel.snapshot(), wall=wall,
-              tokens=generated)
+    p5 = dict(json=rep.to_json(), snap=rt.engine.tel.snapshot())
     ex = rt.engine.exe
     check_full_width(ex.params, cfg)
     decode_device_ms = profile_decode(ex)

@@ -23,6 +23,18 @@ This pass keeps the open/close story balanced per module:
 
 ``span``/``span_packet`` record complete rows and need no balancing;
 the recorder module itself (which defines the API) is skipped.
+
+The port's wall-clock host spans (DESIGN.md §10.6) are held the same
+way:
+
+  * in each function, the spans opened (``host_root`` /
+    ``host_begin``) equal those closed (``host_end``; ``host_next``
+    closes one and opens one) — a step or call span left open nests
+    every later span under it (error);
+  * a module that moves requests through lifecycle spans
+    (``host_request``) also closes them (``host_request_end``), or
+    each request's last span stays open (error);
+  * their name arguments are ``H_*`` constants (error).
 """
 from __future__ import annotations
 
@@ -66,6 +78,45 @@ def _span_calls(mod: Module) -> List[Tuple[str, ast.Call]]:
     return out
 
 
+HOST_OPEN = ("host_root", "host_begin")
+HOST_NAMED = {"host_root": 0, "host_begin": 0, "host_next": 0,
+              "host_request": 2}
+
+
+def _method_calls(node: ast.AST, names) -> List[Tuple[str, ast.Call]]:
+    return [(n.func.attr, n) for n in ast.walk(node)
+            if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+            and n.func.attr in names]
+
+
+def _host_findings(rule: Rule, mod: Module) -> List[Finding]:
+    out: List[Finding] = []
+    for method, call in _method_calls(mod.tree, HOST_NAMED):
+        name = _arg(call, HOST_NAMED[method], "name")
+        if not (isinstance(name, ast.Attribute) and name.attr.startswith("H_")
+                or isinstance(name, ast.Name) and name.id.startswith("H_")):
+            out.append(rule.finding(
+                mod, call, f"{method} name argument must be an H_* "
+                "constant, not a computed or numeric value"))
+    for fn in ast.walk(mod.tree):
+        if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        calls = _method_calls(fn, HOST_OPEN + ("host_end",))
+        opened = sum(m in HOST_OPEN for m, _ in calls)
+        closed = len(calls) - opened
+        if opened != closed:
+            out.append(rule.finding(
+                mod, fn, f"{fn.name} opens {opened} host span(s) and "
+                f"closes {closed}: an unclosed step or call span nests "
+                "every later span under it"))
+    moved = _method_calls(mod.tree, ("host_request",))
+    if moved and not _method_calls(mod.tree, ("host_request_end",)):
+        out.append(rule.finding(
+            mod, moved[0][1], "host_request without a host_request_end in "
+            "this module: each request's last lifecycle span stays open"))
+    return out
+
+
 def _arg(call: ast.Call, pos: int, kw: str) -> Optional[ast.AST]:
     if len(call.args) > pos:
         return call.args[pos]
@@ -90,6 +141,7 @@ class SpanBalanceRule(Rule):
         for mod in index.matching(list(self.scope)):
             if mod.dotted == RECORDER_MODULE:
                 continue
+            findings += _host_findings(self, mod)
             calls = _span_calls(mod)
             if not calls:
                 continue

@@ -39,6 +39,7 @@ from repro_torch.serving.request import Request, RequestStatus
 from repro_torch.serving.serve_step import build_serve_fns
 from repro_torch.telemetry import G_IDX, GAUGES, tenant_report
 from repro_torch.telemetry import trace as TR
+from repro_torch.telemetry.clock import now_ns
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,20 +116,51 @@ class ModelExecutor:
     def _dev(self, a):
         return torch.as_tensor(a, device=self.device)
 
+    # Inside an engine step with tracing on, each call records its parts
+    # as host spans: ``stage`` (the arrays to the device), ``launch``
+    # (the serve function, its work enqueued) and ``readback`` (the
+    # tokens to the host, the call's one wait for the device).
     def prefill(self, tokens, lengths, valid_n):
-        nxt, _, self.cache = self.fns.prefill_chunk(
-            self.params, self.cache, self._dev(tokens), self._dev(lengths),
-            self._dev(valid_n))
-        return nxt.cpu().numpy()
+        tr = TR.bound()
+        if tr is not None:
+            tr.host_begin(TR.H_PREFILL_STAGE)
+        args = self._dev(tokens), self._dev(lengths), self._dev(valid_n)
+        if tr is not None:
+            tr.host_next(TR.H_PREFILL_LAUNCH)
+        nxt, _, self.cache = self.fns.prefill_chunk(self.params, self.cache,
+                                                    *args)
+        if tr is not None:
+            tr.host_next(TR.H_PREFILL_READBACK)
+        out = nxt.cpu().numpy()
+        if tr is not None:
+            tr.host_end()
+        return out
 
     def decode(self, tokens, lengths, active):
-        nxt, self.cache = self.fns.decode(
-            self.params, self.cache, self._dev(tokens), self._dev(lengths),
-            self._dev(active))
-        return nxt.cpu().numpy()
+        tr = TR.bound()
+        if tr is not None:
+            tr.host_begin(TR.H_DECODE_STAGE)
+        args = self._dev(tokens), self._dev(lengths), self._dev(active)
+        if tr is not None:
+            tr.host_next(TR.H_DECODE_LAUNCH)
+        nxt, self.cache = self.fns.decode(self.params, self.cache, *args)
+        if tr is not None:
+            tr.host_next(TR.H_DECODE_READBACK)
+        out = nxt.cpu().numpy()
+        if tr is not None:
+            tr.host_end()
+        return out
 
     def reset(self, keep):
-        self.cache = self.fns.reset_slots(self.cache, self._dev(keep))
+        tr = TR.bound()
+        if tr is not None:
+            tr.host_begin(TR.H_RESET_STAGE)
+        keep = self._dev(keep)
+        if tr is not None:
+            tr.host_next(TR.H_RESET_LAUNCH)
+        self.cache = self.fns.reset_slots(self.cache, keep)
+        if tr is not None:
+            tr.host_end()
 
 
 class Engine(EngineBase):
@@ -216,6 +248,7 @@ class Engine(EngineBase):
                 self.trace.span_abandon(TR.ST_FMQ, uid,
                                         float(self.step_count),
                                         TR.D_REJECT)
+                self.trace.host_request_end(uid, now_ns(), TR.D_REJECT)
             self.done.append(req)
             if eq is not None:
                 eq.push(Event(tenant_id, EventKind.EVICTED, self.step_count,
@@ -309,6 +342,7 @@ class Engine(EngineBase):
             now = float(self.step_count)
             tr.span(TR.ST_ARRIVE, uid, req.tenant_id, now, now, TR.D_OK)
             tr.span_begin(TR.ST_FMQ, uid, req.tenant_id, now)
+            tr.host_request(uid, req.tenant_id, TR.H_REQ_QUEUE, now_ns())
             self._tr_uid_by_rid[req.rid] = uid
         self.queues[req.tenant_id].append(req)
         self.st.queue_len[req.tenant_id] += 1
@@ -377,6 +411,7 @@ class Engine(EngineBase):
             return
         keep = np.ones(self.cfg.max_slots, bool)
         tr = self.trace
+        t_grant_ns = now_ns() if tr is not None else 0
         for t in picks:
             req = self.queues[t].popleft()
             s = self.slots.take(t)
@@ -391,9 +426,14 @@ class Engine(EngineBase):
                 now = float(self.step_count)
                 tr.span_end(TR.ST_FMQ, uid, now, TR.D_OK, pu=s)
                 tr.span(TR.ST_GRANT, uid, t, now, now, TR.D_OK, pu=s)
+                tr.host_request(uid, t, TR.H_REQ_PREFILL, t_grant_ns)
         # invalidate stale cache rows for every slot assigned this step in
         # ONE batched call (R3 isolation)
+        if tr is not None:
+            tr.host_begin(TR.H_EXE_RESET)
         self.exe.reset(keep)
+        if tr is not None:
+            tr.host_end()
 
     def _finish(self, slot: int, status: RequestStatus,
                 kill_kind: EventKind = EventKind.REQUEST_KILLED) -> None:
@@ -410,6 +450,7 @@ class Engine(EngineBase):
             tr.span(TR.ST_PU, uid, t, float(req.start_step), now, disp,
                     pu=slot)
             tr.span(TR.ST_EQ, uid, t, now, now, disp, pu=slot)
+            tr.host_request_end(uid, now_ns(), disp)
         self.st.cur_occup[t] -= 1
         self.slots.release(slot)
         self.slot_req[slot] = None
@@ -470,7 +511,12 @@ class Engine(EngineBase):
             n = min(C, r.prompt_len - r.prefill_done)
             tokens[s, :n] = r.prompt[r.prefill_done:r.prefill_done + n]
             valid_n[s] = n
+        if tr is not None:
+            tr.host_begin(TR.H_EXE_PREFILL, int(valid_n.sum()), B * C)
         nxt = self.exe.prefill(tokens, self.lengths.copy(), valid_n)
+        # the first token of a request whose prompt this chunk ends is on
+        # the host when the call returns
+        t_first_ns = tr.host_end() if tr is not None else 0
         self.prefill_chunks += 1
         for s in chosen:
             r = self.slot_req[s]
@@ -491,6 +537,9 @@ class Engine(EngineBase):
                 r.status = RequestStatus.DECODE
                 r.generated.append(int(nxt[s]))
                 self.last_tok[s] = nxt[s]
+                if tr is not None:
+                    tr.host_request(uid, r.tenant_id, TR.H_REQ_DECODE,
+                                    t_first_ns)
             if self._over_total_budget(r.tenant_id):
                 self._finish(s, RequestStatus.KILLED,
                              kill_kind=EventKind.TOTAL_BUDGET_EXCEEDED)
@@ -501,8 +550,13 @@ class Engine(EngineBase):
             for r in self.slot_req])
         if not active.any():
             return
+        tr = self.trace
+        if tr is not None:
+            tr.host_begin(TR.H_EXE_DECODE, int(active.sum()), active.size)
         nxt = self.exe.decode(self.last_tok.copy(), self.lengths.copy(),
                               active)
+        if tr is not None:
+            tr.host_end()
         self.decode_steps += 1
         for s in np.flatnonzero(active):
             r = self.slot_req[s]
@@ -566,12 +620,39 @@ class Engine(EngineBase):
                 t=float(self.step_count))
 
     def step(self) -> None:
+        tr = self.trace
+        if tr is None:
+            self._step(None)
+            return
+        # with tracing on, the step and its phases are host spans, and
+        # the executor's calls record theirs into this step's recorder,
+        # bound for the step alone: a step that raises leaves no
+        # recorder bound and no span open
+        TR.bind(tr)
+        try:
+            self._step(tr)
+        finally:
+            TR.bind(None)
+            tr.host_unwind()
+
+    def _step(self, tr: Optional[TR.TraceRecorder]) -> None:
+        if tr is not None:
+            tr.host_root(TR.H_STEP)
+            tr.host_begin(TR.H_CONTROL)
         # R5: control traffic first
         while self._control:
             self._control.popleft()()
+        if tr is not None:
+            tr.host_next(TR.H_ASSIGN)
         self._assign_slots()
+        if tr is not None:
+            tr.host_next(TR.H_PREFILL)
         self._prefill_phase()
+        if tr is not None:
+            tr.host_next(TR.H_DECODE)
         self._decode_phase()
+        if tr is not None:
+            tr.host_next(TR.H_ACCOUNT)
         # WLBVT accounting + fairness (per engine step = one "cycle")
         W.advance(self.st, 1.0)
         act = self.st.active & self._installed
@@ -581,8 +662,10 @@ class Engine(EngineBase):
                 weights=self.st.prio[act])
         if self.tel is not None:
             self._commit_telemetry()
-        if self.trace is not None:
-            self.trace.maybe_commit()
+        if tr is not None:
+            tr.maybe_commit()
+            tr.host_end()
+            tr.host_end()
         self.step_count += 1
 
     def run(self, steps: int) -> None:

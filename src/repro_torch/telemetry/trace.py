@@ -39,15 +39,25 @@ Provenance is recorded by *replay*: the scheduler's own decision code
 is never touched (bit-identity with tracing off is a hard contract).
 The replay recomputes eligibility from snapshots with the same
 formulas (``sched_generic``) the scheduler used.
+
+A third table holds **host spans** on the wall clock
+(``telemetry/clock.py``, the profiler's timeline): the serving engine's
+steps and phases, its executor's calls and their stage / launch /
+readback, and each request's queue / prefill / decode (DESIGN.md
+§10.6).  Step and call spans nest through an open-span stack; the
+executor, reached through wrappers, finds the recorder through
+:func:`bound`, set by ``Engine.step()`` for the step's duration.
 """
 from __future__ import annotations
 
+import threading
 from array import array
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.core import sched_generic as G
+from repro_torch.telemetry.clock import now_ns
 
 # --------------------------------------------------------------------------
 # encodings
@@ -115,6 +125,47 @@ _SPAN_DTYPES = (
     ("t1", np.float64),
 )
 
+# host spans (``host_rows()`` ``name`` column): an engine step, its
+# phases, the executor's calls, their parts, a request's lifecycle
+(H_STEP, H_CONTROL, H_ASSIGN, H_PREFILL, H_DECODE, H_ACCOUNT,
+ H_EXE_RESET, H_EXE_PREFILL, H_EXE_DECODE,
+ H_RESET_STAGE, H_RESET_LAUNCH,
+ H_PREFILL_STAGE, H_PREFILL_LAUNCH, H_PREFILL_READBACK,
+ H_DECODE_STAGE, H_DECODE_LAUNCH, H_DECODE_READBACK,
+ H_REQ_QUEUE, H_REQ_PREFILL, H_REQ_DECODE) = range(20)
+HOST_SPANS = (
+    "engine.step", "engine.control", "engine.assign", "engine.prefill",
+    "engine.decode", "engine.account",
+    "executor.reset", "executor.prefill", "executor.decode",
+    "reset.stage", "reset.launch",
+    "prefill.stage", "prefill.launch", "prefill.readback",
+    "decode.stage", "decode.launch", "decode.readback",
+    "request.queue", "request.prefill", "request.decode")
+
+_HOST_DTYPES = (
+    ("name", np.int8), ("id", np.int64), ("parent", np.int64),
+    ("uid", np.int64), ("tenant", np.int16), ("disp", np.int8),
+    ("t0_ns", np.int64), ("t1_ns", np.int64), ("valid", np.int64),
+    ("computed", np.int64),
+)
+_HOST_NCOLS = len(_HOST_DTYPES)
+
+# the recorder of the engine step in progress in this thread
+# (``Engine.step()`` binds it); an executor called outside a step finds
+# None and records nothing
+_step = threading.local()
+
+
+def bind(tr: Optional["TraceRecorder"]) -> None:
+    """Make ``tr`` (or nothing) the recorder :func:`bound` returns in
+    this thread."""
+    _step.recorder = tr
+
+
+def bound() -> Optional["TraceRecorder"]:
+    """The recorder of this thread's engine step in progress, or None."""
+    return getattr(_step, "recorder", None)
+
 
 # --------------------------------------------------------------------------
 # pure ring kernel
@@ -170,6 +221,17 @@ class TraceRecorder:
         self._open: Dict[Tuple[int, int], Tuple[int, float]] = {}
         self._reset_span_stage()
         self._reset_decision_stage()
+        # host spans: a ring of the same depth, allocated at the first
+        # commit that has host rows (the simulators record none)
+        self.host: Optional[Dict[str, np.ndarray]] = None
+        self.host_count = 0
+        self._host_next_id = 0
+        # open step / call spans, innermost last:
+        # (name, id, parent, valid, computed, t0_ns)
+        self._host_stack: List[tuple] = []
+        # each request's open lifecycle span: uid -> (name, tenant, t0_ns)
+        self._host_req: Dict[int, Tuple[int, int, int]] = {}
+        self._reset_host_stage()
         # staged-row watermark for maybe_commit(): large enough to
         # amortize the fixed numpy cost of a batched expansion over
         # tens of thousands of rows, small enough to bound staging
@@ -204,6 +266,114 @@ class TraceRecorder:
         self._d_plain: List[tuple] = []
         self._d_plain_pos = array("q")
         self._drows = 0
+
+    def _reset_host_stage(self) -> None:
+        self._hs = array("q")            # _HOST_NCOLS values per row
+        self._hrows = 0
+
+    # -- host spans (wall clock) -------------------------------------------
+
+    def _host_row(self, name: int, hid: int, parent: int, uid: int,
+                  tenant: int, disp: int, t0_ns: int, t1_ns: int,
+                  valid: int, computed: int) -> None:
+        self._hs.extend((name, hid, parent, uid, tenant, disp, t0_ns,
+                         t1_ns, valid, computed))
+        self._hrows += 1
+
+    def _host_push(self, name: int, valid: int, computed: int,
+                   t0_ns: int) -> None:
+        st = self._host_stack
+        hid = self._host_next_id
+        self._host_next_id += 1
+        st.append((name, hid, st[-1][1] if st else -1, valid, computed,
+                   t0_ns))
+
+    def _host_pop(self, t1_ns: int) -> None:
+        name, hid, parent, valid, computed, t0_ns = self._host_stack.pop()
+        self._host_row(name, hid, parent, -1, -1, D_OK, t0_ns, t1_ns,
+                       valid, computed)
+
+    def host_root(self, name: int) -> None:
+        """Open a span with no parent (a step's)."""
+        self._host_push(name, 0, 0, now_ns())
+
+    def host_unwind(self) -> None:
+        """Drop the step and call spans still open: a step that raised
+        records none of them."""
+        self._host_stack.clear()
+
+    def host_begin(self, name: int, valid: int = 0,
+                   computed: int = 0) -> None:
+        """Open a span inside the innermost open one; ``valid`` /
+        ``computed`` are the rows of work it carries."""
+        self._host_push(name, valid, computed, now_ns())
+
+    def host_next(self, name: int) -> None:
+        """Close the innermost span and open its sibling ``name`` at the
+        same instant (phases that tile their parent)."""
+        t_ns = now_ns()
+        self._host_pop(t_ns)
+        self._host_push(name, 0, 0, t_ns)
+
+    def host_end(self) -> int:
+        """Close the innermost span; returns its end, ns."""
+        t_ns = now_ns()
+        self._host_pop(t_ns)
+        return t_ns
+
+    def host_request(self, uid: int, tenant: int, name: int,
+                     t_ns: int) -> None:
+        """Move request ``uid`` into lifecycle span ``name`` at ``t_ns``,
+        closing the span it was in (a request's spans tile its life)."""
+        self.host_request_end(uid, t_ns)
+        self._host_req[uid] = (name, tenant, t_ns)
+
+    def host_request_end(self, uid: int, t_ns: int,
+                         disp: int = D_OK) -> None:
+        """Close request ``uid``'s open lifecycle span, if any, with
+        ``disp`` (OK, or REJECT / KILL on a terminal path)."""
+        got = self._host_req.pop(uid, None)
+        if got is not None:
+            name, tenant, t0_ns = got
+            hid = self._host_next_id
+            self._host_next_id += 1
+            self._host_row(name, hid, -1, uid, tenant, disp, t0_ns, t_ns,
+                           0, 0)
+
+    def host_rows(self) -> Dict[str, np.ndarray]:
+        """Retained host spans in write (close) order, ``name`` as its
+        string; then each request's open span, disposition OPEN, ending
+        at this read-out (it stays open)."""
+        self.commit()
+        if self.host is None:
+            cols = {k: np.zeros(0, dt) for k, dt in _HOST_DTYPES}
+        else:
+            order = self._order(self.host_count, self.depth)
+            cols = {k: v[order] for k, v in self.host.items()}
+        if self._host_req:
+            t_ns = now_ns()
+            open_ = np.array(
+                [(name, -1, -1, uid, tenant, D_OPEN, t0_ns, t_ns, 0, 0)
+                 for uid, (name, tenant, t0_ns)
+                 in sorted(self._host_req.items())], np.int64)
+            cols = {k: np.concatenate([cols[k], open_[:, j].astype(dt)])
+                    for j, (k, dt) in enumerate(_HOST_DTYPES)}
+        cols["name"] = np.asarray(HOST_SPANS)[cols["name"].astype(np.int64)]
+        return cols
+
+    def _scatter_host(self) -> None:
+        vals = np.frombuffer(self._hs, np.int64).reshape(-1, _HOST_NCOLS)
+        m = len(vals)
+        cap = self.depth
+        if self.host is None:
+            self.host = {k: np.zeros(cap, dt) for k, dt in _HOST_DTYPES}
+        start = self.host_count
+        if m > cap:
+            start += m - cap
+            vals = vals[m - cap:]
+        for j, (k, dt) in enumerate(_HOST_DTYPES):
+            ring_scatter(self.host[k], start, vals[:, j].astype(dt))
+        self.host_count += m
 
     # -- span recording ----------------------------------------------------
 
@@ -301,7 +471,7 @@ class TraceRecorder:
         batched expansion — the engines call this per telemetry window
         / step; nothing reads the rings mid-run (``rows()`` and friends
         force a commit), so the cadence is purely a cost knob."""
-        if self._srows + self._drows >= self._commit_every:
+        if self._srows + self._drows + self._hrows >= self._commit_every:
             self.commit()
 
     def commit(self) -> None:
@@ -318,6 +488,9 @@ class TraceRecorder:
         if self._drows:
             self._scatter_decisions(self._merge_decisions())
             self._reset_decision_stage()
+        if self._hrows:
+            self._scatter_host()
+            self._reset_host_stage()
 
     @staticmethod
     def _seg_dest(offs: np.ndarray, cnt: np.ndarray) -> np.ndarray:
