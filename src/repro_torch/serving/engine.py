@@ -99,6 +99,18 @@ class ModelExecutor:
     every rank runs the same engine on the same (B,) arrays; the serve
     functions take each rank's rows and gather the sampled tokens back,
     so every rank's engine sees the same stream.
+
+    ``prefill`` takes the engine's whole ``(max_slots, prefill_chunk)``
+    chunk, but computes only the rows it was given work for (``valid_n >
+    0``, picked on the host from the array it already holds) through
+    ``prefill_rows``: the engine fills at most ``prefill_slots_per_step``
+    of them, and the other rows' outputs were thrown away.  Their cache
+    rows get the whole chunk's pad entries, so nothing served changes.
+    The whole chunk runs where every row is valid (gathering the rows
+    would copy the whole cache for nothing) and where the serve functions
+    have no ``prefill_rows`` (a mesh, a model with MoE layers:
+    ``serve_step.py`` says why).  Either way it returns (B,) tokens; a
+    row it did not compute reads 0.
     """
 
     def __init__(self, model_cfg: ModelConfig, ecfg: EngineConfig,
@@ -119,21 +131,34 @@ class ModelExecutor:
     # Inside an engine step with tracing on, each call records its parts
     # as host spans: ``stage`` (the arrays to the device), ``launch``
     # (the serve function, its work enqueued) and ``readback`` (the
-    # tokens to the host, the call's one wait for the device).
+    # tokens to the host, the call's one wait for the device).  A
+    # prefill's ``stage`` carries its valid rows and the rows it computes.
     def prefill(self, tokens, lengths, valid_n):
         tr = TR.bound()
+        B, C = tokens.shape
+        rows = np.flatnonzero(valid_n > 0)
+        whole = self.fns.prefill_rows is None or len(rows) == B
         if tr is not None:
-            tr.host_begin(TR.H_PREFILL_STAGE)
-        args = self._dev(tokens), self._dev(lengths), self._dev(valid_n)
+            tr.host_begin(TR.H_PREFILL_STAGE, int(valid_n.sum()),
+                          (B if whole else len(rows)) * C)
+        if whole:
+            fn, args = self.fns.prefill_chunk, (tokens, lengths, valid_n)
+        else:
+            fn, args = self.fns.prefill_rows, (rows, tokens, lengths,
+                                               valid_n)
+        args = [self._dev(a) for a in args]
         if tr is not None:
             tr.host_next(TR.H_PREFILL_LAUNCH)
-        nxt, _, self.cache = self.fns.prefill_chunk(self.params, self.cache,
-                                                    *args)
+        nxt, _, self.cache = fn(self.params, self.cache, *args)
         if tr is not None:
             tr.host_next(TR.H_PREFILL_READBACK)
-        out = nxt.cpu().numpy()
+        got = nxt.cpu().numpy()
         if tr is not None:
             tr.host_end()
+        if whole:
+            return got
+        out = np.zeros(B, got.dtype)
+        out[rows] = got
         return out
 
     def decode(self, tokens, lengths, active):

@@ -9,6 +9,21 @@ the data-plane functions the engine (and the dry run) calls:
     Ragged tails are exact: pad entries are written with position -1.
     ``frames`` (B, T_enc, d): an encoder-decoder encodes them and fills
     every layer's cross K/V first (the engine passes none).
+  * ``prefill_rows(module, cache, slots(k,), tokens(B,C), lengths(B,),
+    valid_n(B,))`` -> (next_token (k,), last_logits (k,V), cache)
+    ``prefill_chunk`` computed for the k slots ``slots`` alone: each
+    layer's cache rows of those slots are gathered, run through it and
+    written back.  A call then costs its k rows, not B (the engine grants
+    at most ``prefill_slots_per_step`` of its ``max_slots``).  Every
+    other slot gets only what the whole chunk writes into a slot without
+    work: position -1 at its chunk's entries of each attention ring, so
+    what is served does not change.  On a full ring (a sliding window, a
+    global cache past ``max_len``) these entries erase live keys, as the
+    whole chunk's do (ROADMAP Queue 3).  ``None`` where the rows cannot
+    be taken apart: over a mesh, whose ranks each hold a block of the
+    batch rows, and for a model with MoE layers, whose ``gshard``
+    capacity counts every token of the call, padding included, so fewer
+    rows would drop other tokens.
   * ``decode(module, cache, tokens(B,), lengths(B,), active(B,))``
       -> (next_token (B,), cache)
   * ``reset_slots(cache, keep_mask(B,))`` — invalidate freed slots' cache
@@ -60,6 +75,8 @@ class ServeFns:
     decode: Callable[..., Tuple[torch.Tensor, Any]]
     reset_slots: Callable[[Any, torch.Tensor], Any]
     chunk: int = 256                 # prefill chunk, clipped by the window
+    prefill_rows: Optional[Callable[..., Tuple[torch.Tensor, torch.Tensor,
+                                               Any]]] = None
     place: Callable[[Any], Any] = lambda module: module   # a whole module
     #                                  -> this rank's shards (mesh branch)
     layout: Any = None               # the mesh branch's ServeLayout
@@ -124,6 +141,31 @@ def build_serve_fns(cfg: ModelConfig, mesh=None, *, batch: int,
         return nxt, last, cache
 
     @torch.no_grad()
+    def _prefill_rows(module, cache, slots, tokens, lengths, valid_n):
+        # the pad entries the whole chunk writes: position -1 at (fill +
+        # arange(C)) mod T in every slot's ring; the slots computed below
+        # write the same entries again
+        C = tokens.shape[1]
+        at = lengths.long()[:, None] + torch.arange(C, device=tokens.device)
+        for layer in cache:
+            if "pos" in layer:
+                layer["pos"].scatter_(1, at % layer["pos"].shape[1], -1)
+        if not len(slots):
+            return (torch.zeros(0, dtype=torch.int32, device=tokens.device),
+                    torch.zeros((0, cfg.vocab_size), device=tokens.device),
+                    cache)
+        part = [{name: t.index_select(0, slots) for name, t in layer.items()}
+                for layer in cache]
+        nxt, last, part = _prefill(module, part, tokens[slots],
+                                   lengths[slots], valid_n[slots])
+        # attention writes the gathered rows in place; a recurrent layer
+        # replaces its entries, so write back what the call returned
+        for layer, rows in zip(cache, part):
+            for name, t in rows.items():
+                layer[name].index_copy_(0, slots, t)
+        return nxt, last, cache
+
+    @torch.no_grad()
     def _decode(module, cache, tokens, lengths, active):
         logits, cache = model.decode_step(
             module, tokens[:, None], cache, lengths,
@@ -139,7 +181,8 @@ def build_serve_fns(cfg: ModelConfig, mesh=None, *, batch: int,
         cfg=cfg, model=model, device=dev, init_params=init_params,
         init_cache=lambda: model.init_cache(batch, max_len, dev),
         prefill_chunk=_prefill, decode=_decode,
-        reset_slots=make_reset_slots(cfg), chunk=prefill_chunk)
+        reset_slots=make_reset_slots(cfg), chunk=prefill_chunk,
+        prefill_rows=None if any(cfg.moe_layer_mask()) else _prefill_rows)
 
 
 # ---------------------------------------------------------------------------

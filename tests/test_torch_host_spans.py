@@ -43,10 +43,12 @@ class Forwarder:
     def __init__(self, inner):
         self._inner = inner
         self.calls = []
+        self.granted = []            # each prefill call's rows with work
 
     def prefill(self, tokens, lengths, valid_n):
         self.calls.append(("prefill", int(valid_n.sum()), valid_n.size,
                            tokens.shape[1]))
+        self.granted.append(int(np.count_nonzero(valid_n)))
         return self._inner.prefill(tokens, lengths, valid_n)
 
     def decode(self, tokens, lengths, active):
@@ -178,6 +180,27 @@ def test_executor_calls_sit_in_their_phase_with_their_rows(drained):
         assert rows["name"][idx[int(rows["parent"][k])]] == phase[kind]
         assert rows["valid"][k] == valid
         assert rows["computed"][k] == slots * chunk
+
+
+def test_prefill_stage_carries_the_rows_it_computes(drained):
+    """The model executor's ``prefill.stage`` records the call's valid
+    rows and the rows it computes: only the granted slots' chunks, while
+    the engine's ``executor.prefill`` keeps the (max_slots, chunk) it
+    offered."""
+    which, eng, fwd, rows = drained
+    names = rows["name"].astype(str)
+    stages = np.flatnonzero(names == "prefill.stage")
+    if which == "null":
+        assert not len(stages)
+        return
+    stages = stages[np.argsort(rows["t0_ns"][stages], kind="stable")]
+    prefills = [c for c in fwd.calls if c[0] == "prefill"]
+    assert len(stages) == len(prefills) == len(fwd.granted)
+    C = eng.cfg.prefill_chunk
+    for k, (_, valid, _, _), granted in zip(stages, prefills, fwd.granted):
+        assert 0 < granted <= eng.cfg.prefill_slots_per_step
+        assert rows["valid"][k] == valid
+        assert rows["computed"][k] == granted * C
 
 
 def test_stage_launch_readback_tile_the_call(drained):
