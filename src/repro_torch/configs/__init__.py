@@ -11,7 +11,7 @@ from typing import Dict, List
 
 from repro_torch.configs.base import (  # noqa: F401 re-export
     GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD,
-    MLAConfig, MoEConfig, ModelConfig, SSMConfig, ShapeSpec,
+    MLAConfig, MoEConfig, ModelConfig, SSMConfig, ShapeSpec, YaRNConfig,
     SHAPES, LONG_CONTEXT_ARCHS, cell_supported, param_count,
 )
 

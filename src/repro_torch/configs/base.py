@@ -30,6 +30,11 @@ class MoEConfig:
     first_dense_layers: int = 0     # leading dense layers (deepseek style)
     router_dtype: str = "float32"
     capacity_factor: float = 1.25   # train-time token capacity per expert
+    norm_topk_prob: bool = True     # renormalise the top-k weights to sum
+    #                                 to 1 (DeepSeek-V2 publishes False)
+    serve_impl: str = "gshard"      # one-device serving dispatch: gshard
+    #                                 (capacity, drops) | grouped (dropless
+    #                                 grouped products, no host sync)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +45,19 @@ class MLAConfig:
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class YaRNConfig:
+    """YaRN rotary scaling (``rope_scaling`` of type ``yarn``, as
+    DeepSeek-V2 publishes it).  ``factor`` 1 leaves the rotary embedding
+    and the softmax scale as they are."""
+    factor: float = 1.0
+    original_max_position: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +94,7 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     use_rope: bool = True           # whisper backbone: sinusoidal abs. pos.
     mrope_sections: Tuple[int, ...] = ()  # qwen2-vl M-RoPE (t, h, w) splits
+    yarn: YaRNConfig = YaRNConfig()  # rotary scaling; factor 1 = none
     mla: Optional[MLAConfig] = None
 
     # --- mlp ----------------------------------------------------------------

@@ -63,8 +63,10 @@ NEG_INF = -1.0e30
 
 
 def _scaled(q: torch.Tensor, scale: float) -> torch.Tensor:
-    # scale rounded to q's dtype first, as the reference multiplies
-    return q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    # scale rounded to q's dtype first, as the reference multiplies; held
+    # on the host as a 0-dim tensor, which a card's kernel takes by value
+    # (a device copy of it would wait for the card, once a layer)
+    return q * torch.tensor(scale, dtype=q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -424,9 +426,10 @@ def attention_layer(p, x: torch.Tensor, positions: torch.Tensor,
         k = L.rms_norm(k, p.k_norm, cfg.norm_eps)
     if cfg.use_rope:
         angles = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta,
-                               cfg.mrope_sections)
-        q = L.apply_rope(q, angles)
-        k = L.apply_rope(k, angles)
+                               cfg.mrope_sections, cfg.yarn)
+        ms = L.rope_mscale(cfg.yarn)
+        q = L.apply_rope(q, angles, ms)
+        k = L.apply_rope(k, angles, ms)
 
     scale = cfg.attn_scale or (1.0 / math.sqrt(cfg.head_dim))
     window = cfg.window_size if kind == LOCAL_ATTN else 0
@@ -512,16 +515,21 @@ def _mla_layer(p, x, positions, cfg: ModelConfig, cache, cache_offset):
     B, S, _ = x.shape
     dt = x.dtype
     pos2d = positions if positions.dim() == 2 else positions[0]
-    # the query/key head dim is nope + rope (192 for V2-Lite), not head_dim
+    # the query/key head dim is nope + rope (192 for V2-Lite), not head_dim;
+    # under YaRN the published scale is multiplied by mscale(factor,
+    # mscale_all_dim)^2 (1.5896 for V2-Lite), on both paths below
     scale = 1.0 / math.sqrt(nope + rope)
+    if cfg.yarn.mscale_all_dim:
+        scale *= L.yarn_mscale(cfg.yarn.factor, cfg.yarn.mscale_all_dim) ** 2
     q = (x @ p.wq.to(dt)).reshape(B, S, hl, nope + rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
-    angles = L.rope_angles(positions, rope, cfg.rope_theta)
-    q_rope = L.apply_rope(q_rope, angles)
+    angles = L.rope_angles(positions, rope, cfg.rope_theta, yarn=cfg.yarn)
+    ms = L.rope_mscale(cfg.yarn)
+    q_rope = L.apply_rope(q_rope, angles, ms)
     ckr = x @ p.w_dkv.to(dt)
     ckv, k_rope = ckr[..., :m.kv_lora_rank], ckr[..., m.kv_lora_rank:]
     ckv = L.rms_norm(ckv, p.kv_norm, cfg.norm_eps)
-    k_rope = L.apply_rope(k_rope[:, :, None, :], angles)[:, :, 0, :]
+    k_rope = L.apply_rope(k_rope[:, :, None, :], angles, ms)[:, :, 0, :]
 
     w_uk = p.w_uk.to(dt).reshape(m.kv_lora_rank, hl, nope)
     w_uv = p.w_uv.to(dt).reshape(m.kv_lora_rank, hl, m.v_head_dim)

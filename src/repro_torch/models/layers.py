@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, YaRNConfig
 from repro_torch.distributed import parallel as PAR
 
 
@@ -159,10 +159,54 @@ class MLP(torch.nn.Module):
 # ---------------------------------------------------------------------------
 # RoPE / M-RoPE
 # ---------------------------------------------------------------------------
-def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+def rope_freqs(head_dim: int, theta: float, device,
+               yarn: Optional[YaRNConfig] = None) -> torch.Tensor:
+    """(head_dim / 2,) inverse frequencies; under YaRN (``yarn.factor`` >
+    1) DeepSeek-V2's ``DeepseekV2YarnRotaryEmbedding``: a linear ramp
+    over the frequency index, between the correction dims of
+    ``beta_fast`` (floor) and ``beta_slow`` (ceil), from the extrapolated
+    frequencies (fast rotations) to the interpolated ones (divided by
+    ``factor``)."""
     half = head_dim // 2
     exps = torch.arange(half, dtype=torch.float32, device=device) / half
-    return 1.0 / (theta ** exps)
+    extra = 1.0 / (theta ** exps)
+    if yarn is None or yarn.factor <= 1.0:
+        return extra
+    inter = 1.0 / (yarn.factor * theta ** exps)
+    low = max(math.floor(_yarn_dim(yarn.beta_fast, head_dim, theta,
+                                   yarn.original_max_position)), 0)
+    high = min(math.ceil(_yarn_dim(yarn.beta_slow, head_dim, theta,
+                                   yarn.original_max_position)),
+               head_dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = torch.clamp((torch.arange(half, dtype=torch.float32,
+                                     device=device) - low) / (high - low),
+                       0, 1)
+    keep = 1.0 - ramp             # 1: extrapolated, 0: interpolated
+    return inter * (1 - keep) + extra * keep
+
+
+def _yarn_dim(rotations: float, dim: int, base: float,
+              max_pos: int) -> float:
+    """The rotary dim whose wavelength fits ``rotations`` turns into
+    ``max_pos`` positions (``yarn_find_correction_dim``)."""
+    return (dim * math.log(max_pos / (rotations * 2 * math.pi))) \
+        / (2 * math.log(base))
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature, 0.1 m ln(factor) + 1 (1 for factor
+    <= 1)."""
+    return 1.0 if factor <= 1.0 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def rope_mscale(yarn: YaRNConfig) -> float:
+    """The factor YaRN puts on cos and sin: mscale(factor, mscale) over
+    mscale(factor, mscale_all_dim) (1 for DeepSeek-V2, whose two are
+    equal)."""
+    return yarn_mscale(yarn.factor, yarn.mscale) \
+        / yarn_mscale(yarn.factor, yarn.mscale_all_dim)
 
 
 def mrope_section_ids(sections: Tuple[int, ...], half: int,
@@ -178,9 +222,10 @@ def mrope_section_ids(sections: Tuple[int, ...], half: int,
 
 
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
-                mrope_sections: Tuple[int, ...] = ()) -> torch.Tensor:
+                mrope_sections: Tuple[int, ...] = (),
+                yarn: Optional[YaRNConfig] = None) -> torch.Tensor:
     """positions: (B, S) or (3, B, S) for M-RoPE -> angles (B, S, half)."""
-    inv = rope_freqs(head_dim, theta, positions.device)
+    inv = rope_freqs(head_dim, theta, positions.device, yarn)
     if positions.dim() == 3:                                # M-RoPE (t, h, w)
         if not mrope_sections:
             positions = positions[0]
@@ -193,13 +238,17 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
     return positions.float()[..., None] * inv
 
 
-def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, H, D); angles: (B, S, D/2) — NeoX rotate-half convention."""
+def apply_rope(x: torch.Tensor, angles: torch.Tensor,
+               mscale: float = 1.0) -> torch.Tensor:
+    """x: (B, S, H, D); angles: (B, S, D/2) — NeoX rotate-half convention.
+    ``mscale`` multiplies cos and sin (YaRN's ``rope_mscale``)."""
     half = x.shape[-1] // 2
     xf = x.float()
     x1, x2 = xf[..., :half], xf[..., half:]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
+    if mscale != 1.0:
+        cos, sin = cos * mscale, sin * mscale
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 

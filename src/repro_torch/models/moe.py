@@ -9,6 +9,23 @@ The serving and training steps run it, as in the JAX package.
 The reference computes these with ``jax.lax.ragged_dot``, outside any
 Pallas kernel; here they are plain ``torch.matmul`` calls.
 
+``grouped`` (the port's own, for one-device serving when
+``cfg.moe.serve_impl`` asks for it) — ``ragged``'s function without its
+host sync: the (token, choice) pairs sorted by expert on the device, the
+per-expert offsets a device ``cumsum`` of their counts, the gate/up and
+down products as grouped GEMMs over those offsets (``torch._grouped_mm``,
+CUTLASS on sm90), and the combine gathered back into (token, choice)
+order and weighted in fp32.  No capacity, no drops: a row's output
+depends on that row alone, so a tenant's tokens do not depend on what
+the other slots of a call hold.  Rows marked invalid (chunk tails,
+inactive decode slots) are routed to no expert and come out zero.
+
+With ``counting()`` open (the executor opens it when its engine traces),
+each one-device MoE layer adds its routing counts (``COUNTERS``) to a
+device tensor that goes back to the host with the call's tokens; with
+a recorder bound (``telemetry.trace.bound()``) the routing of a layer is
+a ``moe.route`` host span.
+
 Under a serving layout (``distributed/parallel.py``) a rank holds the
 experts of its block of the experts' axis (``model`` under the serve
 rules, ``data`` under Llama-4's) and, where the expert hidden dim goes
@@ -27,8 +44,10 @@ loss are the whole microbatch's.  Experts that do not split over
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Tuple
+import threading
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,8 +56,18 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import parallel as PAR
 from repro_torch.models import layers as L
+from repro_torch.telemetry import trace as TR
 
-MOE_IMPL = ("gshard", "ragged")
+MOE_IMPL = ("gshard", "ragged")        # the JAX package's; grouped is
+#                                         the port's own
+
+# what ``counting()`` sums over a call's MoE layers, in the recorder's
+# column order: the valid rows' (token, choice) assignments, the (layer,
+# expert) pairs that computed at least one of them, the most rows one
+# expert computed in one layer, and the assignments capacity dropped (0
+# but under ``gshard``)
+COUNTERS = TR.MOE_COLUMNS[1:]
+_counts = threading.local()
 
 
 class MoE(nn.Module):
@@ -72,13 +101,40 @@ def router_topk(p: MoE, x2d: torch.Tensor, cfg: ModelConfig
     # ``torch.topk`` does not promise that order, a stable sort does
     w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     w, idx = w[:, :m.top_k], idx[:, :m.top_k]
-    w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+    if m.norm_topk_prob:
+        w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
     # Switch-style load-balancing auxiliary loss, over every row
     T = x2d.shape[0]
     me = probs.mean(dim=0)                                        # (E,)
     ce = F.one_hot(idx[:, 0], m.num_experts).float().sum(dim=0) / T
     aux = m.num_experts * torch.sum(me * ce)
     return w, idx, aux
+
+
+@contextlib.contextmanager
+def counting(device):
+    """Open the route counters for the MoE layers run inside: yields a
+    zeroed (len(COUNTERS),) int64 tensor on ``device`` that each
+    one-device MoE layer adds to, on the device (no host sync)."""
+    acc = torch.zeros(len(COUNTERS), dtype=torch.int64, device=device)
+    _counts.acc = acc
+    try:
+        yield acc
+    finally:
+        _counts.acc = None
+
+
+def _count(routed: torch.Tensor, per_expert: torch.Tensor) -> None:
+    """Add one layer's counts: ``routed`` the valid rows' assignments,
+    ``per_expert`` (E,) the rows each expert computed of them."""
+    acc = getattr(_counts, "acc", None)
+    if acc is None:
+        return
+    per_expert = per_expert.to(torch.int64)
+    acc[0:1] += routed.to(torch.int64).reshape(1)
+    acc[1:2] += (per_expert > 0).sum().reshape(1)
+    torch.maximum(acc[2:3], per_expert.max().reshape(1), out=acc[2:3])
+    acc[3:4] += (routed - per_expert.sum()).reshape(1)
 
 
 def _expert_ffn(w_gate, w_up, w_down, h, act: str, acc=None):
@@ -94,7 +150,8 @@ def _expert_ffn(w_gate, w_up, w_down, h, act: str, acc=None):
 def apply_moe_gshard(p: MoE, x: torch.Tensor, cfg: ModelConfig,
                      capacity_factor: float = 0.0, group_size: int = 2048,
                      expert_lo: int = 0, shared: bool = True,
-                     partial: bool = False):
+                     partial: bool = False,
+                     valid: Optional[torch.Tensor] = None):
     """Grouped capacity-based dispatch (GShard).  x: (B,S,d) -> (B,S,d).
 
     Tokens are dispatched within groups of ``group_size`` rows: the
@@ -107,13 +164,17 @@ def apply_moe_gshard(p: MoE, x: torch.Tensor, cfg: ModelConfig,
     ``p`` may hold a block of the experts, from ``expert_lo`` (a serving
     or training rank's shard): the output is then their share alone, in
     ``PAR.partial_dtype`` when ``partial``; ``shared`` False leaves the
-    shared experts out."""
+    shared experts out.  ``valid`` (B, S) marks the rows the counters
+    count (every row still takes capacity)."""
     m = cfg.moe
     B, S, d = x.shape
     dt = x.dtype
     T = B * S
     k, E = m.top_k, m.num_experts
     x2d = x.reshape(T, d)
+    tr = TR.bound()
+    if tr is not None:
+        tr.host_begin(TR.H_MOE_ROUTE)
     w, idx, aux = router_topk(p, x2d, cfg)
     cf = capacity_factor or m.capacity_factor
 
@@ -137,6 +198,15 @@ def apply_moe_gshard(p: MoE, x: torch.Tensor, cfg: ModelConfig,
     pos_in_e = pos.reshape(nG, Gsz, k, E).amax(dim=-1)            # (g,t,k)
     keep = (pos_in_e < C) & (idxg >= 0)
     wk = wg * keep
+    if getattr(_counts, "acc", None) is not None:
+        mine = idxg >= 0
+        if valid is not None:
+            mine = mine & F.pad(valid.reshape(T).to(torch.int8),
+                                (0, pad)).bool().reshape(nG, Gsz, 1)
+        kept = onehot & (keep & mine)[..., None]
+        _count(mine.sum(), kept.sum(dim=(0, 1, 2)))
+    if tr is not None:
+        tr.host_end()
 
     e_oh = onehot.to(dt)
     c_oh = F.one_hot(torch.clamp(pos_in_e, 0, C - 1).long(), C).to(dt)
@@ -189,6 +259,53 @@ def apply_moe_ragged(p: MoE, x: torch.Tensor, cfg: ModelConfig):
     return y, aux
 
 
+def apply_moe_grouped(p: MoE, x: torch.Tensor, cfg: ModelConfig,
+                      valid: Optional[torch.Tensor] = None):
+    """Dropless dispatch on grouped GEMMs, with no host sync.  x: (B,S,d);
+    ``valid`` (B, S) or None: rows left out are routed to no expert and
+    their routed output is zero (their shared experts' is computed)."""
+    m = cfg.moe
+    B, S, d = x.shape
+    dt = x.dtype
+    T, k, E = B * S, m.top_k, m.num_experts
+    x2d = x.reshape(T, d)
+    tr = TR.bound()
+    if tr is not None:
+        tr.host_begin(TR.H_MOE_ROUTE)
+    w, idx, aux = router_topk(p, x2d, cfg)
+    flat_e = idx.reshape(-1)                                      # (T*k,)
+    keep = None
+    if valid is not None:
+        keep = valid.reshape(T, 1).expand(T, k).reshape(-1)
+        flat_e = torch.where(keep, flat_e, E)     # sorts after every group
+    order = torch.argsort(flat_e, stable=True)
+    # the counts by a fixed-size scatter: ``bincount`` on the card reads
+    # its input's largest value on the host
+    counts = torch.zeros(E + 1, dtype=torch.int32, device=x.device)
+    counts.scatter_add_(0, flat_e, torch.ones_like(flat_e,
+                                                   dtype=torch.int32))
+    offs = torch.cumsum(counts[:E], 0, dtype=torch.int32)
+    xs = x2d[order // k]                 # pair t*k + j belongs to token t
+    if getattr(_counts, "acc", None) is not None:
+        _count(counts[:E].sum(), counts[:E])
+    if tr is not None:
+        tr.host_end()
+
+    g = L.act_fn(cfg.mlp_act)(torch._grouped_mm(xs, p.w_gate.to(dt),
+                                                offs=offs))
+    h = g * torch._grouped_mm(xs, p.w_up.to(dt), offs=offs)
+    o = torch._grouped_mm(h, p.w_down.to(dt), offs=offs)
+    # back to (token, choice) order; the products write no row past the
+    # last offset (an invalid row's), so those are zeroed, not weighted
+    o = torch.empty_like(o).index_copy_(0, order, o).view(T, k, d)
+    if keep is not None:
+        o = torch.where(keep.view(T, k, 1), o, 0)
+    y = (o.float() * w[..., None]).sum(dim=1).to(dt).reshape(B, S, d)
+    if m.num_shared_experts:
+        y = y + _shared(p, x, cfg)
+    return y, aux
+
+
 def _shared(p: MoE, x: torch.Tensor, cfg: ModelConfig,
             partial: bool = False) -> torch.Tensor:
     s = p.shared
@@ -196,18 +313,19 @@ def _shared(p: MoE, x: torch.Tensor, cfg: ModelConfig,
 
 
 def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig,
-              impl: str = "gshard"):
+              impl: str = "gshard", valid: Optional[torch.Tensor] = None):
     """Under a sharded train step whose batch is split over ranks, the
     rows of the whole microbatch are gathered first, so the routing, the
     capacity groups and the auxiliary loss are the unsharded ones; each
-    rank keeps its rows of the output."""
+    rank keeps its rows of the output.  ``valid`` (B, S), one device
+    only: the rows ``grouped`` computes and the counters count."""
     srv = PAR.serving()
     if srv is not None:
         return _apply_serving(p, x, cfg, impl, srv)
     act = PAR.current()
     if act is not None:
         return _apply_training(p, x, cfg, impl, act)
-    return _apply(p, x, cfg, impl)
+    return _apply(p, x, cfg, impl, valid)
 
 
 def _apply_training(p: MoE, x: torch.Tensor, cfg: ModelConfig, impl: str,
@@ -267,7 +385,10 @@ def _apply_serving(p: MoE, x: torch.Tensor, cfg: ModelConfig, impl: str,
     return srv.local_rows(y), aux
 
 
-def _apply(p: MoE, x: torch.Tensor, cfg: ModelConfig, impl: str):
+def _apply(p: MoE, x: torch.Tensor, cfg: ModelConfig, impl: str,
+           valid: Optional[torch.Tensor] = None):
     if impl == "ragged":
         return apply_moe_ragged(p, x, cfg)
-    return apply_moe_gshard(p, x, cfg)
+    if impl == "grouped":
+        return apply_moe_grouped(p, x, cfg, valid)
+    return apply_moe_gshard(p, x, cfg, valid=valid)

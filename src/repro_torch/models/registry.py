@@ -10,7 +10,8 @@
 ``batch`` is a dict; see ``input_names(cfg, kind)`` for the contract.
 ``aux`` is the MoE auxiliary loss summed over layers, 0 without MoE.
 ``moe_impl`` picks the MoE dispatch (``ragged`` by default, as in the
-JAX package; the serving and training steps pass ``gshard``).
+JAX package; the training step passes ``gshard``, the serving step
+``gshard`` or, where ``cfg.moe.serve_impl`` asks, ``grouped``).
 The encoder-decoder model's ``forward`` batch carries ``frames``, and its
 ``prefill`` takes ``frames=`` to encode them and fill every layer's cross
 K/V; the engine never passes frames, so it serves over the zero cross

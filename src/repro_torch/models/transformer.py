@@ -146,7 +146,7 @@ class DecoderLayer(nn.Module):
         h2 = L.rms_norm(x, self.norm2, cfg.norm_eps)
         aux = None
         if self.is_moe:
-            y, aux = M.apply_moe(self.moe, h2, cfg, moe_impl)
+            y, aux = M.apply_moe(self.moe, h2, cfg, moe_impl, valid)
         else:
             y = self.mlp(h2, cfg.mlp_act)
         if cfg.use_post_norms:

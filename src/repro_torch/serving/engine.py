@@ -34,6 +34,8 @@ from repro_torch.core.admission import AdmissionError
 from repro_torch.core.engine_base import EngineBase
 from repro_torch.core.events import Event, EventKind
 from repro_torch.core.slo import ECTX, SLOPolicy
+from repro_torch.models import moe as M
+from repro_torch.serving.call_graphs import CallGraphs
 from repro_torch.serving.kv_cache import SlotManager
 from repro_torch.serving.request import Request, RequestStatus
 from repro_torch.serving.serve_step import build_serve_fns
@@ -66,6 +68,10 @@ class EngineConfig:
     trace: bool = False               # packet-lifecycle flight recorder
     trace_depth: int = 65536          # span ring depth (DESIGN.md §10)
     trace_decision_depth: int = 8192  # decision-provenance ring depth
+    cuda_graphs: bool = False         # ModelExecutor on one card: decode
+    #                                   and the granted-rows prefill
+    #                                   replayed as CUDA graphs
+    #                                   (serving/call_graphs.py)
 
 
 class NullExecutor:
@@ -108,9 +114,23 @@ class ModelExecutor:
     rows get the whole chunk's pad entries, so nothing served changes.
     The whole chunk runs where every row is valid (gathering the rows
     would copy the whole cache for nothing) and where the serve functions
-    have no ``prefill_rows`` (a mesh, a model with MoE layers:
-    ``serve_step.py`` says why).  Either way it returns (B,) tokens; a
-    row it did not compute reads 0.
+    have no ``prefill_rows`` (a mesh, a model with MoE layers that
+    dispatches with ``gshard``: ``serve_step.py`` says why; the dropless
+    ``grouped`` dispatch computes each row alone and takes it).  Either
+    way it returns (B,) tokens; a row it did not compute reads 0.
+
+    With its engine tracing, a model with MoE layers on one device also
+    counts each call's routing (``models.moe.COUNTERS``, summed over its
+    MoE layers on the device); the counts come back in the same copy as
+    the call's tokens and are recorded under the call's span
+    (``TraceRecorder.moe_counts``).
+
+    With ``ecfg.cuda_graphs`` (one CUDA device) the decode call and the
+    prefill of 1 to ``prefill_slots_per_step`` granted rows are captured
+    as CUDA graphs when the executor is built, and replayed
+    (``serving/call_graphs.py``): the same operations on the same cache,
+    enqueued in one launch.  A call with its engine tracing runs eagerly,
+    so that the routing spans and counters are recorded.
     """
 
     def __init__(self, model_cfg: ModelConfig, ecfg: EngineConfig,
@@ -124,9 +144,39 @@ class ModelExecutor:
         self.params = (self.fns.place(params) if params is not None
                        else self.fns.init_params(rng_seed))
         self.cache = self.fns.init_cache()
+        self._moe = any(model_cfg.moe_layer_mask()) and mesh is None
+        self._graphs = None
+        if ecfg.cuda_graphs:
+            if self.device.type != "cuda" or mesh is not None:
+                raise ValueError("cuda_graphs replays the calls of one "
+                                 f"CUDA device; this executor has "
+                                 f"{self.device} and mesh={mesh!r}")
+            self._graphs = CallGraphs(
+                self.fns, self.params, self.cache, batch=ecfg.max_slots,
+                chunk=ecfg.prefill_chunk,
+                max_rows=ecfg.prefill_slots_per_step)
+            self.reset(np.zeros(ecfg.max_slots, bool))
 
     def _dev(self, a):
         return torch.as_tensor(a, device=self.device)
+
+    def _launch(self, tr, fn, args):
+        """``fn`` on the params and the cache; under the route counters
+        when tracing a one-device MoE model.  Returns (its outputs, the
+        counters' device tensor or None)."""
+        if tr is None or not self._moe:
+            return fn(self.params, self.cache, *args), None
+        with M.counting(self.device) as acc:
+            return fn(self.params, self.cache, *args), acc
+
+    @staticmethod
+    def _readback(nxt, acc):
+        """(tokens, route counts or None) on the host, in one copy."""
+        if acc is None:
+            return nxt.cpu().numpy(), None
+        both = torch.cat([nxt.to(torch.int64), acc]).cpu().numpy()
+        n = nxt.shape[0]
+        return both[:n].astype(np.int32), both[n:]
 
     # Inside an engine step with tracing on, each call records its parts
     # as host spans: ``stage`` (the arrays to the device), ``launch``
@@ -138,6 +188,12 @@ class ModelExecutor:
         B, C = tokens.shape
         rows = np.flatnonzero(valid_n > 0)
         whole = self.fns.prefill_rows is None or len(rows) == B
+        if tr is None and not whole and self._graphs is not None \
+                and self._graphs.has_rows(len(rows), C):
+            got = self._graphs.prefill_rows(rows, tokens, lengths, valid_n)
+            out = np.zeros(B, np.int32)
+            out[rows] = got.cpu().numpy()
+            return out
         if tr is not None:
             tr.host_begin(TR.H_PREFILL_STAGE, int(valid_n.sum()),
                           (B if whole else len(rows)) * C)
@@ -149,12 +205,14 @@ class ModelExecutor:
         args = [self._dev(a) for a in args]
         if tr is not None:
             tr.host_next(TR.H_PREFILL_LAUNCH)
-        nxt, _, self.cache = fn(self.params, self.cache, *args)
+        (nxt, _, self.cache), acc = self._launch(tr, fn, args)
         if tr is not None:
             tr.host_next(TR.H_PREFILL_READBACK)
-        got = nxt.cpu().numpy()
+        got, counts = self._readback(nxt, acc)
         if tr is not None:
             tr.host_end()
+            if counts is not None:
+                tr.moe_counts(counts)
         if whole:
             return got
         out = np.zeros(B, got.dtype)
@@ -163,17 +221,21 @@ class ModelExecutor:
 
     def decode(self, tokens, lengths, active):
         tr = TR.bound()
+        if tr is None and self._graphs is not None:
+            return self._graphs.decode(tokens, lengths, active).cpu().numpy()
         if tr is not None:
             tr.host_begin(TR.H_DECODE_STAGE)
         args = self._dev(tokens), self._dev(lengths), self._dev(active)
         if tr is not None:
             tr.host_next(TR.H_DECODE_LAUNCH)
-        nxt, self.cache = self.fns.decode(self.params, self.cache, *args)
+        (nxt, self.cache), acc = self._launch(tr, self.fns.decode, args)
         if tr is not None:
             tr.host_next(TR.H_DECODE_READBACK)
-        out = nxt.cpu().numpy()
+        out, counts = self._readback(nxt, acc)
         if tr is not None:
             tr.host_end()
+            if counts is not None:
+                tr.moe_counts(counts)
         return out
 
     def reset(self, keep):

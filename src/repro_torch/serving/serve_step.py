@@ -21,15 +21,23 @@ the data-plane functions the engine (and the dry run) calls:
     global cache past ``max_len``) these entries erase live keys, as the
     whole chunk's do (ROADMAP Queue 3).  ``None`` where the rows cannot
     be taken apart: over a mesh, whose ranks each hold a block of the
-    batch rows, and for a model with MoE layers, whose ``gshard``
-    capacity counts every token of the call, padding included, so fewer
-    rows would drop other tokens.
+    batch rows, and for a model with MoE layers that dispatches with
+    ``gshard``, whose capacity counts every token of the call, padding
+    included, so fewer rows would drop other tokens.  The ``grouped``
+    dispatch (``cfg.moe.serve_impl``) has no capacity: each row's
+    experts are its own, so its MoE models take ``prefill_rows``.
   * ``decode(module, cache, tokens(B,), lengths(B,), active(B,))``
       -> (next_token (B,), cache)
   * ``reset_slots(cache, keep_mask(B,))`` — invalidate freed slots' cache
     rows so re-assigned slots never attend to a previous tenant's KV or
     continue its recurrent state (the paper's memory-isolation
     requirement R3 at the cache level).
+
+A model with MoE layers dispatches with ``moe_impl`` (``gshard``, as the
+JAX package serves) unless ``cfg.moe.serve_impl`` is ``grouped``: then
+one device serves it dropless with no host sync (``models/moe.py``), and
+a mesh refuses it (its ranks' experts are summed by ``gshard``'s
+all-reduce).
 
 The functions run eagerly and update the cache's tensors in place (the
 JAX package jits them and donates the cache).  ``device`` is the card
@@ -121,6 +129,12 @@ def build_serve_fns(cfg: ModelConfig, mesh=None, *, batch: int,
                     device="cuda", shard_cache_length: bool = False
                     ) -> ServeFns:
     dev = require_device(device)
+    if cfg.moe is not None and cfg.moe.serve_impl == "grouped":
+        if mesh is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: serve_impl 'grouped' serves on one device; "
+                "the serving mesh dispatches with gshard")
+        moe_impl = "grouped"
     model = build_model(cfg, moe_impl=moe_impl)
     if cfg.window_size:
         prefill_chunk = min(prefill_chunk, cfg.window_size)
@@ -182,7 +196,8 @@ def build_serve_fns(cfg: ModelConfig, mesh=None, *, batch: int,
         init_cache=lambda: model.init_cache(batch, max_len, dev),
         prefill_chunk=_prefill, decode=_decode,
         reset_slots=make_reset_slots(cfg), chunk=prefill_chunk,
-        prefill_rows=None if any(cfg.moe_layer_mask()) else _prefill_rows)
+        prefill_rows=(None if any(cfg.moe_layer_mask())
+                      and moe_impl == "gshard" else _prefill_rows))
 
 
 # ---------------------------------------------------------------------------

@@ -52,7 +52,8 @@ from __future__ import annotations
 
 import threading
 from array import array
-from typing import Dict, List, Optional, Tuple
+from collections import deque
+from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -126,21 +127,27 @@ _SPAN_DTYPES = (
 )
 
 # host spans (``host_rows()`` ``name`` column): an engine step, its
-# phases, the executor's calls, their parts, a request's lifecycle
+# phases, the executor's calls, their parts, an MoE layer's routing, a
+# request's lifecycle
 (H_STEP, H_CONTROL, H_ASSIGN, H_PREFILL, H_DECODE, H_ACCOUNT,
  H_EXE_RESET, H_EXE_PREFILL, H_EXE_DECODE,
  H_RESET_STAGE, H_RESET_LAUNCH,
  H_PREFILL_STAGE, H_PREFILL_LAUNCH, H_PREFILL_READBACK,
- H_DECODE_STAGE, H_DECODE_LAUNCH, H_DECODE_READBACK,
- H_REQ_QUEUE, H_REQ_PREFILL, H_REQ_DECODE) = range(20)
+ H_DECODE_STAGE, H_DECODE_LAUNCH, H_DECODE_READBACK, H_MOE_ROUTE,
+ H_REQ_QUEUE, H_REQ_PREFILL, H_REQ_DECODE) = range(21)
 HOST_SPANS = (
     "engine.step", "engine.control", "engine.assign", "engine.prefill",
     "engine.decode", "engine.account",
     "executor.reset", "executor.prefill", "executor.decode",
     "reset.stage", "reset.launch",
     "prefill.stage", "prefill.launch", "prefill.readback",
-    "decode.stage", "decode.launch", "decode.readback",
+    "decode.stage", "decode.launch", "decode.readback", "moe.route",
     "request.queue", "request.prefill", "request.decode")
+
+# an executor call's MoE routing counts (``moe_rows()``): the call's
+# span id, then the counts ``models.moe.counting()`` sums
+MOE_COLUMNS = ("call", "routed", "experts_hit", "expert_rows_max",
+               "dropped")
 
 _HOST_DTYPES = (
     ("name", np.int8), ("id", np.int64), ("parent", np.int64),
@@ -231,6 +238,8 @@ class TraceRecorder:
         self._host_stack: List[tuple] = []
         # each request's open lifecycle span: uid -> (name, tenant, t0_ns)
         self._host_req: Dict[int, Tuple[int, int, int]] = {}
+        # the newest ``depth`` executor calls' MoE counts, oldest first
+        self._moe: Deque[Tuple[int, ...]] = deque(maxlen=self.depth)
         self._reset_host_stage()
         # staged-row watermark for maybe_commit(): large enough to
         # amortize the fixed numpy cost of a batched expansion over
@@ -339,6 +348,18 @@ class TraceRecorder:
             self._host_next_id += 1
             self._host_row(name, hid, -1, uid, tenant, disp, t0_ns, t_ns,
                            0, 0)
+
+    def moe_counts(self, counts) -> None:
+        """Record an executor call's MoE routing counts (``COUNTERS``'
+        order), under the innermost open span: the call's."""
+        st = self._host_stack
+        self._moe.append((st[-1][1] if st else -1,
+                          *(int(c) for c in counts)))
+
+    def moe_rows(self) -> Dict[str, np.ndarray]:
+        """The recorded MoE counts, one row a call, in record order."""
+        a = np.array(self._moe, np.int64).reshape(-1, len(MOE_COLUMNS))
+        return {k: a[:, j] for j, k in enumerate(MOE_COLUMNS)}
 
     def host_rows(self) -> Dict[str, np.ndarray]:
         """Retained host spans in write (close) order, ``name`` as its

@@ -21,7 +21,7 @@ from repro.configs import smoke_config as jax_smoke_config
 from repro.models.registry import build_model as jax_build_model
 from repro.serving.engine import ModelExecutor as JaxModelExecutor
 from repro_torch.api import ServeRuntime, get_scenario
-from repro_torch.configs import smoke_config
+from repro_torch.configs import YaRNConfig, smoke_config
 from repro_torch.models.registry import build_model
 from repro_torch.serving.engine import ModelExecutor
 from repro_torch.serving.serve_step import build_serve_fns
@@ -48,6 +48,28 @@ def ref_params(arch, **changes):
     jcfg, _ = cfgs(arch, "chunked", **changes)
     params = jax_build_model(jcfg).init(jax.random.PRNGKey(0))
     return params, jax.tree.map(np.asarray, params)
+
+
+# fields of the port's config that the reference's lacks, at the values
+# that compute what the reference computes
+PORT_ONLY = {"yarn": YaRNConfig()}
+PORT_ONLY_MOE = {"norm_topk_prob": True, "serve_impl": "gshard"}
+
+
+def as_reference(cfg) -> dict:
+    """``dataclasses.asdict(cfg)`` less the fields the port adds to the
+    reference's config (YaRN, the MoE routing and serving options), each
+    first checked to hold the value that computes the reference's
+    function, so that the dict compares with the reference's whole."""
+    d = dataclasses.asdict(cfg)
+    for name, want in PORT_ONLY.items():
+        assert getattr(cfg, name) == want, name
+        del d[name]
+    if cfg.moe is not None:
+        for name, want in PORT_ONLY_MOE.items():
+            assert getattr(cfg.moe, name) == want, name
+            del d["moe"][name]
+    return d
 
 
 def tokens(shape, vocab, seed):

@@ -196,7 +196,8 @@ def test_train_100m_keeps_the_reference_widths_and_trains(tmp_path,
     ref = _reference("train_100m", monkeypatch)
     want = ref.config_100m()
     cfg = train_100m.config_100m()
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+    import _torch_parity as P
+    assert P.as_reference(cfg) == dataclasses.asdict(
         dataclasses.replace(want, attn_impl="pallas"))
     shapes = jax.eval_shape(jax_build_model(want).init,
                             jax.random.PRNGKey(0))

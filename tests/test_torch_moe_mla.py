@@ -107,9 +107,9 @@ def test_param_count_matches_the_formula(ref):
     jcfg, tcfg = P.cfgs(arch, "pallas")
     module = params_from_jax(np_tree, tcfg)
     assert sum(p.numel() for p in module.parameters()) == param_count(tcfg)
-    assert dataclasses.asdict(tcfg) == dataclasses.asdict(
+    assert P.as_reference(tcfg) == dataclasses.asdict(
         dataclasses.replace(jcfg, attn_impl="pallas"))
-    assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
+    assert P.as_reference(get_config(arch)) == dataclasses.asdict(
         jax_get_config(arch))
     assert param_count(get_config(arch)) == jax_param_count(
         jax_get_config(arch))

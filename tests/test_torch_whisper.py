@@ -169,9 +169,9 @@ def test_param_count_and_configs_match(ref):
     n = sum(p.numel() for p in module.parameters())
     assert n == param_count(tcfg) == sum(
         a.size for a in jax.tree.leaves(np_tree))
-    assert dataclasses.asdict(tcfg) == dataclasses.asdict(
+    assert P.as_reference(tcfg) == dataclasses.asdict(
         dataclasses.replace(jcfg, attn_impl="pallas"))
-    assert dataclasses.asdict(get_config(ARCH)) == dataclasses.asdict(
+    assert P.as_reference(get_config(ARCH)) == dataclasses.asdict(
         jax_get_config(ARCH))
     assert param_count(get_config(ARCH)) == jax_param_count(
         jax_get_config(ARCH)) == 1_954_032_640
