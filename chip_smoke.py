@@ -374,7 +374,19 @@ prints no result.  Phases, each of which raises on failure:
      (B 4, S 1024, 16 / 16 of 256, causal) as phase 12 times Qwen3's, and
      the bf16 backward's clock64 cycles by phase at that shape and at
      phase 12's RecurrentGemma shape (``flash_bwd_phases``: a build with
-     ``-DFLASH_BWD_PHASE_TRACE``).
+     ``-DFLASH_BWD_PHASE_TRACE``);
+ 31. (run after phase 30, last) the serve calls replayed as CUDA graphs:
+     the benchmark's ``qwen3-8b.congested`` and ``mamba2-370m.long_docs``
+     built as ``portbench/harness/bench.prepare`` builds them (published
+     widths and depth, the cells' deployments, which replay by default on
+     one card), with an eager twin on the same weights; a prefill of
+     ``prefill_slots_per_step`` rows and a decode call replayed under the
+     profiler, their decode attention / SSD scan kernels read from the
+     trace equal to the twin's launches and to one a layer, and their
+     tokens equal; then 10 s of the cell's traffic through both, every
+     call's tokens equal and at least 99 % of the calls replayed.  The
+     earlier serve phases build their executors eager
+     (``eager_executor``), so their launch counts are the wrappers' own.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -706,13 +718,21 @@ def serve_spec(cfg, seed: int):
                         vocab=cfg.vocab_size, seed=seed)
 
 
+def eager_executor(cfg, ecfg, seed: int) -> ModelExecutor:
+    """``cfg``'s executor on the card with every call eager, so that
+    ``ops.LAUNCHES`` counts the kernels as their wrappers launch them
+    (phase 31 holds the replayed calls to these counts by a trace)."""
+    return ModelExecutor(cfg, dataclasses.replace(ecfg, cuda_graphs=False),
+                         rng_seed=seed, device="cuda")
+
+
 def serve(cfg, seed: int):
-    """``serve_spec`` served through ``ServeRuntime`` + ``ModelExecutor``
-    on the card: (runtime, validated report, kernel launches)."""
+    """``serve_spec`` served through ``ServeRuntime`` + an eager
+    ``ModelExecutor`` on the card: (runtime, validated report, kernel
+    launches)."""
     spec = serve_spec(cfg, seed)
     rt = ServeRuntime.from_spec(
-        spec, executor=lambda e: ModelExecutor(cfg, e, rng_seed=seed,
-                                               device="cuda"))
+        spec, executor=lambda e: eager_executor(cfg, e, seed))
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     rep = rt.run(spec).validate()
@@ -1448,6 +1468,175 @@ def gemma_train_phase(smi: str) -> dict:
     log(f"phase 30: {time.perf_counter() - t0:.1f} s")
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# phase 31: the serve calls replayed as CUDA graphs at the benchmark cells'
+# deployments (portbench/configs), each call held to an eager twin's
+# ---------------------------------------------------------------------------
+REPLAY_CELLS = ("qwen3-8b.congested", "mamba2-370m.long_docs")
+REPLAY_SECONDS = 10.0
+# ops.LAUNCHES key -> the names of the device kernels it counts
+KERNEL_NAMES = {"decode_attention": ("decode_attention_kernel",),
+                "ssd_scan": ("ssd_scan_kernel", "ssd_scan_tc"),
+                "rglru_scan": ("rglru_scan_kernel",)}
+
+
+class ReplayTwin:
+    """Forwards each call to the replaying executor and to an eager twin
+    on the same weights, so the twin's cache follows the replayed one;
+    counts the calls of each kind and those whose tokens differ.  The
+    engine is served the replayed tokens."""
+
+    def __init__(self, inner, twin):
+        self.inner, self.twin, self.device = inner, twin, inner.device
+        self.calls = {"decode": 0, "prefill": 0}
+        self.differ = {"decode": 0, "prefill": 0}
+
+    def _both(self, kind: str, *args):
+        got = getattr(self.inner, kind)(*args)
+        want = getattr(self.twin, kind)(*args)
+        self.calls[kind] += 1
+        self.differ[kind] += not np.array_equal(got, want)
+        return got
+
+    def prefill(self, tokens, lengths, valid_n):
+        return self._both("prefill", tokens, lengths, valid_n)
+
+    def decode(self, tokens, lengths, active):
+        return self._both("decode", tokens, lengths, active)
+
+    def reset(self, keep):
+        self.inner.reset(keep)
+        self.twin.reset(keep)
+
+
+def device_kernels(call) -> tuple:
+    """``call()`` under the profiler: (its result, the launches of each
+    ``KERNEL_NAMES`` key read from the trace's device records, every
+    kernel the trace holds)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = call()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    seen = {k: sum(e.count for e in rows if any(n in e.key for n in names))
+            for k, names in KERNEL_NAMES.items()}
+    return out, seen, sum(e.count for e in rows)
+
+
+def replay_calls(name: str, st, twin) -> dict:
+    """A prefill of ``prefill_slots_per_step`` rows, then a decode call
+    on them, each replayed by ``st.inner`` under the profiler and run by
+    the eager ``twin``: the same tokens; the kernels read from the
+    replay's trace equal to the eager call's ``ops.LAUNCHES``, to one
+    launch a layer of the kernel's kind, and to what the replay added to
+    ``ops.LAUNCHES``.  Both executors' slots are freed after."""
+    ecfg, inner, cfg = st.ecfg, st.inner, st.cfg
+    B, C = ecfg.max_slots, ecfg.prefill_chunk
+    k = ecfg.prefill_slots_per_step
+    kinds = cfg.pattern_for_layers()
+    tokens = np.random.default_rng(SEED).integers(
+        1, cfg.vocab_size, (B, C)).astype(np.int32)
+    valid = np.zeros(B, np.int32)
+    valid[:k] = C
+    lengths = np.zeros(B, np.int32)
+    calls = {
+        "prefill": (lambda e: e.prefill(tokens, lengths, valid),
+                    dict(ssd_scan=kinds.count(SSD),
+                         rglru_scan=kinds.count(RGLRU))),
+        "decode": (lambda e: e.decode(tokens[:, 0], lengths + valid,
+                                      valid > 0),
+                   dict(decode_attention=kinds.count(LOCAL_ATTN)
+                        + kinds.count(GLOBAL_ATTN)))}
+    out = {}
+    for kind, (call, want) in calls.items():
+        want = {**dict.fromkeys(KERNEL_NAMES, 0), **want}
+        r0, n0 = inner.replayed[kind], dict(ops.LAUNCHES)
+        got, seen, n_kernels = device_kernels(lambda: call(inner))
+        counted = {key: n - n0[key] for key, n in ops.LAUNCHES.items()}
+        n1 = dict(ops.LAUNCHES)
+        ref = call(twin)
+        eager = {key: n - n1[key] for key, n in ops.LAUNCHES.items()}
+        log(f"replay {name} {kind} (k={k}): replayed="
+            f"{inner.replayed[kind] - r0} kernels in the trace {n_kernels}, "
+            f"of them {seen}; ops.LAUNCHES added {counted}; eager twin "
+            f"{eager}; want {want}; tokens equal "
+            f"{bool(np.array_equal(got, ref))}")
+        if inner.replayed[kind] != r0 + 1:
+            raise AssertionError(f"phase 31: {name}'s {kind} call did not "
+                                 "replay")
+        if not np.array_equal(got, ref):
+            raise AssertionError(f"phase 31: {name}'s replayed {kind} "
+                                 "serves other tokens than the eager call")
+        if not (seen == {key: eager[key] for key in KERNEL_NAMES} == want
+                and eager == counted):
+            raise AssertionError(f"phase 31: {name}'s {kind} kernels: trace "
+                                 f"of the replay {seen}, eager {eager}, want "
+                                 f"{want}, counted at replay {counted}")
+        out[kind] = seen
+    for e in (inner, twin):
+        e.reset(np.zeros(B, bool))
+    return out
+
+
+def replay_phase(smi: str) -> dict:
+    """Phase 31: each of ``REPLAY_CELLS`` built as the benchmark builds
+    it (its deployment at full width and depth, weights from SEED, the
+    set-up's warm-up), which replays by default; an eager twin on the
+    same weights; ``replay_calls``; then the cell's traffic served for
+    ``REPLAY_SECONDS`` through ``ReplayTwin``: every call's tokens equal
+    the twin's, and at least 99 % of the calls replayed."""
+    import gc
+    from portbench.harness import bench as BE
+    t0 = time.perf_counter()
+    device_kernels(lambda: None)        # the tracer up before any capture
+    out = {}
+    for name in REPLAY_CELLS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        st = BE.prepare(ROOT, name, SEED)
+        if st.inner._graphs is None:
+            raise AssertionError(f"phase 31: {name}'s executor does not "
+                                 "replay its calls")
+        twin = ModelExecutor(st.cfg, dataclasses.replace(
+            st.ecfg, cuda_graphs=False), params=st.inner.params,
+            device=st.dev)
+        BE.warm(twin, st.ecfg)
+        kernels = replay_calls(name, st, twin)
+        r0, e0 = dict(st.inner.replayed), dict(st.inner.eager)
+        held = []
+        run, drv, _ = BE.serve(st, REPLAY_SECONDS, False, wrap_inner=lambda
+                               i: held.append(ReplayTwin(i, twin)) or held[0])
+        tw = held[0]
+        replayed = {k: st.inner.replayed[k] - r0[k] for k in r0}
+        eager = {k: st.inner.eager[k] - e0[k] for k in e0}
+        n = sum(tw.calls.values())
+        share = sum(replayed.values()) / max(n, 1)
+        log(f"phase 31 {name} ({smi}): set-up {json.dumps(st.phases)}; "
+            f"served {REPLAY_SECONDS:g} s after the warm-up, {len(run.steps)} "
+            f"steps: calls {tw.calls}, differing {tw.differ}, replayed "
+            f"{replayed}, eager {eager}, replay share {share:.4f}; "
+            f"max_memory_allocated {torch.cuda.max_memory_allocated()}")
+        if any(tw.differ.values()):
+            raise AssertionError(f"phase 31: {name}: replayed calls served "
+                                 f"other tokens than the twin's: {tw.differ}")
+        if n == 0 or share < 0.99:
+            raise AssertionError(f"phase 31: {name}: {n} calls, replay "
+                                 f"share {share:.4f} (want >= 0.99)")
+        out[name] = dict(kernels=kernels, calls=tw.calls, replayed=replayed,
+                         build_executor_s=st.phases["build_executor"])
+        BE.release(st, drv)
+        del twin, st, run, drv, tw, held
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 31: {time.perf_counter() - t0:.1f} s")
+    return out
 
 # ---------------------------------------------------------------------------
 # phase 25: sharded training on NCCL
@@ -3693,8 +3882,7 @@ def planes_phase(p5: dict, decode_device_ms: float, smi: str) -> dict:
     names = {i: t.name for i, t in enumerate(spec.tenants)}
     warm_telemetry(max(len(spec.tenants), 2))
     rt = ServeRuntime.from_spec(
-        spec, executor=lambda e: ModelExecutor(cfg, e, rng_seed=SEED,
-                                               device="cuda"),
+        spec, executor=lambda e: eager_executor(cfg, e, SEED),
         trace=True, telemetry_backend="torch")
     eng = rt.engine
     tel = eng.tel
@@ -4371,9 +4559,12 @@ class TwinExecutor(ModelExecutor):
     active rows (``steps``: max |diff| / max |twin logit|, greedy tokens
     equal, rows compared; ``launched``: the decode kernel's launches on
     the kernel path and on the twin's).  The engine is served the kernel
-    path's tokens."""
+    path's tokens.  Both run every call eagerly: the twin's module is
+    switched to the plain config only while it runs, which a graph
+    captured at build would not follow."""
 
     def __init__(self, model_cfg, ecfg, **kw):
+        ecfg = dataclasses.replace(ecfg, cuda_graphs=False)
         super().__init__(model_cfg, ecfg, **kw)
         self.plain_cfg = dataclasses.replace(model_cfg, attn_impl="chunked")
         self.twin = ModelExecutor(self.plain_cfg, ecfg, params=self.params,
@@ -4883,6 +5074,7 @@ def main() -> int:
     fl = fam["launches"]
     analysis_phase()
     gm = gemma_train_phase(smi)["launches"]
+    replay_phase(smi)
 
     t = timings[0]
     st = sel_times[0]

@@ -21,9 +21,12 @@ and the serve step's functions (where the reference jits).  Two rules:
       - every ``*_torch`` function of a sync-free module
         (``telemetry/*``: the ``"torch"`` backend's kernels);
       - the functions the serve step hands the engine: the
-        ``prefill_chunk`` / ``decode`` / ``reset_slots`` of each
-        ``ServeFns(...)`` (both branches of ``serving/serve_step.py``),
-        through names, lambdas and factories' returned closures;
+        ``prefill_chunk`` / ``prefill_rows`` / ``decode`` /
+        ``reset_slots`` of each ``ServeFns(...)`` (both branches of
+        ``serving/serve_step.py``; ``decode`` and ``prefill_rows`` are
+        what ``serving/call_graphs.py`` captures), through names, lambdas,
+        factories' returned closures and both arms of a conditional
+        expression, also when bound to a local name first;
 
     and what they call, by the reference's call graph: module functions
     by name and import, nested closures, and function-typed arguments of
@@ -72,7 +75,8 @@ DEFAULT_SCOPE = (
 # host-sync: the modules that declare their ``*_torch`` functions sync-free
 SYNC_FREE_MODULES = ("src/repro_torch/telemetry/*",)
 # constructor -> the keyword arguments that carry device functions
-DEVICE_FN_FIELDS = {"ServeFns": ("prefill_chunk", "decode", "reset_slots")}
+DEVICE_FN_FIELDS = {"ServeFns": ("prefill_chunk", "prefill_rows", "decode",
+                                 "reset_slots")}
 
 # np attributes that are host constants / dtypes — fine under trace
 NP_CONST_ATTRS = {
@@ -546,8 +550,12 @@ def _to_cpu(call: ast.Call) -> bool:
 def _function_values(table: _FuncTable, mod: Module, qual: str,
                      expr: ast.AST) -> Set[FuncKey]:
     """The repo functions a function-valued expression can be: a named
-    def, the closures a factory call returns (also through a local name
-    bound to that call), and what a lambda calls."""
+    def, the closures a factory call returns, what a lambda calls, and
+    either branch of a conditional expression; also through a local name
+    bound to such a call or conditional."""
+    if isinstance(expr, ast.IfExp):
+        return (_function_values(table, mod, qual, expr.body)
+                | _function_values(table, mod, qual, expr.orelse))
     if isinstance(expr, ast.Lambda):
         out: Set[FuncKey] = set()
         for sub in ast.walk(expr.body):
@@ -566,7 +574,8 @@ def _function_values(table: _FuncTable, mod: Module, qual: str,
         return set()
     out = set()
     for node in ast.walk(scope):
-        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Call)
+        if (isinstance(node, ast.Assign)
+                and isinstance(node.value, (ast.Call, ast.IfExp))
                 and any(_name_of(t) == name for t in node.targets)):
             out |= _function_values(table, mod, qual, node.value)
     return out

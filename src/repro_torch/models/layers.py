@@ -11,6 +11,7 @@ MLP, the embedding and the LM head compute on them.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -209,11 +210,15 @@ def rope_mscale(yarn: YaRNConfig) -> float:
         / yarn_mscale(yarn.factor, yarn.mscale_all_dim)
 
 
+@functools.lru_cache(maxsize=16)
 def mrope_section_ids(sections: Tuple[int, ...], half: int,
                       device) -> torch.Tensor:
     """(half,) index of the position stream each frequency reads: section
     i repeated ``sections[i]`` times, cut or padded with the last index
-    to ``half`` (``jnp.repeat``'s ``total_repeat_length``)."""
+    to ``half`` (``jnp.repeat``'s ``total_repeat_length``).  Built and
+    copied to ``device`` once per arguments: a copy from the host inside
+    a call would wait for the card, and a CUDA graph cannot hold it.
+    ``sections`` is a key of that cache, so a tuple."""
     ids = torch.repeat_interleave(torch.arange(len(sections)),
                                   torch.tensor(sections))[:half]
     if ids.numel() < half:
@@ -230,8 +235,8 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
         if not mrope_sections:
             positions = positions[0]
         else:
-            sec_id = mrope_section_ids(mrope_sections, head_dim // 2,
-                                       positions.device)
+            sec_id = mrope_section_ids(tuple(mrope_sections),
+                                       head_dim // 2, positions.device)
             # per frequency index, the position stream of its section
             pos_sel = positions.float()[sec_id]              # (half, B, S)
             return torch.einsum("hbs,h->bsh", pos_sel, inv)

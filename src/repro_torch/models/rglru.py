@@ -91,7 +91,8 @@ def rglru_block(p: RGLRU, x: torch.Tensor, cfg: ModelConfig,
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """x: (B,S,d) -> (B,S,d).  ``valid`` (B,S): pad tokens get a=1, b=0
     (identity recurrence) so ragged chunk tails are exactly inert.  The
-    cache dict's entries are replaced by the new conv window and h."""
+    new conv window and h are written into the cache's own tensors (a
+    CUDA graph captured over the cache reads them there)."""
     # w_out row-parallel: this rank's channels (a serving or training
     # rank's shard)
     w, wl = cfg.lru_width or cfg.d_model, p.w_out.shape[0]
@@ -133,7 +134,7 @@ def rglru_block(p: RGLRU, x: torch.Tensor, cfg: ModelConfig,
         if split:
             new_conv = srv.gather_cols(new_conv, w)
             h_last = srv.gather_cols(h_last, w)
-        cache["conv"] = new_conv
-        cache["h"] = h_last
+        cache["conv"].copy_(new_conv)
+        cache["h"].copy_(h_last)
     out = L.row_product(gate * hs.to(dt), p.w_out, split)
     return PAR.block_out(out, split, dt), cache

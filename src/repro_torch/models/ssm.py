@@ -151,17 +151,19 @@ def ssd_chunked(x, dt, A_log, B_mat, C_mat, chunk: int,
 
 
 def ssd_decode_step(x, dt, A_log, B_mat, C_mat, state):
-    """One-token recurrent update.  x: (B,1,H,P); state: (B,H,P,N)."""
+    """One-token recurrent update of ``state`` (B,H,P,N) fp32, in place
+    (the same operations as ``state * dA + dBx``, in the same order):
+    x (B,1,H,P) -> y (B,1,H,P)."""
     xf = x.float()[:, 0]                                      # (B,H,P)
     dtf = dt.float()[:, 0]                                    # (B,H)
     rep = xf.shape[1] // B_mat.shape[2]
     Bf = B_mat.float().repeat_interleave(rep, dim=2)[:, 0]    # (B,H,N)
     Cf = C_mat.float().repeat_interleave(rep, dim=2)[:, 0]
     dA = torch.exp(dtf * (-torch.exp(A_log.float()))[None, :])
-    new_state = state * dA[..., None, None] + torch.einsum(
-        "bhn,bh,bhp->bhpn", Bf, dtf, xf)
-    y = torch.einsum("bhn,bhpn->bhp", Cf, new_state)
-    return y[:, None].to(x.dtype), new_state
+    state.mul_(dA[..., None, None]).add_(torch.einsum(
+        "bhn,bh,bhp->bhpn", Bf, dtf, xf))
+    y = torch.einsum("bhn,bhpn->bhp", Cf, state)
+    return y[:, None].to(x.dtype)
 
 
 def init_ssd_cache(cfg: ModelConfig, batch: int, device) -> dict:
@@ -199,8 +201,8 @@ def ssd_block(p: SSD, x: torch.Tensor, cfg: ModelConfig,
 
     ``valid`` (B,S) bool: padding tokens (ragged chunk tails) get dt=0 —
     zero state contribution and unit decay, so they are exactly inert.
-    The cache dict's entries are replaced by the new conv windows and
-    state."""
+    The new conv windows and state are written into the cache's own
+    tensors (a CUDA graph captured over the cache reads them there)."""
     s, d_in, nheads, gn = _dims(cfg)
     # out_proj row-parallel: this rank's heads (a serving or training
     # rank's shard)
@@ -250,16 +252,17 @@ def ssd_block(p: SSD, x: torch.Tensor, cfg: ModelConfig,
     if cache is None:
         y, _ = scan(None)
     else:
-        if S == 1:
-            y, new_state = ssd_decode_step(xs, dt, p.A_log, B_mat, C_mat,
-                                           cache["state"])
+        if S == 1:      # the state updated in place
+            y = ssd_decode_step(xs, dt, p.A_log, B_mat, C_mat,
+                                cache["state"])
         else:   # chunked prefill continuing from the carried state
             y, new_state = scan(cache["state"])
-        cache["state"] = new_state
+            cache["state"].copy_(new_state)
         for name in ("x", "B", "C"):
-            cache[f"conv_{name}"] = convs[name][1]
-        if split:
-            cache["conv_x"] = srv.gather_cols(convs["x"][1], d_in)
+            window = convs[name][1]
+            if name == "x" and split:
+                window = srv.gather_cols(window, d_in)
+            cache[f"conv_{name}"].copy_(window)
 
     y = y + xs * p.D[None, None, :, None].to(dt_)
     y = y.reshape(B, S, dl)

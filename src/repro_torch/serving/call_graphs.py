@@ -1,4 +1,5 @@
-"""The executor's calls as CUDA graphs (``EngineConfig.cuda_graphs``).
+"""The executor's calls as CUDA graphs (``ModelExecutor`` on one card
+where the serve functions capture, or under ``EngineConfig.cuda_graphs``).
 
 An eager call enqueues every operation of every layer from Python, and
 a served step then lasts as long as the host takes to enqueue it: for
@@ -22,6 +23,10 @@ to that).  A model whose calls break it fails at capture, when the
 executor is built, not while serving.  Capture runs each call twice on
 the cache, which the executor then resets (every slot free), as it is
 when built.
+
+``kernels.ops.LAUNCHES`` reads as it would eagerly: capture records each
+graph's launches and leaves the counts as they were before it, and each
+replay adds its graph's.
 """
 from __future__ import annotations
 
@@ -29,6 +34,8 @@ from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import ops
 
 
 class CallGraphs:
@@ -38,29 +45,31 @@ class CallGraphs:
     def __init__(self, fns, params, cache, *, batch: int, chunk: int,
                  max_rows: int):
         dev = fns.device
+        before = dict(ops.LAUNCHES)
         self._pool = torch.cuda.graph_pool_handle()
         i32 = dict(dtype=torch.int32, device=dev)
         self._decode_in = (torch.ones(batch, **i32),
                            torch.full((batch,), chunk, **i32),
                            torch.ones(batch, dtype=torch.bool, device=dev))
-        self._decode_g, self._decode_out = self._capture(
+        self._decode_g, self._decode_out, self._decode_n = self._capture(
             fns.decode, params, cache, self._decode_in)
         self._chunk = chunk
         self._rows: Dict[int, Tuple] = {}
-        if fns.prefill_rows is None:
-            return
-        for k in range(1, min(max_rows, batch - 1) + 1):
-            args = (torch.arange(k, dtype=torch.int64, device=dev),
-                    torch.ones((batch, chunk), **i32),
-                    torch.zeros(batch, **i32),
-                    torch.full((batch,), chunk, **i32))
-            g, out = self._capture(fns.prefill_rows, params, cache, args)
-            self._rows[k] = (g, args, out)
+        if fns.prefill_rows is not None:
+            for k in range(1, min(max_rows, batch - 1) + 1):
+                args = (torch.arange(k, dtype=torch.int64, device=dev),
+                        torch.ones((batch, chunk), **i32),
+                        torch.zeros(batch, **i32),
+                        torch.full((batch,), chunk, **i32))
+                self._rows[k] = (args,) + self._capture(
+                    fns.prefill_rows, params, cache, args)
+        ops.LAUNCHES.update(before)
 
     def _capture(self, fn: Callable, params, cache, args):
         """One eager run on a side stream (the allocator's and the
         libraries' first-call work), then the capture.  Returns (graph,
-        the call's sampled tokens, a static tensor).  The graphs share one
+        the call's sampled tokens, a static tensor, the kernel launches
+        the call counts in ``ops.LAUNCHES``).  The graphs share one
         memory pool, so a replay may overwrite another graph's output:
         each is read back before the next replay."""
         side = torch.cuda.Stream()
@@ -69,20 +78,28 @@ class CallGraphs:
             fn(params, cache, *args)
         torch.cuda.current_stream().wait_stream(side)
         g = torch.cuda.CUDAGraph()
+        n0 = dict(ops.LAUNCHES)
         with torch.cuda.graph(g, pool=self._pool):
             nxt = fn(params, cache, *args)[0]
-        return g, nxt
+        return g, nxt, {k: n - n0[k] for k, n in ops.LAUNCHES.items()
+                        if n != n0[k]}
 
     @staticmethod
     def _fill(static, arrays) -> None:
         for t, a in zip(static, arrays):
             t.copy_(torch.from_numpy(np.asarray(a)))
 
+    @staticmethod
+    def _replay(g, launches) -> None:
+        g.replay()
+        for k, n in launches.items():
+            ops.LAUNCHES[k] += n
+
     def decode(self, tokens, lengths, active) -> torch.Tensor:
         """The decode call replayed on these host arrays: (B,) tokens on
         the device (the graph's static output)."""
         self._fill(self._decode_in, (tokens, lengths, active))
-        self._decode_g.replay()
+        self._replay(self._decode_g, self._decode_n)
         return self._decode_out
 
     def has_rows(self, k: int, chunk: int) -> bool:
@@ -91,7 +108,7 @@ class CallGraphs:
     def prefill_rows(self, rows, tokens, lengths, valid_n) -> torch.Tensor:
         """``prefill_rows`` replayed for the ``len(rows)`` slots ``rows``:
         (k,) tokens on the device."""
-        g, static, nxt = self._rows[len(rows)]
+        static, g, nxt, launches = self._rows[len(rows)]
         self._fill(static, (rows, tokens, lengths, valid_n))
-        g.replay()
+        self._replay(g, launches)
         return nxt

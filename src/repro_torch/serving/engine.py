@@ -68,10 +68,14 @@ class EngineConfig:
     trace: bool = False               # packet-lifecycle flight recorder
     trace_depth: int = 65536          # span ring depth (DESIGN.md §10)
     trace_decision_depth: int = 8192  # decision-provenance ring depth
-    cuda_graphs: bool = False         # ModelExecutor on one card: decode
-    #                                   and the granted-rows prefill
-    #                                   replayed as CUDA graphs
-    #                                   (serving/call_graphs.py)
+    cuda_graphs: Optional[bool] = None  # ModelExecutor: decode and the
+    #                                   granted-rows prefill replayed as
+    #                                   CUDA graphs (serving/
+    #                                   call_graphs.py).  None: where they
+    #                                   capture (one CUDA device, no mesh,
+    #                                   ServeFns.capturable); True:
+    #                                   required (raises off the card);
+    #                                   False: every call eager
 
 
 class NullExecutor:
@@ -125,12 +129,16 @@ class ModelExecutor:
     the call's tokens and are recorded under the call's span
     (``TraceRecorder.moe_counts``).
 
-    With ``ecfg.cuda_graphs`` (one CUDA device) the decode call and the
+    On one CUDA device with no mesh, where the serve functions can be
+    captured (``ServeFns.capturable``), or
+    wherever ``ecfg.cuda_graphs`` is True, the decode call and the
     prefill of 1 to ``prefill_slots_per_step`` granted rows are captured
     as CUDA graphs when the executor is built, and replayed
     (``serving/call_graphs.py``): the same operations on the same cache,
-    enqueued in one launch.  A call with its engine tracing runs eagerly,
-    so that the routing spans and counters are recorded.
+    enqueued in one launch.  ``ecfg.cuda_graphs`` False keeps every call
+    eager.  A call with its engine tracing runs eagerly, so that the
+    routing spans and counters are recorded.  ``replayed`` and ``eager``
+    count the calls of each kind (``decode``, ``prefill``) each way.
     """
 
     def __init__(self, model_cfg: ModelConfig, ecfg: EngineConfig,
@@ -146,16 +154,30 @@ class ModelExecutor:
         self.cache = self.fns.init_cache()
         self._moe = any(model_cfg.moe_layer_mask()) and mesh is None
         self._graphs = None
-        if ecfg.cuda_graphs:
-            if self.device.type != "cuda" or mesh is not None:
-                raise ValueError("cuda_graphs replays the calls of one "
-                                 f"CUDA device; this executor has "
-                                 f"{self.device} and mesh={mesh!r}")
+        self.replayed = {"decode": 0, "prefill": 0}
+        self.eager = {"decode": 0, "prefill": 0}
+        if self.replays(ecfg.cuda_graphs, self.device, mesh,
+                        self.fns.capturable):
             self._graphs = CallGraphs(
                 self.fns, self.params, self.cache, batch=ecfg.max_slots,
                 chunk=ecfg.prefill_chunk,
                 max_rows=ecfg.prefill_slots_per_step)
             self.reset(np.zeros(ecfg.max_slots, bool))
+
+    @staticmethod
+    def replays(cuda_graphs: Optional[bool], device: torch.device, mesh,
+                capturable: bool) -> bool:
+        """Whether an executor on ``device`` and ``mesh``, whose serve
+        functions are ``capturable`` or not, replays its calls under
+        ``EngineConfig.cuda_graphs``; True off one CUDA device raises."""
+        one_card = device.type == "cuda" and mesh is None
+        if cuda_graphs and not one_card:
+            raise ValueError("cuda_graphs replays the calls of one CUDA "
+                             f"device; this executor has {device} and "
+                             f"mesh={mesh!r}")
+        if cuda_graphs is None:
+            return one_card and capturable
+        return cuda_graphs
 
     def _dev(self, a):
         return torch.as_tensor(a, device=self.device)
@@ -193,7 +215,9 @@ class ModelExecutor:
             got = self._graphs.prefill_rows(rows, tokens, lengths, valid_n)
             out = np.zeros(B, np.int32)
             out[rows] = got.cpu().numpy()
+            self.replayed["prefill"] += 1
             return out
+        self.eager["prefill"] += 1
         if tr is not None:
             tr.host_begin(TR.H_PREFILL_STAGE, int(valid_n.sum()),
                           (B if whole else len(rows)) * C)
@@ -222,7 +246,9 @@ class ModelExecutor:
     def decode(self, tokens, lengths, active):
         tr = TR.bound()
         if tr is None and self._graphs is not None:
+            self.replayed["decode"] += 1
             return self._graphs.decode(tokens, lengths, active).cpu().numpy()
+        self.eager["decode"] += 1
         if tr is not None:
             tr.host_begin(TR.H_DECODE_STAGE)
         args = self._dev(tokens), self._dev(lengths), self._dev(active)

@@ -40,9 +40,14 @@ a mesh refuses it (its ranks' experts are summed by ``gshard``'s
 all-reduce).
 
 The functions run eagerly and update the cache's tensors in place (the
-JAX package jits them and donates the cache).  ``device`` is the card
-unless the caller asks for ``"cpu"``; without a card the default raises.
-``"meta"`` builds shapes only (the dry run).
+JAX package jits them and donates the cache): every tensor of the cache
+keeps its storage through every call, so a CUDA graph captured over it
+(``serving/call_graphs.py``) reads what an eager call wrote.
+``capturable`` says whether the one-device functions may be captured
+as CUDA graphs: every family with ``prefill_rows``, but MoE in fp32.
+``device`` is the card unless the caller asks for
+``"cpu"``; without a card the default raises.  ``"meta"`` builds shapes
+only (the dry run).
 
 With a ``DeviceMesh`` (``launch/mesh.py``) every rank holds its slices:
 the weights placed by the serve rules (``sharding.param_placements(...,
@@ -90,6 +95,8 @@ class ServeFns:
     layout: Any = None               # the mesh branch's ServeLayout
     placements: Optional[Dict[str, tuple]] = None   # parameter -> DTensor
     #                                                 placements (mesh)
+    capturable: bool = False         # decode and prefill_rows may be
+    #                                  captured as CUDA graphs
 
 
 def require_device(device) -> torch.device:
@@ -172,8 +179,7 @@ def build_serve_fns(cfg: ModelConfig, mesh=None, *, batch: int,
                 for layer in cache]
         nxt, last, part = _prefill(module, part, tokens[slots],
                                    lengths[slots], valid_n[slots])
-        # attention writes the gathered rows in place; a recurrent layer
-        # replaces its entries, so write back what the call returned
+        # every layer wrote its gathered rows in place: copy them back
         for layer, rows in zip(cache, part):
             for name, t in rows.items():
                 layer[name].index_copy_(0, slots, t)
@@ -191,13 +197,21 @@ def build_serve_fns(cfg: ModelConfig, mesh=None, *, batch: int,
     def init_params(seed: int):
         return model.init(L.generator(dev, seed))
 
+    # gshard's capacity counts the padding rows: its models take the whole
+    # chunk.  The graphs (serving/call_graphs.py) capture decode and
+    # prefill_rows; the library's fp32 grouped product reads its group
+    # offsets on the host, which a capture refuses
+    moe = any(cfg.moe_layer_mask())
+    rows = None if moe and moe_impl == "gshard" else _prefill_rows
+    capturable = rows is not None and not (
+        moe and L.dtype_of(cfg) == torch.float32)
+
     return ServeFns(
         cfg=cfg, model=model, device=dev, init_params=init_params,
         init_cache=lambda: model.init_cache(batch, max_len, dev),
         prefill_chunk=_prefill, decode=_decode,
         reset_slots=make_reset_slots(cfg), chunk=prefill_chunk,
-        prefill_rows=(None if any(cfg.moe_layer_mask())
-                      and moe_impl == "gshard" else _prefill_rows))
+        prefill_rows=rows, capturable=capturable)
 
 
 # ---------------------------------------------------------------------------

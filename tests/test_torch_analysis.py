@@ -189,6 +189,19 @@ def test_host_sync_roots_need_a_sync_free_scope_or_a_capture():
     assert HostSyncRule(scope=("*",), sync_free=()).run(index) == []
 
 
+def test_serve_fns_prefill_rows_is_a_root():
+    """Both branches of a conditional ``prefill_rows=`` are roots, also
+    through a local name bound to the conditional; a ``len()`` test of
+    the rows is metadata, the ``.item()`` and the ``int()`` findings."""
+    index = TA.RepoIndex.load(str(FIXTURES), paths=["serve_rows.py"],
+                              excludes=())
+    scope = {q for _, q in fixture_rule().in_scope(index)}
+    assert scope == {"build._rows", "build._rows_synced", "build._decode",
+                     "build_bound._rows_bound"}
+    assert [(f.line, f.symbol) for f in fixture_rule().run(index)] == [
+        (19, "build._rows_synced"), (30, "build_bound._rows_bound")]
+
+
 # ---------------------------------------------------------------------------
 # (d) the real tree's device roots are in scope
 # ---------------------------------------------------------------------------
@@ -212,6 +225,8 @@ def host_sync_scope(port_index):
     ("src/repro_torch/telemetry/metrics.py", "ring_push_torch"),
     ("src/repro_torch/telemetry/metrics.py", "record_window_torch"),
     ("src/repro_torch/serving/serve_step.py", "build_serve_fns._prefill"),
+    ("src/repro_torch/serving/serve_step.py",
+     "build_serve_fns._prefill_rows"),
     ("src/repro_torch/serving/serve_step.py", "build_serve_fns._decode"),
     ("src/repro_torch/serving/serve_step.py", "_build_sharded._prefill"),
     ("src/repro_torch/serving/serve_step.py", "_build_sharded._decode"),

@@ -130,6 +130,32 @@ def test_rope_angles_with_three_streams_match(sections, head_dim):
         torch.from_numpy(pos[0]), head_dim, 1e6), atol=0, rtol=0)
 
 
+def test_mrope_takes_sections_given_as_a_list():
+    """A config whose ``mrope_sections`` arrives as a list (read from
+    JSON, or set with ``dataclasses.replace``) serves what the tuple
+    serves: the same angles, and the same tokens from a prefill and a
+    decode call of the vision-language smoke config."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.serving.engine import EngineConfig, ModelExecutor
+    pos = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 4000, size=(3, 2, 7)).astype(np.int32))
+    torch.testing.assert_close(L.rope_angles(pos, 16, 1e6, list(SECTIONS)),
+                               L.rope_angles(pos, 16, 1e6, SECTIONS),
+                               atol=0, rtol=0)
+    ecfg = EngineConfig(max_slots=2, max_len=32, prefill_chunk=8)
+    toks = P.tokens((2, 8), 257, seed=7).astype(np.int32)
+    out = []
+    for sections in (SECTIONS, list(SECTIONS)):
+        cfg = dataclasses.replace(smoke_config(VL), mrope_sections=sections)
+        exe = ModelExecutor(cfg, ecfg, rng_seed=4, device="cpu")
+        out.append([exe.prefill(toks, np.zeros(2, np.int32),
+                                np.full(2, 8, np.int32)),
+                    exe.decode(toks[:, 0], np.full(2, 8, np.int32),
+                               np.ones(2, bool))])
+    for want, got in zip(*out):
+        np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("port_impl", P.IMPLS)
 def test_vis_splice_with_three_position_streams_matches(port_impl):
     """Qwen2-VL's forward with precomputed patch embeddings spliced in
